@@ -3,6 +3,7 @@
 // caller's stream, allocates nothing and returns cudaGetLastError() right
 // after the launch so a refused launch is reported to the caller.
 #include "conv3d.cuh"
+#include "flash_attention.cuh"
 #include "fold_upsample.cuh"
 #include "window_attention.cuh"
 
@@ -32,11 +33,13 @@ int seedvr2_fold_upsample(const void* x, const void* K, const void* btab, const 
 int seedvr2_window_attention(const void* vqkv, const void* tqkv, const void* vcos,
                              const void* vsin, const void* tcos, const void* tsin,
                              const void* valid, const void* norms, void* ovid, void* otxt, int B,
-                             int H, int nW, int S, int Lt, int rope_txt, int qk_norm, float eps,
-                             float scale, void* stream) {
+                             int H, int nW, int S, int Lt, int rope_txt, int qk_norm, int quant_qk,
+                             float eps, float scale, void* stream) {
   // above 48 KB of dynamic shared memory needs an opt-in (per device, so per call)
-  const cudaError_t err = cudaFuncSetAttribute(
-      window_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnSmem);
+  const auto kernel = quant_qk ? window_attention_kernel<true> : window_attention_kernel<false>;
+  const int smem = quant_qk ? kAttnSmemQ : kAttnSmem;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   AttnArgs a;
   a.vqkv = (const bf16*)vqkv;
@@ -58,7 +61,29 @@ int seedvr2_window_attention(const void* vqkv, const void* tqkv, const void* vco
   a.eps = eps;
   a.scale = scale;
   const dim3 grid((S + Lt + kTile - 1) / kTile, nW * H, B);
-  window_attention_kernel<<<grid, kThreads, kAttnSmem, (cudaStream_t)stream>>>(a);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int seedvr2_flash_attention(const void* q, const void* k, const void* v, const void* kv_valid,
+                            const void* q_valid, void* o, int B, int S, int H, int n_pad,
+                            float scale, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnSmem);
+  if (err != cudaSuccess) return (int)err;
+  FlashArgs a;
+  a.q = (const bf16*)q;
+  a.k = (const bf16*)k;
+  a.v = (const bf16*)v;
+  a.kv_valid = (const uint8_t*)kv_valid;
+  a.q_valid = (const uint8_t*)q_valid;
+  a.o = (bf16*)o;
+  a.S = S;
+  a.H = H;
+  a.n_pad = n_pad;
+  a.scale = scale;
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  flash_attention_kernel<<<grid, kThreads, kAttnSmem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,20 @@
 // rescaled by the running-max correction each tile), so a block needs ~94 KB
 // and two blocks fit on an SM. The text-output mean over windows stays
 // outside, in fp32, as in the JAX model.
+//
+// K3q (template flag kQuant) replaces the same Pallas kernel with
+// quant_qk=True, the attention_mode sageattn_2/3: after a q or k tile is
+// normalised, roped and rounded to bf16, every row gets an fp32 scale
+// s = max|x| * (1/127) + 1e-8 and int8 codes rint(x / s), computed as the
+// tile loads (attn_quant_tile), in the Pallas kernel's op order with
+// explicit round-to-nearest intrinsics so that no multiply-add is
+// contracted and the codes match at ties. QK^T runs on the int8 tensor
+// cores (WMMA 16x16x16 s8, int32 accumulation; |dot| <= 128 * 127^2 is
+// exact in fp32) and the logit is float(dot) * (s_q * scale) * s_k. The Q
+// codes stay in registers as int8 fragments and their scales in shared
+// memory for the block; the code tiles and scales add 16.5 KB of shared
+// memory, still two blocks per SM. Softmax and PV are those of K3, and so
+// is what bounds it: the one-thread-per-row softmax, not the product.
 #pragma once
 
 #include "common.cuh"
@@ -40,6 +54,16 @@ constexpr int kOffS = kOffO + kTile * kLdO * 4;  // scores; doubles as rms parti
 constexpr int kOffP = kOffS + kTile * kLdS * 4;
 constexpr int kOffRow = kOffP + kTile * kLdP * 2;
 constexpr int kAttnSmem = kOffRow + 3 * kTile * 4;
+// K3q: int8 codes of the Q and K tiles, chunk-major [kD/16][kTile][16] so
+// that every 16x16 fragment starts 32-byte aligned, then the row scales.
+constexpr int kOffQ8 = kAttnSmem;
+constexpr int kOffK8 = kOffQ8 + kTile * kD;
+constexpr int kOffScale = kOffK8 + kTile * kD;
+constexpr int kAttnSmemQ = kOffScale + 2 * kTile * 4;
+
+using FragA8 = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
+using FragB8 = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major>;
+using FragCi = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
 
 struct AttnArgs {
   const bf16* vqkv;    // [B, 3, H, nW, S, D]
@@ -121,7 +145,8 @@ __device__ void attn_load_tile(const AttnArgs& a, bf16* dst, float* part, float*
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float rot = (j & 1) ? nv[j - 1] : -nv[j + 1];
-          o.h[j] = __float2bfloat16(nv[j] * cs[j] + rot * sn[j]);
+          // separate roundings, as the plain version's multiply and add (no contracted FMA)
+          o.h[j] = __float2bfloat16(__fadd_rn(__fmul_rn(nv[j], cs[j]), __fmul_rn(rot, sn[j])));
         }
       } else {
 #pragma unroll
@@ -132,7 +157,50 @@ __device__ void attn_load_tile(const AttnArgs& a, bf16* dst, float* part, float*
   }
 }
 
-// grid = (ceil((S+Lt)/64), nW*H, B); dynamic shared memory kAttnSmem.
+// K3q: the 64-row bf16 tile src (row stride kLdT) -> per-row int8 codes in
+// dst8 (chunk-major) and fp32 scales in scale[64]. Each thread owns the
+// same eight 8-element pieces as in attn_load_tile. Ends synchronised.
+__device__ void attn_quant_tile(const bf16* src, signed char* dst8, float* part, float* scale) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int e = tid + kThreads * k;
+    const int r = e >> 4, dc = (e & 15) * 8;
+    Pack8 x;
+    x.u = *reinterpret_cast<const uint4*>(src + r * kLdT + dc);
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(__bfloat162float(x.h[j])));
+    part[r * kLdPart + (e & 15)] = m;
+  }
+  __syncthreads();
+  if (tid < kTile) {
+    float m = 0.f;
+    for (int c = 0; c < 16; ++c) m = fmaxf(m, part[tid * kLdPart + c]);
+    scale[tid] = __fadd_rn(__fmul_rn(m, (float)(1.0 / 127.0)), 1e-8f);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int e = tid + kThreads * k;
+    const int r = e >> 4, dc = (e & 15) * 8;
+    Pack8 x;
+    x.u = *reinterpret_cast<const uint4*>(src + r * kLdT + dc);
+    const float sr = scale[r];
+    union {
+      uint2 u;
+      signed char c[8];
+    } q;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) q.c[j] = (signed char)__float2int_rn(__fdiv_rn(__bfloat162float(x.h[j]), sr));
+    *reinterpret_cast<uint2*>(dst8 + (dc >> 4) * (kTile * 16) + r * 16 + (dc & 15)) = q.u;
+  }
+  __syncthreads();
+}
+
+// grid = (ceil((S+Lt)/64), nW*H, B); dynamic shared memory kAttnSmem (K3)
+// or kAttnSmemQ (K3q).
+template <bool kQuant>
 __global__ void __launch_bounds__(kThreads) window_attention_kernel(const AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem + kOffK);
@@ -143,6 +211,10 @@ __global__ void __launch_bounds__(kThreads) window_attention_kernel(const AttnAr
   float* sAlpha = reinterpret_cast<float*>(smem + kOffRow);
   float* sRstd = sAlpha + kTile;
   float* sKeyOk = sRstd + kTile;
+  signed char* sQ8 = reinterpret_cast<signed char*>(smem + kOffQ8);  // K3q only
+  signed char* sK8 = reinterpret_cast<signed char*>(smem + kOffK8);
+  float* sQs = reinterpret_cast<float*>(smem + kOffScale);
+  float* sKs = sQs + kTile;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -151,15 +223,25 @@ __global__ void __launch_bounds__(kThreads) window_attention_kernel(const AttnAr
   const int R = a.S + a.Lt;
   const int q0 = blockIdx.x * kTile;
 
-  // Q tile: normalised and roped into sK, then held as fragments.
+  // Q tile: normalised and roped into sK, then held as fragments (K3) or as
+  // int8 codes in sQ8 with row scales in sQs (K3q).
   attn_load_tile(a, sK, sS, sRstd, 0, q0, b, h, w);
   __syncthreads();
-  FragA qf[kD / 16];
+  FragA qf[kQuant ? 1 : kD / 16];
+  FragA8 qf8[kQuant ? kD / 16 : 1];
+  if constexpr (kQuant) {
+    attn_quant_tile(sK, sQ8, sS, sQs);
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], sK + warp * 16 * kLdT + kk * 16, kLdT);
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wmma::load_matrix_sync(qf8[kk], sQ8 + kk * (kTile * 16) + warp * 16 * 16, 16);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wmma::load_matrix_sync(qf[kk], sK + warp * 16 * kLdT + kk * 16, kLdT);
+  }
   for (int e = tid; e < kTile * kLdO; e += kThreads) sO[e] = 0.f;
   float m_run = -1e30f, l_run = 0.f;  // row tid's running max and sum (tid < 64)
+  const float q_scale = kQuant && tid < kTile ? __fmul_rn(sQs[tid], a.scale) : a.scale;
   __syncthreads();
 
   for (int j0 = 0; j0 < R; j0 += kTile) {
@@ -172,30 +254,53 @@ __global__ void __launch_bounds__(kThreads) window_attention_kernel(const AttnAr
     __syncthreads();
 
     // scores: warp rows [16*warp, 16*warp+16) x 64 keys
+    if constexpr (kQuant) {
+      attn_quant_tile(sK, sK8, sS, sKs);
+      int* sSi = reinterpret_cast<int*>(sS);
 #pragma unroll
-    for (int nf = 0; nf < kTile / 16; ++nf) {
-      FragC s;
-      wmma::fill_fragment(s, 0.f);
+      for (int nf = 0; nf < kTile / 16; ++nf) {
+        FragCi s;
+        wmma::fill_fragment(s, 0);
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        FragBCol kb;
-        wmma::load_matrix_sync(kb, sK + nf * 16 * kLdT + kk * 16, kLdT);
-        wmma::mma_sync(s, qf[kk], kb, s);
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          FragB8 kb;
+          wmma::load_matrix_sync(kb, sK8 + kk * (kTile * 16) + nf * 16 * 16, 16);
+          wmma::mma_sync(s, qf8[kk], kb, s);
+        }
+        wmma::store_matrix_sync(sSi + warp * 16 * kLdS + nf * 16, s, kLdS, wmma::mem_row_major);
       }
-      wmma::store_matrix_sync(sS + warp * 16 * kLdS + nf * 16, s, kLdS, wmma::mem_row_major);
+    } else {
+#pragma unroll
+      for (int nf = 0; nf < kTile / 16; ++nf) {
+        FragC s;
+        wmma::fill_fragment(s, 0.f);
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          FragBCol kb;
+          wmma::load_matrix_sync(kb, sK + nf * 16 * kLdT + kk * 16, kLdT);
+          wmma::mma_sync(s, qf[kk], kb, s);
+        }
+        wmma::store_matrix_sync(sS + warp * 16 * kLdS + nf * 16, s, kLdS, wmma::mem_row_major);
+      }
     }
     __syncthreads();
 
     // online softmax, one thread per query row
     if (tid < kTile) {
-      const float* srow = sS + tid * kLdS;
+      // K3: dot * scale; K3q: float(int dot) * (s_q * scale) * s_k
+      auto logit = [&](int c) {
+        if constexpr (kQuant)
+          return __fmul_rn(__fmul_rn((float)reinterpret_cast<const int*>(sS)[tid * kLdS + c], q_scale), sKs[c]);
+        else
+          return sS[tid * kLdS + c] * q_scale;
+      };
       float mx = m_run;
       for (int c = 0; c < kTile; ++c)
-        if (sKeyOk[c] != 0.f) mx = fmaxf(mx, srow[c] * a.scale);
+        if (sKeyOk[c] != 0.f) mx = fmaxf(mx, logit(c));
       const float alpha = expf(m_run - mx);
       float sum = 0.f;
       for (int c = 0; c < kTile; ++c) {
-        const float p = sKeyOk[c] != 0.f ? expf(srow[c] * a.scale - mx) : 0.f;
+        const float p = sKeyOk[c] != 0.f ? expf(logit(c) - mx) : 0.f;
         sP[tid * kLdP + c] = __float2bfloat16(p);
         sum += p;
       }

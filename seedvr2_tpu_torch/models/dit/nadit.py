@@ -1,13 +1,18 @@
-"""NaDiT (counterpart of seedvr2_tpu/models/dit/nadit.py), the fused
-window-attention path: every layer's attention runs K3
-(ops/fused_window_attention.py), layers run as a Python loop.
+"""NaDiT-3B and NaDiT-7B (counterpart of seedvr2_tpu/models/dit/nadit.py);
+layers run as a Python loop.
 
 Dense [B, L, D] tokens; 3D shifted-window attention over padded windows
-with a validity mask (plans from seedvr2_tpu/models/dit/windows.py); text
-tokens attend inside every window and their outputs are averaged over
-windows; AdaLN-single modulation; SwiGLU (3B) MLP; layers from mm_layers
-on share one set of weights for both streams; the 3B last layer is
-video-only.
+with a validity mask (plans from models/dit/windows.py); text tokens attend
+inside every window and their outputs are averaged over windows;
+AdaLN-single modulation; SwiGLU (3B) or GELU (7B) MLP; 3B layers from
+mm_layers on share one set of weights for both streams and its last layer
+is video-only; 3B ropes text too (mmrope3d), 7B only video (window_pixel).
+
+The attention mode (ops/attention.py) picks the window attention of every
+layer: "fused" and "fused_int8" run K3 / K3q on head-major q, k, v with
+norm and RoPE inside the kernel; "pallas" and "xla" gather, normalise and
+rope outside, append the text to every window and call K5 or the plain
+attention.
 
 Quirk kept on purpose: the 3B output modulation (vid_out_ada) uses the
 attn-layer slice of the time embedding, as the reference does through a
@@ -24,13 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from seedvr2_tpu.config import DiTConfig
-from seedvr2_tpu.models.dit.windows import WindowPlan, window_plan
-
+from ...config import DiTConfig
+from ...ops.attention import attention, resolve_attention_mode
 from ...ops.fused_window_attention import fused_window_attention
 from ...ops.normalization import rms_norm
-from ...ops.rope import axial_freqs_lang, axial_freqs_pixel, pad_angles
+from ...ops.rope import axial_freqs_lang, axial_freqs_pixel, pad_angles, rotate
 from ..params import NORMAL, ONES, ONES_PLUS_NORMAL, ZEROS, Leaf, Linear, branch
+from .windows import WindowPlan, window_plan
 
 # --------------------------------------------------------------------------- #
 # Static per-shape attention plans (host numpy) and their device copies
@@ -215,9 +220,10 @@ def _ada(p_ada: nn.ModuleDict, stream: str, x, emb_slices, idx: int, mode: str, 
 
 
 class NaDiT(nn.Module):
-    def __init__(self, cfg: DiTConfig, device=None, dtype=torch.bfloat16):
+    def __init__(self, cfg: DiTConfig, device=None, dtype=torch.bfloat16, attention_mode: str = "fused"):
         super().__init__()
         self.cfg = cfg
+        self.set_attention_mode(attention_mode)
         D = cfg.vid_dim
         patch = int(np.prod(cfg.patch_size))
         self.vid_in = Linear(cfg.vid_in_channels * patch, D, device, dtype)
@@ -231,9 +237,16 @@ class NaDiT(nn.Module):
             )
         self.blocks = nn.ModuleList([Block(cfg, i, device, dtype) for i in range(cfg.num_layers)])
 
+    def set_attention_mode(self, name: str) -> "NaDiT":
+        """A name of ops/attention.py's alias table (fused, sdpa,
+        flash_attn_2/3, sageattn_2/3, ...); unknown names raise. Returns the
+        module, as ``eval()`` does."""
+        self.attention_backend = resolve_attention_mode(name)
+        return self
+
     # ------------------------------------------------------------------ #
 
-    def _window_attention(self, attn: Attention, vid, txt, dp: DevicePlan):
+    def _window_attention_fused(self, attn: Attention, vid, txt, dp: DevicePlan):
         cfg = self.cfg
         B, _, D = vid.shape
         H, hd = cfg.heads, cfg.head_dim
@@ -253,7 +266,7 @@ class NaDiT(nn.Module):
         txt_qkv = qkv_hm(branch(attn.qkv, "txt"), txt).contiguous()
         ovid, otxt = fused_window_attention(
             vid_win, txt_qkv, dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.valid, dp.rope_txt,
-            norms, cfg.qk_norm, cfg.norm_eps,
+            norms, cfg.qk_norm, cfg.norm_eps, quant_qk=self.attention_backend == "fused_int8",
         )
         vid_tok = ovid.reshape(B, H, nW * mL, hd).index_select(2, dp.inverse)  # [B, H, L, hd]
         txt_tok = otxt.float().mean(dim=2).to(otxt.dtype)  # text outputs averaged over windows
@@ -263,13 +276,57 @@ class NaDiT(nn.Module):
 
         return out_proj(branch(attn.out, "vid"), vid_tok), out_proj(branch(attn.out, "txt"), txt_tok)
 
+    def _window_attention_unfused(self, attn: Attention, vid, txt, dp: DevicePlan):
+        """Token-major path: projection, window gather, rms-norm and RoPE
+        outside the attention; text appended to every window; keys valid =
+        [window validity | all text]; K5 ("pallas") or the plain attention
+        ("xla"); inverse gather and the text mean over windows."""
+        cfg = self.cfg
+        B, _, D = vid.shape
+        Lt = txt.shape[1]
+        H, hd = cfg.heads, cfg.head_dim
+        nW, mL = dp.valid.shape
+
+        def qkv(leaf, x):  # -> [B, len, 3, H, hd]
+            y = x @ leaf.w.reshape(D, 3 * H * hd)
+            if "b" in leaf.spec:
+                y = y + leaf.b.reshape(-1)
+            return y.reshape(x.shape[0], x.shape[1], 3, H, hd)
+
+        vq, vk, vv = qkv(branch(attn.qkv, "vid"), vid).index_select(1, dp.index).reshape(B, nW, mL, 3, H, hd).unbind(3)
+        tq, tk, tv = qkv(branch(attn.qkv, "txt"), txt).unbind(2)  # [B, Lt, H, hd]
+        if cfg.qk_norm:
+            vq = rms_norm(vq, branch(attn.norm_q, "vid").w, cfg.norm_eps)
+            vk = rms_norm(vk, branch(attn.norm_k, "vid").w, cfg.norm_eps)
+            tq = rms_norm(tq, branch(attn.norm_q, "txt").w, cfg.norm_eps)
+            tk = rms_norm(tk, branch(attn.norm_k, "txt").w, cfg.norm_eps)
+        cos, sin = dp.vid_cos[None, :, :, None], dp.vid_sin[None, :, :, None]  # [1, nW, mL, 1, hd]
+        vq, vk = rotate(vq, cos, sin).to(vq.dtype), rotate(vk, cos, sin).to(vk.dtype)
+        if dp.rope_txt:
+            tcos, tsin = dp.txt_cos[None, :, None], dp.txt_sin[None, :, None]  # [1, Lt, 1, hd]
+            tq, tk = rotate(tq, tcos, tsin).to(tq.dtype), rotate(tk, tcos, tsin).to(tk.dtype)
+
+        def with_txt(vw, tw):  # [B, nW, mL, H, hd] + [B, Lt, H, hd] -> [B*nW, mL+Lt, H, hd]
+            return torch.cat([vw, tw[:, None].expand(B, nW, Lt, H, hd)], dim=2).reshape(B * nW, mL + Lt, H, hd)
+
+        kv_valid = torch.cat([dp.valid, torch.ones((nW, Lt), dtype=torch.bool, device=dp.valid.device)], dim=1)
+        kv_valid = kv_valid[None].expand(B, nW, mL + Lt).reshape(B * nW, mL + Lt)
+        out = attention(with_txt(vq, tq), with_txt(vk, tk), with_txt(vv, tv), kv_valid, backend=self.attention_backend)
+        out = out.reshape(B, nW, mL + Lt, H * hd)
+        vid_out = out[:, :, :mL].reshape(B, nW * mL, H * hd).index_select(1, dp.inverse)
+        txt_out = out[:, :, mL:].float().mean(dim=1).to(out.dtype)  # text outputs averaged over windows
+        return branch(attn.out, "vid")(vid_out), branch(attn.out, "txt")(txt_out)
+
     def _block(self, blk: Block, vid, txt, emb_slices, dp: DevicePlan):
         eps = self.cfg.norm_eps
         vid_a = _ada(blk.ada, "vid", rms_norm(vid, None, eps), emb_slices, 0, "in")
         txt_a = rms_norm(txt, None, eps)
         if not blk.vid_only:
             txt_a = _ada(blk.ada, "txt", txt_a, emb_slices, 0, "in")
-        vid_a, txt_a = self._window_attention(blk.attn, vid_a, txt_a, dp)
+        if self.attention_backend in ("fused", "fused_int8"):
+            vid_a, txt_a = self._window_attention_fused(blk.attn, vid_a, txt_a, dp)
+        else:
+            vid_a, txt_a = self._window_attention_unfused(blk.attn, vid_a, txt_a, dp)
         vid = vid + _ada(blk.ada, "vid", vid_a, emb_slices, 0, "out")
         txt = txt + (txt_a if blk.vid_only else _ada(blk.ada, "txt", txt_a, emb_slices, 0, "out"))
 

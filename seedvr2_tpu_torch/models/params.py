@@ -104,7 +104,7 @@ def prepare(root: nn.Module) -> None:
 
 def load_flat(root: nn.Module, flat: Mapping[str, object]) -> nn.Module:
     """Fill every leaf of ``root`` from a flat JAX-path dict (the layout of
-    seedvr2_tpu.io.weights.flatten_tree); raises on missing or extra keys."""
+    io/checkpoint.py:flatten_tree); raises on missing or extra keys."""
     expected = {p for p, _, _ in leaf_paths(root)}
     missing, extra = expected - set(flat), set(flat) - expected
     if missing or extra:

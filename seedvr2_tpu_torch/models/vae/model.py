@@ -12,8 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from seedvr2_tpu.config import VAEConfig
-
+from ...config import VAEConfig
 from ...ops.normalization import group_norm
 from ..params import ONES, ZEROS, Leaf, Linear
 from .causal_conv import CausalConv3d, StreamCtx, gn_silu

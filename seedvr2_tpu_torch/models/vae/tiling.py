@@ -8,8 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from seedvr2_tpu.config import VAEConfig
-
+from ...config import VAEConfig
 from .causal_conv import StreamCtx
 from .model import VAE, posterior_mode
 

@@ -46,7 +46,8 @@ _f = ctypes.c_float
 _SIGNATURES = {
     "seedvr2_conv3d_3x3x3": [_vp] * 4 + [_i] * 6 + [_vp],
     "seedvr2_fold_upsample": [_vp] * 5 + [_i] * 7 + [_vp],
-    "seedvr2_window_attention": [_vp] * 10 + [_i] * 7 + [_f] * 2 + [_vp],
+    "seedvr2_window_attention": [_vp] * 10 + [_i] * 8 + [_f] * 2 + [_vp],
+    "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
 }
 
 _lib: Optional[ctypes.CDLL] = None

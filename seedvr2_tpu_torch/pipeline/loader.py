@@ -9,11 +9,24 @@ from typing import Optional
 
 import torch
 
-from seedvr2_tpu.config import PipelineConfig
-from seedvr2_tpu.io import weights as jax_weights
-
+from ..config import PipelineConfig, dit_3b, dit_7b, vae_config
+from ..io.checkpoint import load_text_embeddings
+from ..io.registry import model_variant
 from ..io.weights import dit_from_safetensors, vae_from_safetensors
+from ..ops.attention import resolve_attention_mode
 from .runner import _DTYPES, Runner, _not_ported, check_supported
+
+
+def pick_config(dit_model: str, cfg: Optional[PipelineConfig] = None) -> PipelineConfig:
+    """The DiT variant follows the file name, as in the JAX loader: "7b" in
+    it picks NaDiT-7B, otherwise 3B; a 3B/7B ``cfg`` that the name
+    contradicts is corrected, a custom one ("tiny", ...) is kept."""
+    inferred = dit_7b() if model_variant(dit_model) == "7b" else dit_3b()
+    if cfg is None:
+        return PipelineConfig(dit=inferred, vae=vae_config())
+    if cfg.dit.variant in ("3b", "7b") and cfg.dit.variant != inferred.variant:
+        return cfg.replace(dit=inferred)
+    return cfg
 
 
 def load_runner(
@@ -24,8 +37,13 @@ def load_runner(
     device="cuda",
     quantize: Optional[str] = None,
     emb_dir: Optional[str] = None,
+    attention_mode: str = "fused",
 ) -> Runner:
-    cfg = cfg or PipelineConfig()
+    """The DiT config follows the file name (``pick_config``).
+    ``attention_mode`` is a name of ops/attention.py's alias table (fused,
+    sdpa, flash_attn_2/3, sageattn_2/3, ...)."""
+    resolve_attention_mode(attention_mode)  # an unknown name raises before any weight is read
+    cfg = pick_config(dit_model, cfg)
     check_supported(cfg)
     if quantize is not None:
         raise _not_ported(f"quantize={quantize!r}", "int8 DiT with a W8A16 kernel")
@@ -37,7 +55,7 @@ def load_runner(
             raise FileNotFoundError(p)
     device = torch.device(device)
     dtype = _DTYPES[cfg.compute_dtype]
-    dit = dit_from_safetensors(paths[0], cfg.dit, device, dtype)
+    dit = dit_from_safetensors(paths[0], cfg.dit, device, dtype).set_attention_mode(attention_mode)
     vae = vae_from_safetensors(paths[1], cfg.vae, device, dtype)
-    pos, _neg = jax_weights.load_text_embeddings(emb_dir)
+    pos, _neg = load_text_embeddings(emb_dir)
     return Runner(cfg, dit, vae, pos[:, : cfg.dit.txt_in_dim], device=device)

@@ -1,7 +1,7 @@
 """End-to-end generation, fused per-batch path (counterpart of
 seedvr2_tpu/pipeline/phases.py: generate -> generate_streaming ->
-Runner.fused_batch). Batch math (4n+1 padding, uniform batches) reuses the
-JAX package's jax-free seedvr2_tpu/pipeline/batching.py.
+Runner.fused_batch). Batch math (4n+1 padding, uniform batches) is in
+pipeline/batching.py.
 
 Batches run one after another; overlapping batch i+1's compute with batch
 i's device->host copy (pinned buffers, a copy stream) is later work.
@@ -14,19 +14,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from seedvr2_tpu.config import PipelineConfig
-from seedvr2_tpu.pipeline import batching
-
+from ..config import PipelineConfig
 from ..ops.resize import true_target_dims
+from . import batching
 from .runner import Runner, _not_ported, check_supported
-
-
-def prepare_batch(images: np.ndarray, spec: batching.BatchSpec) -> np.ndarray:
-    """Slice one batch, add uniform padding, pad to 4n+1 frames."""
-    video = images[spec.start : spec.end]
-    if spec.uniform_padding > 0:
-        video = batching.pad_temporal_reversed(video, spec.uniform_padding)
-    return batching.pad_to_4n1(video)
 
 
 def upload_frames(rgb: np.ndarray, device) -> torch.Tensor:
@@ -56,7 +47,7 @@ def generate_streaming(
     scale = 255.0 if cfg.output_bits == 8 else 65535.0
     write = 0
     for spec in specs:
-        fr = upload_frames(prepare_batch(images, spec)[..., :3], runner.device)
+        fr = upload_frames(batching.prepare_batch(images, spec)[..., :3], runner.device)
         codes = runner.fused_batch(fr, true_h, true_w, cfg.seed, noise=noise)
         host = codes[: spec.ori_length].cpu().numpy()
         final[write : write + spec.ori_length] = host.astype(packed_dtype) if packed else host.astype(np.float32) / np.float32(scale)

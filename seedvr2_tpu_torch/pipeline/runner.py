@@ -3,7 +3,9 @@ chain (counterpart of seedvr2_tpu/pipeline/runner.py, fused path).
 
 ``fused_batch`` is the JAX package's ``_make_fused_fn`` chain, run eagerly:
 to_f01 -> pipeline_transform -> VAE encode -> one Euler step of the NaDiT
--> VAE decode -> colour fix -> packed pixels.
+-> VAE decode -> colour fix -> packed pixels. Each stage is a
+``torch.profiler.record_function`` range ("runner.<stage>"), read by
+profile_batch.py; without a running profiler a range is one small host call.
 """
 
 from __future__ import annotations
@@ -12,9 +14,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from seedvr2_tpu.config import PipelineConfig
-
+from ..config import PipelineConfig
 from ..models.dit.nadit import NaDiT, build_attn_plans, device_plans
 from ..models.vae.model import VAE
 from ..models.vae.tiling import vae_decode, vae_encode
@@ -31,8 +33,6 @@ def _not_ported(setting: str, item: str):
 
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise for every setting off the ported path."""
-    if cfg.dit.variant == "7b":
-        raise _not_ported("NaDiT-7B", "7B")
     if cfg.encode_tiled or cfg.decode_tiled:
         raise _not_ported("tiled VAE encode/decode", "tiled VAE")
     if cfg.color_correction not in color_ops.SUPPORTED:
@@ -134,14 +134,19 @@ class Runner:
         true_w, 3] int32 (cfg.output_bits wide) on the device; the caller
         trims temporal padding (the colour methods here are per pixel)."""
         c = self.cfg
-        tv = pipeline_transform(to_f01(frames), c.resolution, c.max_resolution)  # fp32 [-1, 1]
-        latent = vae_encode(self.vae, tv[None].to(self.compute_dtype))
-        up = self.step(latent, seed, noise)
-        dec = vae_decode(self.vae, up)
-        x = dec[0, :, :true_h, :true_w].float()
-        if c.color_correction != "none":
-            style = tv[:, :true_h, :true_w]
-            x = color_ops.apply_color_correction(
-                c.color_correction, x.permute(0, 3, 1, 2), style.permute(0, 3, 1, 2)
-            ).permute(0, 2, 3, 1)
-        return pack_frames((x * 0.5 + 0.5).clamp(0.0, 1.0), c.output_bits)
+        with record_function("runner.transform"):
+            tv = pipeline_transform(to_f01(frames), c.resolution, c.max_resolution)  # fp32 [-1, 1]
+        with record_function("runner.vae_encode"):
+            latent = vae_encode(self.vae, tv[None].to(self.compute_dtype))
+        with record_function("runner.dit_step"):
+            up = self.step(latent, seed, noise)
+        with record_function("runner.vae_decode"):
+            dec = vae_decode(self.vae, up)
+        with record_function("runner.color_pack"):
+            x = dec[0, :, :true_h, :true_w].float()
+            if c.color_correction != "none":
+                style = tv[:, :true_h, :true_w]
+                x = color_ops.apply_color_correction(
+                    c.color_correction, x.permute(0, 3, 1, 2), style.permute(0, 3, 1, 2)
+                ).permute(0, 2, 3, 1)
+            return pack_frames((x * 0.5 + 0.5).clamp(0.0, 1.0), c.output_bits)

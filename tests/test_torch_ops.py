@@ -59,6 +59,18 @@ def test_apply_rotary(r):
     np.testing.assert_allclose(got, np.asarray(jrope.apply_rotary(jnp.asarray(x), jnp.asarray(ang))), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("r", [60, 126, 128])
+def test_apply_rotary_on_the_unfused_window_layout(r):
+    """x [B, nW, mL, H, hd] with angles [1, nW, mL, 1, R], as the unfused
+    window attention ropes q and k (R = 60: the 7B window_pixel width);
+    rotate() with the zero-padded tables' cos/sin is the same rotation."""
+    x, ang = _rand((2, 3, 5, 4, 128), 7), _rand((1, 3, 5, 1, r), 8, 3.0)
+    ref = np.asarray(jrope.apply_rotary(jnp.asarray(x), jnp.asarray(ang)))
+    np.testing.assert_allclose(rope.apply_rotary(_t(x), _t(ang)).numpy(), ref, atol=1e-5, rtol=1e-5)
+    padded = _t(rope.pad_angles(ang, 128))
+    np.testing.assert_allclose(rope.rotate(_t(x), padded.cos(), padded.sin()).numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("hw,res,mx", [((24, 20), 32, 0), ((36, 64), 20, 0), ((50, 30), 64, 80)])
 def test_pipeline_transform(hw, res, mx):
     assert resize.side_resize_dims(*hw, res, mx) == jresize.side_resize_dims(*hw, res, mx)
