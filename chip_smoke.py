@@ -6,30 +6,44 @@
 Phases (any failure raises and the script exits non-zero without a result):
   1. card: name, power limit, versions;
   2. build: compile csrc/ with nvcc for sm_90a (build time, -Xptxas -v);
-  3. kernels: K1, K2, K3 (3B), K3q and K5 (7B) against their plain PyTorch
+  3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K4 (K1 with the GroupNorm +
+     SiLU prologue, tables from GroupNorm weights, at K1's shapes) and K6
+     (the tap-folded conv) against their plain PyTorch
      versions at the shapes of the 720p paths, bf16 inputs, bound
      ||k - p||_2 / ||p||_2 <= 1e-2 (the kernels round their outputs to bf16,
      ~4e-3); K3q must also reproduce its plain version's step away from
      unquantised attention (step share within 0.1 of 1, see compare());
      CUDA-event times of kernel, plain version and the nearest
      single PyTorch call (library_ms, a yardstick the port never calls);
-     bound_ms from the shapes and the card's published peaks;
+     bound_ms from the shapes and the card's published peaks; K4 and K6
+     rows also carry K1's time at the same shape (``k1_ms``), their rival;
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
-     (window_pixel) under sageattn_2 (K3q) and flash_attn_2 (K5); mean
-     |diff| <= 1e-2 and relative L2 <= 5e-2 (bf16 vs fp32 of the same
-     pipeline measured 2.8e-3 and 1.6e-2 on CPU);
+     (window_pixel) under sageattn_2 (K3q) and flash_attn_2 (K5), and the
+     3B-style one through the 4-phase path (9 frames, overlap 2, tiled VAE,
+     GroupNorm fusion: K4); mean |diff| <= 1e-2 and relative L2 <= 5e-2
+     (bf16 vs fp32 of the same pipeline measured 2.8e-3 and 1.6e-2 on CPU);
   5. main path: NaDiT-3B (32 layers, width 2560) and the VAE at full width
      with random weights drawn on the card, the bundled text embedding, a
      5-frame 640x360 clip upscaled to 1280x720 with the default pipeline
-     settings through seedvr2_tpu_torch.pipeline.phases.generate;
+     settings through seedvr2_tpu_torch.pipeline.phases.generate; then the
+     same with the VAE's GroupNorm fusion on (K4 48 launches, K1 none);
   6. the 7B path: NaDiT-7B (36 layers, width 3072, 24 heads) and the VAE at
      full width, the same clip, once under sageattn_2 (K3q in every layer)
-     and once under flash_attn_2 (K5 in every layer).
-Every launch counter is set to 0 right before each driven run of phases 5
-and 6 and read right after it; a kernel row's ``launches`` is the count of
-the run that is its path (K1, K2, K3: phase 5; K3q, K5: their phase-6 run).
+     and once under flash_attn_2 (K5 in every layer);
+  7. the long-clip path: NaDiT-3B and the VAE at full width, a 15-frame
+     960x540 clip upscaled to 1920x1080 through the 4-phase pipeline:
+     batch_size 9 with temporal_overlap 3 (two batches, Hann blend), the
+     tiled VAE at its default tiles (2x2 in encode and decode), GroupNorm
+     fusion on (K4 in every resnet conv), wavelet colour.
+Every launch counter is set to 0 right before each driven run of phases 5,
+6 and 7 and read right after it; a kernel row's ``launches`` is the count
+of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4:
+phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run); phase 7's
+counts stand under ``e2e.long_clip.launches``. K6 is on no path (the JAX
+package reaches it only from its benchmark scripts): its row's count is
+its sum over every driven run, which must be 0.
 Then: the kernels JSON line, the card line, and the final JSON line.
 """
 
@@ -92,6 +106,8 @@ def kernel_counters():
         "K3": (k3.fused_window_attention, "launches"),
         "K3q": (k3.fused_window_attention, "launches_int8"),
         "K5": (k5.flash_attention, "launches"),
+        "K4": (k1.conv3d_3x3x3, "launches_gn"),
+        "K6": (k1.conv3d_3x3x3_im2col, "launches"),
     }
 
 
@@ -112,7 +128,8 @@ def _rel(got_t, ref_t):
     return max(float((g - r).norm() / r.norm()) for g, r in zip(got_t, ref_t))
 
 
-def compare(kid, name, source, replaces, kernel, plain, bytes_moved, ops, library=None, library_call=None, rival=None):
+def compare(kid, name, source, replaces, kernel, plain, bytes_moved, ops, library=None, library_call=None, rival=None,
+            extra_row=None):
     """Run kernel and plain version on the same inputs, check, time both,
     and the library call where one exists. ``rival`` is a plain version of
     a nearby function that the kernel must not be mistaken for (K3q: the
@@ -150,6 +167,7 @@ def compare(kid, name, source, replaces, kernel, plain, bytes_moved, ops, librar
         "launches": None, "max_abs_err": err, "rel_l2": rel, **extra, "ms": cuda_ms(kernel, 20),
         "plain_ms": cuda_ms(plain, 3), "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None if library is None else cuda_ms(library, 20), "library_call": library_call,
+        **(extra_row or {}),
     }
     lib = "" if library is None else f"  library {row['library_ms']:.3f} ms"
     print(f"  {row['name']}: rel L2 {rel:.3e}  max|err| {err:.3e}{note}  kernel {row['ms']:.3f} ms"
@@ -245,19 +263,59 @@ def kernel_phase(dev):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
 
-    # K1: the resnet convs of the 720p decode (latent 2x90x160 -> 5x720x1280)
+    # K1: the resnet convs of the 720p decode (latent 2x90x160 -> 5x720x1280);
+    # K4: the same convs with the resnet's GroupNorm + SiLU folded into the
+    # load (tables from GroupNorm weights of the input); K6: the folded
+    # product at the shapes of the JAX package's c128 A/B and c256
+    k1_ms = {}
     for c, T, H, W in ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280)):
         x = randn(1, T + 2, H, W, c)
         w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
         b = torch.randn(c, generator=g, device=dev)
         w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
         xc = x.permute(0, 4, 1, 2, 3)
+        ops = {"bf16": 2 * T * H * W * 27 * c * c}
+        shape = f"c{c} {T}x{H}x{W}"
         rows.append(compare(
-            "K1", f"conv3d_3x3x3 c{c} {T}x{H}x{W}", "seedvr2_tpu_torch/csrc/conv3d.cuh",
+            "K1", f"conv3d_3x3x3 {shape}", "seedvr2_tpu_torch/csrc/conv3d.cuh",
             "seedvr2_tpu/ops/conv3d_kernel.py:193",
             lambda: k1.conv3d_3x3x3(x, w, b), lambda: k1.conv3d_3x3x3_plain(x, w, b),
+            nbytes(x, w, b) + T * H * W * c * 2, ops,
+            lambda: F.conv3d(xc, w_oidhw, b.bfloat16(), padding=(0, 1, 1)), "F.conv3d in bf16 (cuDNN), NCDHW view",
+        ))
+        k1_ms[shape] = rows[-1]["ms"]
+        gw = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+        gb = 0.3 * torch.randn(c, generator=g, device=dev)
+        scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
+
+        def chain():
+            h = x.permute(0, 1, 4, 2, 3).reshape(T + 2, c, H, W)  # per-frame GroupNorm on NCHW frames
+            h = F.silu(F.group_norm(h, 32, gw.bfloat16(), gb.bfloat16(), eps=1e-6))
+            return F.conv3d(h.reshape(1, T + 2, c, H, W).transpose(1, 2), w_oidhw, b.bfloat16(), padding=(0, 1, 1))
+
+        rows.append(compare(
+            "K4", f"conv3d_3x3x3 + GroupNorm/SiLU prologue {shape}", "seedvr2_tpu_torch/csrc/conv3d.cuh",
+            "seedvr2_tpu/ops/conv3d_kernel.py:193 (scale=, shift=: _kernel_gn :100)",
+            lambda: k1.conv3d_3x3x3(x, w, b, scale, shift), lambda: k1.conv3d_3x3x3_plain(x, w, b, scale, shift),
+            nbytes(x, w, b, scale, shift) + T * H * W * c * 2, ops, chain,
+            "chain: per-frame F.group_norm + F.silu + cuDNN bf16 F.conv3d (channels-first copies of x included)",
+            extra_row={"k1_ms": k1_ms[shape]},
+        ))
+        del x, xc, scale, shift
+    for c, T, H, W in ((128, 5, 720, 1280), (256, 5, 360, 640)):
+        x = randn(1, T + 2, H, W, c)
+        w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
+        b = torch.randn(c, generator=g, device=dev)
+        w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
+        xc = x.permute(0, 4, 1, 2, 3)
+        shape = f"c{c} {T}x{H}x{W}"
+        rows.append(compare(
+            "K6", f"conv3d_3x3x3_im2col {shape}", "seedvr2_tpu_torch/csrc/conv3d_im2col.cuh",
+            "seedvr2_tpu/ops/conv3d_kernel.py:323",
+            lambda: k1.conv3d_3x3x3_im2col(x, w, b), lambda: k1.conv3d_3x3x3_im2col_plain(x, w, b),
             nbytes(x, w, b) + T * H * W * c * 2, {"bf16": 2 * T * H * W * 27 * c * c},
             lambda: F.conv3d(xc, w_oidhw, b.bfloat16(), padding=(0, 1, 1)), "F.conv3d in bf16 (cuDNN), NCDHW view",
+            extra_row={"k1_ms": k1_ms[shape]},
         ))
         del x, xc
     # K2: the decoder's three upsamples at 720p (the phase-pure call of each)
@@ -297,42 +355,56 @@ def small_config(rope_type="mmrope3d"):
     return PipelineConfig(dit=dit, vae=vae, resolution=64)
 
 
-def reference_phase(dev, text, rope_type, mode):
+# the 4-phase long-clip settings at the small size: 9 frames in 5-frame
+# batches overlapping by 2, the tiled VAE (a 2x3 grid of 40x48 px tiles in
+# encode and decode), GroupNorm fusion
+SMALL_LONG_CLIP = dict(temporal_overlap=2, encode_tiled=True, decode_tiled=True, encode_tile_size=(48, 48),
+                       encode_tile_overlap=(16, 16), decode_tile_size=(48, 48), decode_tile_overlap=(16, 16))
+
+
+def reference_phase(dev, text, rope_type, mode, long_clip=False):
     """The same small upscale on the card (bf16, kernels) and on the CPU
-    (fp32, plain versions)."""
+    (fp32, plain versions); ``long_clip``: through the 4-phase path with
+    the tiled VAE and GroupNorm fusion (SMALL_LONG_CLIP)."""
     from seedvr2_tpu_torch.models.dit.nadit import NaDiT
     from seedvr2_tpu_torch.models.params import init_random
     from seedvr2_tpu_torch.models.vae.model import VAE
     from seedvr2_tpu_torch.pipeline import phases
     from seedvr2_tpu_torch.pipeline.runner import Runner
 
-    frames = np.random.RandomState(1).randint(0, 256, (5, 32, 48, 3)).astype(np.uint8)
+    n = 9 if long_clip else 5
+    frames = np.random.RandomState(1).randint(0, 256, (n, 32, 48, 3)).astype(np.uint8)
     outs = []
     for device, dtype in ((dev, torch.bfloat16), (torch.device("cpu"), torch.float32)):
-        cfg = small_config(rope_type).replace(compute_dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+        cfg = small_config(rope_type).replace(compute_dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
+                                              **(SMALL_LONG_CLIP if long_clip else {}))
         dit = init_random(NaDiT(cfg.dit, device, dtype, mode), torch.Generator().manual_seed(11))
-        vae = init_random(VAE(cfg.vae, device, dtype), torch.Generator().manual_seed(12))
+        vae = init_random(VAE(cfg.vae, device, dtype, gn_fusion=long_clip), torch.Generator().manual_seed(12))
         noise = torch.randn((2, 8, 12, 16), generator=torch.Generator().manual_seed(13))
         reset_counts()
         outs.append(phases.generate(Runner(cfg, dit, vae, text, device=device), frames, noise=noise))
         if device.type == "cuda":
             ran = read_counts()
     want = {"fused": "K3", "sageattn_2": "K3q", "flash_attn_2": "K5"}[mode]
-    if ran[want] != cfg.dit.num_layers:
-        raise RuntimeError(f"small {rope_type} {mode}: {want} ran {ran[want]} times, expected {cfg.dit.num_layers}")
+    n_batches = 3 if long_clip else 1
+    label = f"small {rope_type} {mode}" + (" 4-phase tiled gn_fusion" if long_clip else "")
+    if ran[want] != cfg.dit.num_layers * n_batches:
+        raise RuntimeError(f"{label}: {want} ran {ran[want]} times, expected {cfg.dit.num_layers * n_batches}")
+    if long_clip and not (ran["K4"] > 0 and ran["K1"] == 0):
+        raise RuntimeError(f"{label}: expected K4 and no K1 launches, got {ran}")
     gpu, cpu = outs
     mean_err = float(np.abs(gpu - cpu).mean())
     rel = float(np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu - 0.5))
-    print(f"  small {rope_type} {mode}: out {gpu.shape}, mean |gpu bf16 - cpu fp32| {mean_err:.3e}, rel L2 {rel:.3e}",
-          flush=True)
-    if not (gpu.shape == (5, 64, 96, 3) and np.isfinite(gpu).all() and mean_err <= 1e-2 and rel <= 5e-2):
-        raise RuntimeError(f"small {rope_type} {mode}: card and CPU disagree (mean {mean_err:.3e}, rel {rel:.3e})")
-    return {"rope_type": rope_type, "mode": mode, "mean_abs_diff": mean_err, "rel_l2": rel}
+    print(f"  {label}: out {gpu.shape}, mean |gpu bf16 - cpu fp32| {mean_err:.3e}, rel L2 {rel:.3e}, "
+          f"launches {ran}", flush=True)
+    if not (gpu.shape == (n, 64, 96, 3) and np.isfinite(gpu).all() and mean_err <= 1e-2 and rel <= 5e-2):
+        raise RuntimeError(f"{label}: card and CPU disagree (mean {mean_err:.3e}, rel {rel:.3e})")
+    return {"rope_type": rope_type, "mode": mode, "long_clip": long_clip, "mean_abs_diff": mean_err, "rel_l2": rel}
 
 
-def drive(runner, frames, label):
+def drive(runner, frames, label, out_shape=(5, 720, 1280, 3), runs=2):
     """One counted run (counters reset right before, read right after), then
-    a second run for the steady wall time."""
+    with ``runs=2`` a second run for the steady wall time."""
     from seedvr2_tpu_torch.pipeline import phases
 
     torch.cuda.synchronize()
@@ -344,19 +416,23 @@ def drive(runner, frames, label):
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    t0 = time.perf_counter()
-    phases.generate(runner, frames)
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
-    print(f"  {label}: out {out.shape} {out.dtype}, first run {wall:.3f} s, second run {wall2:.3f} s, "
+    e2e = {"wall_s": wall, "peak_gib": peak}
+    note = ""
+    if runs == 2:
+        t0 = time.perf_counter()
+        phases.generate(runner, frames)
+        torch.cuda.synchronize()
+        e2e["second_run_wall_s"] = time.perf_counter() - t0
+        note = f", second run {e2e['second_run_wall_s']:.3f} s"
+    print(f"  {label}: out {out.shape} {out.dtype}, first run {wall:.3f} s{note}, "
           f"peak {peak:.2f} GiB, launches {launches}", flush=True)
-    if out.shape != (5, 720, 1280, 3) or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+    if out.shape != out_shape or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise RuntimeError(f"{label}: bad output {out.shape}")
     if float(out.std()) == 0.0:
         raise RuntimeError(f"{label}: constant output")
-    if launches["K1"] == 0 or launches["K2"] == 0:
+    if launches["K1"] + launches["K4"] == 0 or launches["K2"] == 0:
         raise RuntimeError(f"{label}: a VAE kernel never launched: {launches}")
-    return launches, {"wall_s": wall, "second_run_wall_s": wall2, "peak_gib": peak}
+    return launches, e2e
 
 
 def expect(label, launches, want):
@@ -378,7 +454,28 @@ def main_path_phase(dev, text, frames):
     print(f"  3B weights on the card in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     launches, e2e = drive(runner, frames, "3B fused")
-    expect("3B fused", launches, {"K3": cfg.dit.num_layers, "K3q": 0, "K5": 0})
+    expect("3B fused", launches, {"K3": cfg.dit.num_layers, "K3q": 0, "K5": 0, "K4": 0})
+    # the same path with the resnets' GroupNorm + SiLU folded into their convs
+    runner.vae.set_gn_fusion(True)
+    launches_gn, e2e_gn = drive(runner, frames, "3B fused gn_fusion")
+    expect("3B fused gn_fusion", launches_gn, {"K4": 48, "K1": 0, "K3": cfg.dit.num_layers})
+    return launches, launches_gn, {"3b_fused": e2e, "3b_fused_gn_fusion": e2e_gn}
+
+
+def long_clip_phase(dev, text):
+    """Phase 7: 3B + VAE at full width, 15 x 960x540 -> 1920x1080 through the
+    4-phase pipeline (batch 9, overlap 3, tiled VAE, GroupNorm fusion)."""
+    from seedvr2_tpu_torch.config import PipelineConfig
+    from seedvr2_tpu_torch.io.weights import random_dit, random_vae
+    from seedvr2_tpu_torch.pipeline.runner import Runner
+    from seedvr2_tpu_torch.profile_batch import long_clip_config, long_clip_frames
+
+    cfg = long_clip_config(PipelineConfig())
+    g = torch.Generator(device=dev).manual_seed(44)
+    runner = Runner(cfg, random_dit(cfg.dit, g), random_vae(cfg.vae, g).set_gn_fusion(True), text, device=dev)
+    launches, e2e = drive(runner, long_clip_frames(), "3B long clip", out_shape=(15, 1080, 1920, 3), runs=1)
+    # 2 batches x (20 resnet convs x 2 encode slices + 28 x 2 decode slices) x 4 tiles; 32 layers x 2 batches
+    expect("3B long clip", launches, {"K4": 768, "K1": 0, "K3": 64, "K3q": 0, "K5": 0})
     return launches, e2e
 
 
@@ -402,7 +499,7 @@ def path_7b_phase(dev, text, frames):
     runner.dit.set_attention_mode("flash_attn_2")
     launches_f, out["flash_attn_2"] = drive(runner, frames, "7B flash_attn_2")
     expect("7B flash_attn_2", launches_f, {"K5": n, "K3": 0, "K3q": 0})
-    return {"K3q": launches["K3q"], "K5": launches_f["K5"]}, out
+    return launches, launches_f, out
 
 
 def main():
@@ -422,7 +519,8 @@ def main():
     shutil.rmtree(cuda_lib.BUILD_ROOT / cuda_lib.source_hash(), ignore_errors=True)  # build from these sources now
     b = cuda_lib.build()
     cuda_lib.library()
-    print(f"[2] build: {b.seconds:.1f} s -> {b.path}\n{b.log}", flush=True)
+    print(f"[2] build: {b.seconds:.1f} s -> {b.path} (nvcc per source {[round(t, 1) for t in b.compile_seconds]} s, "
+          f"sum {sum(b.compile_seconds):.1f} s)\n{b.log}", flush=True)
 
     print("[3] kernels vs plain versions", flush=True)
     rows = kernel_phase(dev)
@@ -432,19 +530,30 @@ def main():
     print("[4] small configs: card vs CPU", flush=True)
     small = [reference_phase(dev, text, rope, mode) for rope, mode in
              (("mmrope3d", "fused"), ("window_pixel", "sageattn_2"), ("window_pixel", "flash_attn_2"))]
+    small.append(reference_phase(dev, text, "mmrope3d", "fused", long_clip=True))
 
     frames = np.random.RandomState(7).randint(0, 256, (5, 360, 640, 3)).astype(np.uint8)
     print("[5] main path: 3B + VAE, 5 x 640x360 -> 1280x720", flush=True)
-    launches, e2e = main_path_phase(dev, text, frames)
+    launches, launches_gn, e2e = main_path_phase(dev, text, frames)
     torch.cuda.empty_cache()  # the 3B runner is gone: room for the 7B weights
 
     print("[6] 7B + VAE, 5 x 640x360 -> 1280x720, sageattn_2 and flash_attn_2", flush=True)
-    launches_7b, e2e_7b = path_7b_phase(dev, text, frames)
-    launches.update(launches_7b)
+    launches_q, launches_f, e2e_7b = path_7b_phase(dev, text, frames)
+    torch.cuda.empty_cache()
+
+    print("[7] long clip: 3B + VAE, 15 x 960x540 -> 1920x1080, 4 phases, overlap 3, tiled VAE, gn_fusion",
+          flush=True)
+    launches_long, e2e_long = long_clip_phase(dev, text)
+    print(f"  K2 launches in the long clip: {launches_long['K2']}", flush=True)
+    k6 = sum(n["K6"] for n in (launches, launches_gn, launches_q, launches_f, launches_long))
+    if k6 != 0:
+        raise RuntimeError(f"K6 is on no path but launched {k6} times")
+    launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
     for row in rows:
         row["launches"] = launches[row["kernel"]]
-    print(json.dumps({"kernels": rows, "e2e": {"3b_fused": e2e, **{f"7b_{k}": v for k, v in e2e_7b.items()}},
-                      "small": small, "build_s": b.seconds}))
+    e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long))
+    print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,
+                      "build_nvcc_s": b.compile_seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

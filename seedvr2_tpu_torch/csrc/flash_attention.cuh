@@ -46,7 +46,7 @@ struct FlashArgs {
 
 // Rows [row0, row0 + 64) of head h of batch b from src [B, S, H, D] into
 // dst (row stride kLdT); rows >= S are zero.
-__device__ void flash_load_tile(const bf16* src, bf16* dst, int row0, int b, int h, int S, int H) {
+__device__ inline void flash_load_tile(const bf16* src, bf16* dst, int row0, int b, int h, int S, int H) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {

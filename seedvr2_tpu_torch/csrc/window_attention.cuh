@@ -84,7 +84,7 @@ struct AttnArgs {
 // Rows [row0, row0 + 64) of q (kind 0), k (1) or v (2) of window w, head h,
 // into dst (bf16, row stride kLdT). Row index i < S is video slot i, then
 // text token i - S, then zero. q and k are rms-normalised and roped.
-__device__ void attn_load_tile(const AttnArgs& a, bf16* dst, float* part, float* rstd, int kind,
+__device__ inline void attn_load_tile(const AttnArgs& a, bf16* dst, float* part, float* rstd, int kind,
                                int row0, int b, int h, int w) {
   const int tid = threadIdx.x;
   const int R = a.S + a.Lt;
@@ -160,7 +160,7 @@ __device__ void attn_load_tile(const AttnArgs& a, bf16* dst, float* part, float*
 // K3q: the 64-row bf16 tile src (row stride kLdT) -> per-row int8 codes in
 // dst8 (chunk-major) and fp32 scales in scale[64]. Each thread owns the
 // same eight 8-element pieces as in attn_load_tile. Ends synchronised.
-__device__ void attn_quant_tile(const bf16* src, signed char* dst8, float* part, float* scale) {
+__device__ inline void attn_quant_tile(const bf16* src, signed char* dst8, float* part, float* scale) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {

@@ -10,6 +10,11 @@ Stride-1 3x3x3 convs whose Cin and Cout are multiples of 128 run K1
 (ops/conv3d_kernel.py), the routing rule of the JAX package; the others
 (conv_in, conv_out, 1x1x1 shortcuts, strided downsamplers) run F.conv3d.
 The weight is stored once, at load, in the layout of its route.
+
+GroupNorm + SiLU fusion (``gn_fusion``, set for the whole model by
+VAE.set_gn_fusion; off by default, as the JAX package's set_gn_fusion):
+a K1-routed conv given ``gn=`` then runs K4 with the per-frame tables of
+its raw extended input, instead of normalising the input first.
 """
 
 from __future__ import annotations
@@ -26,6 +31,24 @@ from ..params import NORMAL, ZEROS, Leaf
 State = Dict[str, torch.Tensor]
 
 
+class _Scope:
+    """One level of a StreamCtx's module path, for a ``with`` block. A plain
+    object: a class made per call would close over the context in a
+    reference cycle and keep its carries on the device until Python's
+    cyclic collector happened to run."""
+
+    __slots__ = ("ctx", "name")
+
+    def __init__(self, ctx: "StreamCtx", name: str):
+        self.ctx, self.name = ctx, name
+
+    def __enter__(self):
+        self.ctx._path.append(self.name)
+
+    def __exit__(self, *exc):
+        self.ctx._path.pop()
+
+
 class StreamCtx:
     """Streaming state of one VAE forward: mode "disabled" (single shot),
     "init" (first temporal slice) or "active" (later slices, which consume
@@ -39,17 +62,8 @@ class StreamCtx:
         self.out_state: State = {}
         self._path = []
 
-    def scope(self, name: str):
-        ctx = self
-
-        class _Scope:
-            def __enter__(self_inner):
-                ctx._path.append(name)
-
-            def __exit__(self_inner, *a):
-                ctx._path.pop()
-
-        return _Scope()
+    def scope(self, name: str) -> _Scope:
+        return _Scope(self, name)
 
     @property
     def path(self) -> str:
@@ -70,6 +84,8 @@ def gn_silu(x: torch.Tensor, norm: Leaf, groups: int) -> torch.Tensor:
 
 
 class CausalConv3d(Leaf):
+    gn_fusion = False  # K4 for a K1-routed conv with gn= (VAE.set_gn_fusion)
+
     def __init__(
         self,
         kernel: Tuple[int, int, int],
@@ -105,7 +121,8 @@ class CausalConv3d(Leaf):
     def forward(self, x: torch.Tensor, ctx: StreamCtx, name: str, gn=None) -> torch.Tensor:
         """x [B, T, H, W, Cin] -> [B, T', H', W', Cout]. ``gn`` = (norm leaf,
         groups) applies per-frame GroupNorm + SiLU to the extended input first
-        (it commutes with the temporal extension, so the carry stays raw)."""
+        (it commutes with the temporal extension, so the carry stays raw);
+        under gn_fusion a K1-routed conv folds it into its load (K4)."""
         kt = self.spec["w"][0][0]
         with ctx.scope(name):
             mem = ctx.get("mem") if ctx.mode == "active" else None
@@ -117,7 +134,12 @@ class CausalConv3d(Leaf):
                 x_ext = x
             cache = kt - self.stride[0]
             if cache > 0 and ctx.mode != "disabled":
-                ctx.put("mem", x_ext[:, -cache:])
+                # a copy: a view would keep all of x_ext alive until the next slice
+                ctx.put("mem", x_ext[:, -cache:].clone())
+        if gn is not None and self.k1 and self.gn_fusion:
+            (norm, groups), x_ext = gn, x_ext.contiguous()
+            scale, shift = conv3d_kernel.gn_silu_tables(x_ext, norm.w, norm.b, groups)
+            return conv3d_kernel.conv3d_3x3x3(x_ext, self.w, self.b, scale, shift)
         if gn is not None:
             x_ext = gn_silu(x_ext, *gn)
         if self.k1:

@@ -170,11 +170,23 @@ class Decoder(nn.Module):
 
 
 class VAE(nn.Module):
-    def __init__(self, cfg: VAEConfig, device=None, dtype=torch.bfloat16):
+    def __init__(self, cfg: VAEConfig, device=None, dtype=torch.bfloat16, gn_fusion: bool = False):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg, device, dtype)
         self.decoder = Decoder(cfg, device, dtype)
+        self.set_gn_fusion(gn_fusion)
+
+    def set_gn_fusion(self, on: bool) -> "VAE":
+        """Fold each resnet's GroupNorm + SiLU into its K1-routed conv (K4)
+        or not (normalise first, then K1). The counterpart of the JAX
+        package's module-global causal_conv.set_gn_fusion, held by the
+        model; off by default, as there."""
+        self.gn_fusion = bool(on)
+        for m in self.modules():
+            if isinstance(m, CausalConv3d):
+                m.gn_fusion = self.gn_fusion
+        return self
 
 
 def posterior_mode(moments: torch.Tensor) -> torch.Tensor:

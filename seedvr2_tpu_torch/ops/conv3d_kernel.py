@@ -1,9 +1,18 @@
-"""K1: stride-1 3x3x3 convolution of the VAE (channels-last).
+"""K1, K4 and K6: the stride-1 3x3x3 convolution of the VAE (channels-last).
 
-Counterpart of seedvr2_tpu/ops/conv3d_kernel.py:conv3d_3x3x3. On a CUDA
-tensor it launches the hand-written implicit-GEMM kernel
-(csrc/conv3d.cuh); on a CPU tensor it runs the plain version below. There is
-no other route: a CUDA tensor the kernel does not take raises.
+Counterpart of seedvr2_tpu/ops/conv3d_kernel.py:
+- ``conv3d_3x3x3(x_ext, w, b)`` is K1 (csrc/conv3d.cuh);
+- ``conv3d_3x3x3(x_ext, w, b, scale, shift)`` is K4, the same conv with
+  silu(x * scale + shift) applied to its input as it is loaded (the
+  resnet's per-frame GroupNorm + SiLU, folded into tables by
+  ``gn_silu_tables``; template flag of the same kernel);
+- ``conv3d_3x3x3_im2col(x_ext, w, b)`` is K6, the conv as one product over
+  the folded [M, 27*Cin] column matrix (csrc/conv3d_im2col.cuh).
+On a CUDA tensor each launches its hand-written kernel; on a CPU tensor it
+runs the plain version below. There is no other route: a CUDA tensor the
+kernel does not take raises. Each kernel has its own launch counter:
+``conv3d_3x3x3.launches`` (K1), ``conv3d_3x3x3.launches_gn`` (K4),
+``conv3d_3x3x3_im2col.launches`` (K6).
 """
 
 from __future__ import annotations
@@ -23,41 +32,134 @@ def enabled_for(w_shape: Tuple[int, ...], stride: Tuple[int, int, int]) -> bool:
     return (kt, kh, kw) == (3, 3, 3) and tuple(stride) == (1, 1, 1) and cin % 128 == 0 and cout % 128 == 0
 
 
-def conv3d_3x3x3_plain(x_ext: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+def gn_silu_tables(x_ext: torch.Tensor, gw: torch.Tensor, gb: torch.Tensor, groups: int, eps: float = 1e-6):
+    """Per-frame GroupNorm folded into fp32 tables (scale, shift) [B, T, C]
+    with x * scale + shift == GroupNorm(x) * gw + gb per (b, t), for a RAW
+    x_ext [B, T, H, W, C]. Two-pass fp32 variance, as the JAX package
+    (and ops/normalization.group_norm) computes it. Each sum runs over a
+    group's channels first, then over the pixels: one reduction over the
+    two strided axes at once loses ~10x more to fp32 rounding (2.5e-6 vs
+    2.4e-7 from the JAX tables at the JAX package's test shapes)."""
+    B, T, H, W, C = x_ext.shape
+    n = H * W * (C // groups)
+    xf = x_ext.float().reshape(B, T, H * W, groups, C // groups)
+    mean = xf.sum(4, keepdim=True).sum(2, keepdim=True) / n
+    var = (xf - mean).square().sum(4, keepdim=True).sum(2, keepdim=True) / n
+    rstd = 1.0 / torch.sqrt(var + eps)
+    mean_c = mean[:, :, 0].expand(B, T, groups, C // groups).reshape(B, T, C)
+    rstd_c = rstd[:, :, 0].expand(B, T, groups, C // groups).reshape(B, T, C)
+    scale = rstd_c * gw.float()
+    shift = gb.float() - mean_c * scale
+    return scale.contiguous(), shift.contiguous()
+
+
+def gn_silu_apply(x_ext: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """K4's prologue as a tensor op: silu(x * scale + shift) in fp32, rounded
+    once to x's dtype."""
+    xf = x_ext.float() * scale[:, :, None, None, :] + shift[:, :, None, None, :]
+    return F.silu(xf).to(x_ext.dtype)
+
+
+def conv3d_3x3x3_plain(
+    x_ext: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    scale: Optional[torch.Tensor] = None,
+    shift: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """F.conv3d in fp32 on permuted views; bias added in fp32, one rounding
-    to the input dtype at the end (the kernel's numerics)."""
+    to the input dtype at the end (the kernels' numerics). With tables (K4)
+    the input is first normalised as the kernel loads it (gn_silu_apply);
+    F.conv3d's zero padding then lies outside the image, after the
+    normalisation, as the kernel's predicated loads do."""
+    if scale is not None:
+        x_ext = gn_silu_apply(x_ext, scale, shift)
     xf = x_ext.float().permute(0, 4, 1, 2, 3)
     wf = w.float().permute(4, 3, 0, 1, 2)
     y = F.conv3d(xf, wf, None if b is None else b.float(), padding=(0, 1, 1))
     return y.permute(0, 2, 3, 4, 1).to(x_ext.dtype).contiguous()
 
 
-def conv3d_3x3x3(x_ext: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x_ext [B, T+2, H, W, Cin] (already extended in time), w [3, 3, 3,
-    Cin, Cout] (DHWIO, i.e. [27, Cin, Cout] row-major), b [Cout] fp32.
-    Returns [B, T, H, W, Cout]: SAME spatial padding, valid in time."""
-    if x_ext.device.type == "cpu":
-        return conv3d_3x3x3_plain(x_ext, w, b)
+def _check_conv_args(name, x_ext, w, b, cin_multiple):
     B, Text, H, W, cin = x_ext.shape
     cout = w.shape[-1]
     T = Text - 2
-    cuda_lib.require(T >= 1, f"conv3d_3x3x3: need T+2 >= 3 frames, got {Text}")
-    cuda_lib.require(cin % 32 == 0 and cout % 64 == 0, f"conv3d_3x3x3: channels {cin}->{cout} not supported")
-    cuda_lib.require(B * T <= cuda_lib.MAX_GRID_YZ, f"conv3d_3x3x3: B*T={B * T} frames per launch")
+    cuda_lib.require(T >= 1, f"{name}: need T+2 >= 3 frames, got {Text}")
+    cuda_lib.require(cin % cin_multiple == 0 and cout % 64 == 0, f"{name}: channels {cin}->{cout} not supported")
+    cuda_lib.require(B * T <= cuda_lib.MAX_GRID_YZ, f"{name}: B*T={B * T} frames per launch")
     cuda_lib.require_cuda_tensor(x_ext, "x_ext", torch.bfloat16)
     cuda_lib.require_cuda_tensor(w, "w", torch.bfloat16, (3, 3, 3, cin, cout))
     cuda_lib.require_cuda_tensor(b, "b", torch.float32, (cout,))
-    cuda_lib.require(w.device == x_ext.device and b.device == x_ext.device, "conv3d_3x3x3: tensors on different devices")
+    cuda_lib.require(w.device == x_ext.device and b.device == x_ext.device, f"{name}: tensors on different devices")
+    return B, T, H, W, cin, cout
+
+
+def conv3d_3x3x3(
+    x_ext: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    shift: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """x_ext [B, T+2, H, W, Cin] (already extended in time), w [3, 3, 3,
+    Cin, Cout] (DHWIO, i.e. [27, Cin, Cout] row-major), b [Cout] fp32.
+    Returns [B, T, H, W, Cout]: SAME spatial padding, valid in time. With
+    ``scale``/``shift`` [B, T+2, Cin] fp32 (gn_silu_tables of x_ext) the
+    conv reads silu(x * scale + shift) instead of x (K4)."""
+    if (scale is None) != (shift is None):
+        raise ValueError("conv3d_3x3x3: give both scale and shift, or neither")
+    if x_ext.device.type == "cpu":
+        return conv3d_3x3x3_plain(x_ext, w, b, scale, shift)
+    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3", x_ext, w, b, 32)
+    gn = scale is not None
+    if gn:
+        for t, n in ((scale, "scale"), (shift, "shift")):
+            cuda_lib.require_cuda_tensor(t, n, torch.float32, (B, T + 2, cin))
+            cuda_lib.require(t.device == x_ext.device, f"conv3d_3x3x3: {n} on another device")
     y = torch.empty((B, T, H, W, cout), dtype=torch.bfloat16, device=x_ext.device)
     lib = cuda_lib.library()
     with torch.cuda.device(x_ext.device):
         code = lib.seedvr2_conv3d_3x3x3(
-            x_ext.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            x_ext.data_ptr(), w.data_ptr(), b.data_ptr(),
+            scale.data_ptr() if gn else None, shift.data_ptr() if gn else None, y.data_ptr(),
             B, T, H, W, cin, cout, cuda_lib.stream_ptr(x_ext),
         )
     cuda_lib.check(code, "conv3d_3x3x3")
-    conv3d_3x3x3.launches += 1
+    if gn:
+        conv3d_3x3x3.launches_gn += 1
+    else:
+        conv3d_3x3x3.launches += 1
     return y
 
 
 conv3d_3x3x3.launches = 0
+conv3d_3x3x3.launches_gn = 0
+
+
+def conv3d_3x3x3_im2col_plain(x_ext: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """The folded product's value: the same conv as K1's plain version (a
+    materialised [M, 27*Cin] column matrix would be 27x the input)."""
+    return conv3d_3x3x3_plain(x_ext, w, b)
+
+
+def conv3d_3x3x3_im2col(x_ext: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K6: the same contract as conv3d_3x3x3 (no tables), computed as one
+    product over the folded K axis; the kernel takes ``w`` viewed flat as
+    [27*Cin, Cout]. Needs Cin % 64 == 0 (every VAE Cin is 128-512)."""
+    if x_ext.device.type == "cpu":
+        return conv3d_3x3x3_im2col_plain(x_ext, w, b)
+    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3_im2col", x_ext, w, b, 64)
+    wf = w.view(27 * cin, cout)
+    y = torch.empty((B, T, H, W, cout), dtype=torch.bfloat16, device=x_ext.device)
+    lib = cuda_lib.library()
+    with torch.cuda.device(x_ext.device):
+        code = lib.seedvr2_conv3d_im2col(
+            x_ext.data_ptr(), wf.data_ptr(), b.data_ptr(), y.data_ptr(), B, T, H, W, cin, cout,
+            cuda_lib.stream_ptr(x_ext),
+        )
+    cuda_lib.check(code, "conv3d_3x3x3_im2col")
+    conv3d_3x3x3_im2col.launches += 1
+    return y
+
+
+conv3d_3x3x3_im2col.launches = 0

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``seedvr2_tpu_torch/csrc``.
 
-The kernels are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface (``csrc/kernels.cu``) and bound with
-``ctypes``. The library is built at first use into
+Each ``csrc/*.cu`` file (one kernel's plain C entry points, including its
+``.cuh``) is compiled by its own ``nvcc`` process for Hopper (``sm_90a``),
+all of them started together; the objects are linked into one shared
+library, bound with ``ctypes``. The library is built at first use into
 ``build/kernels/<hash of the sources and flags>/`` at the repository root, so
 a checkout builds everything it runs from its own sources, and a changed
 source never loads a stale library.
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
@@ -26,11 +28,9 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libseedvr2_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH, "-shared")
 
 
 @dataclass
@@ -38,13 +38,15 @@ class Build:
     path: Path
     seconds: float  # 0.0 when the library was already built
     log: str  # nvcc's output, including -Xptxas -v register/smem report
+    compile_seconds: tuple  # each source's nvcc wall time; their sum is a one-after-another build
 
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
 _SIGNATURES = {
-    "seedvr2_conv3d_3x3x3": [_vp] * 4 + [_i] * 6 + [_vp],
+    "seedvr2_conv3d_3x3x3": [_vp] * 6 + [_i] * 6 + [_vp],
+    "seedvr2_conv3d_im2col": [_vp] * 4 + [_i] * 6 + [_vp],
     "seedvr2_fold_upsample": [_vp] * 5 + [_i] * 7 + [_vp],
     "seedvr2_window_attention": [_vp] * 10 + [_i] * 8 + [_f] * 2 + [_vp],
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
@@ -58,7 +60,7 @@ def sources():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -77,27 +79,41 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _run(cmd) -> tuple:
+    """One nvcc call: its return code, wall seconds, and command line with output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc.returncode, time.perf_counter() - t0, f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+
+
 def build() -> Build:
-    """Compile csrc/kernels.cu (which includes the .cuh kernels) unless the
-    library for these exact sources already exists."""
+    """Compile every csrc/*.cu in parallel (one nvcc each) and link them,
+    unless the library for these exact sources already exists."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib.exists():
         log = log_path.read_text() if log_path.exists() else ""
-        return Build(lib, 0.0, log)
+        return Build(lib, 0.0, log, ())
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "kernels.cu")]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [str(out_dir / f"{src.stem}.{pid}.o") for src in srcs]
+    with ThreadPoolExecutor(len(srcs)) as pool:  # waits for every compile, so none outlives a failure
+        results = list(pool.map(_run, [[nvcc, *COMPILE_FLAGS, "-o", o, str(s)] for o, s in zip(objs, srcs)]))
+    log = "\n".join(out for _, _, out in results)
+    if any(rc != 0 for rc, _, _ in results):
+        raise RuntimeError("nvcc failed:\n" + log)
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    rc, _, out = _run([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs])
+    log += "\n" + out
+    if rc != 0:
+        raise RuntimeError(f"nvcc link failed ({rc}):\n{log}")
     seconds = time.perf_counter() - t0
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
-    return Build(lib, seconds, log)
+    return Build(lib, seconds, log, tuple(sec for _, sec, _ in results))
 
 
 def library() -> ctypes.CDLL:

@@ -48,7 +48,7 @@ def load_runner(
     if quantize is not None:
         raise _not_ported(f"quantize={quantize!r}", "int8 DiT with a W8A16 kernel")
     if not dit_model.endswith(".safetensors") or not vae_model.endswith(".safetensors"):
-        raise _not_ported("checkpoints other than .safetensors", "the rest of the pipeline")
+        raise _not_ported("checkpoints other than .safetensors", "GGUF")
     paths = [os.path.join(model_dir, m) for m in (dit_model, vae_model)]
     for p in paths:
         if not os.path.exists(p):

@@ -1,21 +1,36 @@
-"""End-to-end generation, fused per-batch path (counterpart of
-seedvr2_tpu/pipeline/phases.py: generate -> generate_streaming ->
-Runner.fused_batch). Batch math (4n+1 padding, uniform batches) is in
-pipeline/batching.py.
+"""End-to-end generation (counterpart of seedvr2_tpu/pipeline/phases.py).
+
+Two routes, chosen as the JAX package's ``generate`` chooses them:
+
+- the fused per-batch path (``generate_streaming`` -> Runner.fused_batch),
+  for temporal_overlap 0, no prepended frames, fused_pipeline != "off",
+  no phased_weights and tensor_offload != "always";
+- the 4-phase path otherwise: encode every batch, upscale every batch,
+  decode every batch, post-process every batch. Batch/overlap math, 4n+1
+  padding, Hann blending of the overlap, per-batch seeding and
+  trim-then-assemble are the JAX package's. Between phases the latents stay
+  on the device or go to host memory as the run budget (``_run_budget``)
+  or ``tensor_offload`` says. Each phase is a
+  ``torch.profiler.record_function`` range ("phase.<name>"), read by
+  profile_batch.py.
 
 Batches run one after another; overlapping batch i+1's compute with batch
-i's device->host copy (pinned buffers, a copy stream) is later work.
+i's device->host copy (pinned buffers, a copy stream) is later work, and so
+is the OOM ladder: a torch.cuda.OutOfMemoryError propagates.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import PipelineConfig
-from ..ops.resize import true_target_dims
+from ..ops import color as color_ops
+from ..ops.blending import blend_overlapping_frames
+from ..ops.resize import pipeline_transform, to_f01, true_target_dims
 from . import batching
 from .runner import Runner, _not_ported, check_supported
 
@@ -32,6 +47,14 @@ def upload_frames(rgb: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _unpack(codes: np.ndarray, cfg: PipelineConfig) -> np.ndarray:
+    return codes.astype(np.float32) / np.float32(255.0 if cfg.output_bits == 8 else 65535.0)
+
+
+def _packed_dtype(cfg: PipelineConfig):
+    return np.uint8 if cfg.output_bits == 8 else np.uint16
+
+
 def generate_streaming(
     runner: Runner,
     images: np.ndarray,
@@ -42,17 +65,175 @@ def generate_streaming(
     total = len(images)
     true_h, true_w = true_target_dims(images.shape[1], images.shape[2], cfg.resolution, cfg.max_resolution)
     specs = batching.compute_batches(total, cfg.batch_size, 0, cfg.uniform_batch_size)
-    packed_dtype = np.uint8 if cfg.output_bits == 8 else np.uint16
-    final = np.zeros((total, true_h, true_w, 3), packed_dtype if packed else np.float32)
-    scale = 255.0 if cfg.output_bits == 8 else 65535.0
+    final = np.zeros((total, true_h, true_w, 3), _packed_dtype(cfg) if packed else np.float32)
     write = 0
     for spec in specs:
         fr = upload_frames(batching.prepare_batch(images, spec)[..., :3], runner.device)
-        codes = runner.fused_batch(fr, true_h, true_w, cfg.seed, noise=noise)
-        host = codes[: spec.ori_length].cpu().numpy()
-        final[write : write + spec.ori_length] = host.astype(packed_dtype) if packed else host.astype(np.float32) / np.float32(scale)
+        codes = runner.fused_batch(fr, true_h, true_w, cfg.seed, noise=noise, ori=spec.ori_length)
+        host = codes.cpu().numpy()
+        final[write : write + spec.ori_length] = host.astype(_packed_dtype(cfg)) if packed else _unpack(host, cfg)
         write += spec.ori_length
     return final[:write]
+
+
+# --------------------------------------------------------------------------- #
+# The 4-phase path
+# --------------------------------------------------------------------------- #
+
+
+def make_context(cfg: PipelineConfig) -> Dict[str, Any]:
+    """The state the four phases hand on."""
+    return {
+        "cfg": cfg,
+        "batches": None,
+        "all_latents": [],
+        "all_upscaled": [],
+        "final_video": None,
+        "decode_info": [],
+        "true_dims": None,
+        "total_frames": 0,
+        "ref_device": {},
+        "packed": False,
+    }
+
+
+def _transform_batch(cfg: PipelineConfig, rgb: np.ndarray, device) -> torch.Tensor:
+    """[T, H, W, 3] host frames -> [T, H', W', 3] fp32 in [-1, 1] on the
+    device (resize, pad to /16, normalise)."""
+    return pipeline_transform(to_f01(upload_frames(rgb, device)), cfg.resolution, cfg.max_resolution)
+
+
+def _to_host_if(offload: bool, t: torch.Tensor) -> torch.Tensor:
+    return t.cpu() if offload else t
+
+
+@torch.inference_mode()
+def encode_all_batches(runner: Runner, ctx: Dict[str, Any], images: np.ndarray) -> Dict[str, Any]:
+    """Phase 1: prepend frames, batch math, transform and VAE-encode every
+    batch; the transformed frames are stashed on the device as the colour
+    reference when the run budget allows."""
+    cfg: PipelineConfig = ctx["cfg"]
+    if cfg.prepend_frames > 0:
+        images = batching.pad_temporal_reversed(images, cfg.prepend_frames, prepend=True)
+    ctx["total_frames"] = len(images)
+    ctx["input_images"] = images
+    ctx["true_dims"] = true_target_dims(images.shape[1], images.shape[2], cfg.resolution, cfg.max_resolution)
+    overlap = batching.effective_overlap(cfg.batch_size, cfg.temporal_overlap)
+    ctx["actual_overlap"] = overlap
+    specs = batching.compute_batches(len(images), cfg.batch_size, overlap, cfg.uniform_batch_size)
+    ctx["batches"] = specs
+    ctx["all_latents"] = [None] * len(specs)
+    with record_function("phase.encode"):
+        for bi, spec in enumerate(specs):
+            tv = _transform_batch(cfg, batching.prepare_batch(images, spec)[..., :3], runner.device)
+            if _stash_color_ref(cfg, ctx, runner):
+                ctx["ref_device"][bi] = tv
+            latent = runner.vae_encode(tv[None].to(runner.compute_dtype))
+            ctx["all_latents"][bi] = _to_host_if(_offload(cfg, ctx, runner), latent[0])
+    return ctx
+
+
+@torch.inference_mode()
+def upscale_all_batches(runner: Runner, ctx: Dict[str, Any], noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """Phase 2: one DiT step per batch, each seeded alike (outputs do not
+    depend on batch position); ``noise`` replaces every batch's draw. With
+    phased_weights the DiT then leaves the device for the decode."""
+    cfg: PipelineConfig = ctx["cfg"]
+    n = len(ctx["all_latents"])
+    ctx["all_upscaled"] = [None] * n
+    with record_function("phase.upscale"):
+        for bi in range(n):
+            up = runner.upscale(ctx["all_latents"][bi][None], cfg.seed, noise)
+            ctx["all_upscaled"][bi] = _to_host_if(_offload(cfg, ctx, runner), up[0])
+            ctx["all_latents"][bi] = None
+    runner.release_dit()
+    return ctx
+
+
+@torch.inference_mode()
+def decode_all_batches(runner: Runner, ctx: Dict[str, Any]) -> Dict[str, Any]:
+    """Phase 3: decode every batch, trim its temporal and spatial padding,
+    Hann-blend the overlap with the previous batch's tail, and write it into
+    one host float32 video in [-1, 1]."""
+    true_h, true_w = ctx["true_dims"]
+    final = np.zeros((ctx["total_frames"], true_h, true_w, 3), np.float32)
+    overlap = ctx["actual_overlap"]
+    specs = ctx["batches"]
+    write = 0
+    ctx["decode_info"] = []
+    with record_function("phase.decode"):
+        for bi, up in enumerate(ctx["all_upscaled"]):
+            dec = runner.vae_decode(up.to(runner.device)[None])[0]
+            ori = specs[bi].ori_length
+            sample = dec[:ori, :true_h, :true_w].float().cpu()
+            if bi > 0 and 0 < overlap < sample.shape[0] and write >= overlap:
+                prev = torch.from_numpy(final[write - overlap : write])
+                final[write - overlap : write] = blend_overlapping_frames(prev, sample[:overlap], overlap).numpy()
+                sample = sample[overlap:]
+            t = sample.shape[0]
+            final[write : write + t] = sample.numpy()
+            ctx["decode_info"].append((write, write + t, bi, ori))
+            write += t
+            ctx["all_upscaled"][bi] = None
+    ctx["final_video"] = final[:write]
+    return ctx
+
+
+@torch.inference_mode()
+def postprocess_all_batches(runner: Runner, ctx: Dict[str, Any]) -> Dict[str, Any]:
+    """Phase 4: per batch, the colour fix against the transformed input
+    (the phase-1 stash, or transformed again), trimmed like the output;
+    [-1, 1] -> [0, 1]; the prepended frames dropped."""
+    cfg: PipelineConfig = ctx["cfg"]
+    final = ctx["final_video"]
+    specs = ctx["batches"]
+    true_h, true_w = ctx["true_dims"]
+    with record_function("phase.postprocess"):
+        for ws, we, bi, ori in ctx["decode_info"]:
+            out = final[ws:we]
+            skip = ori - (we - ws)  # overlap frames dropped from the batch head
+            if cfg.color_correction != "none":
+                ref = ctx["ref_device"].pop(bi, None)
+                if ref is None:
+                    video = batching.prepare_batch(ctx["input_images"], specs[bi])
+                    ref = _transform_batch(cfg, video[..., :3], runner.device)
+                style = ref[skip:ori, :true_h, :true_w].permute(0, 3, 1, 2)
+                content = torch.from_numpy(out).to(runner.device).permute(0, 3, 1, 2)
+                out = color_ops.apply_color_correction(cfg.color_correction, content, style).permute(0, 2, 3, 1).cpu().numpy()
+            final[ws:we] = np.clip(out / 2.0 + 0.5, 0.0, 1.0)
+    if cfg.prepend_frames > 0:
+        final = final[cfg.prepend_frames :]
+    ctx["final_video"] = final
+    return ctx
+
+
+@torch.inference_mode()
+def decode_and_postprocess_fused(runner: Runner, ctx: Dict[str, Any]) -> Dict[str, Any]:
+    """Phases 3 and 4 per batch when no batch overlaps another and nothing
+    was prepended: decode, then Runner.finalize_batch (trim, colour, pack)
+    on the device; only the packed codes reach the host."""
+    cfg: PipelineConfig = ctx["cfg"]
+    true_h, true_w = ctx["true_dims"]
+    specs = ctx["batches"]
+    packed = bool(ctx.get("packed"))
+    final = np.zeros((ctx["total_frames"], true_h, true_w, 3), _packed_dtype(cfg) if packed else np.float32)
+    write = 0
+    with record_function("phase.decode"):
+        for bi, up in enumerate(ctx["all_upscaled"]):
+            dec = runner.vae_decode(up.to(runner.device)[None])
+            ori = specs[bi].ori_length
+            ref, transformed = None, False
+            if cfg.color_correction != "none":
+                ref = ctx["ref_device"].pop(bi, None)
+                transformed = ref is not None
+                if ref is None:
+                    ref = upload_frames(batching.prepare_batch(ctx["input_images"], specs[bi])[..., :3], runner.device)
+            host = runner.finalize_batch(dec, ref, ori, true_h, true_w, ref_transformed=transformed).cpu().numpy()
+            final[write : write + ori] = host.astype(_packed_dtype(cfg)) if packed else _unpack(host, cfg)
+            write += ori
+            ctx["all_upscaled"][bi] = None
+    ctx["final_video"] = final[:write]
+    return ctx
 
 
 def generate(
@@ -63,12 +244,111 @@ def generate(
     noise: Optional[torch.Tensor] = None,
 ) -> np.ndarray:
     """Frames THWC -> upscaled frames THWC: float32 in [0, 1], or with
-    ``packed=True`` the uint16 / uint8 codes (cfg.output_bits). ``noise``
-    [t, h, w, C] replaces every batch's DiT noise draw (tests)."""
+    ``packed=True`` the uint16 / uint8 codes (cfg.output_bits) where the
+    route packs on the device (the fused path, and the 4-phase path without
+    overlap or prepended frames; the others return float32, as in the JAX
+    package). ``noise`` [t, h, w, C] replaces every batch's DiT noise draw
+    (tests)."""
     cfg = cfg or runner.cfg
     check_supported(cfg)
-    if batching.effective_overlap(cfg.batch_size, cfg.temporal_overlap) > 0:
-        raise _not_ported("temporal_overlap > 0", "the rest of the pipeline")
     if images.shape[-1] != 3:
-        raise _not_ported("RGBA input", "the rest of the pipeline")
-    return generate_streaming(runner, images, cfg, packed=packed, noise=noise)
+        raise _not_ported("RGBA input", "RGBA")
+    can_stream = (
+        cfg.fused_pipeline != "off"
+        and batching.effective_overlap(cfg.batch_size, cfg.temporal_overlap) == 0
+        and cfg.prepend_frames == 0
+        and not cfg.phased_weights
+        and cfg.tensor_offload != "always"
+        and len(images) > 0
+    )
+    if can_stream:
+        return generate_streaming(runner, images, cfg, packed=packed, noise=noise)
+    ctx = make_context(cfg)
+    ctx["packed"] = packed
+    encode_all_batches(runner, ctx, images)
+    upscale_all_batches(runner, ctx, noise)
+    if ctx["actual_overlap"] == 0 and cfg.prepend_frames == 0:
+        decode_and_postprocess_fused(runner, ctx)
+    else:
+        decode_all_batches(runner, ctx)
+        postprocess_all_batches(runner, ctx)
+    return ctx["final_video"]
+
+
+# --------------------------------------------------------------------------- #
+# The run budget
+# --------------------------------------------------------------------------- #
+
+
+def _phase_peak_bytes(cfg: PipelineConfig, th: int, tw: int) -> int:
+    """Largest single-stage working set of the run, from the VAE
+    architecture: the widest activation is the full-resolution
+    block_out_channels[0] feature map of the decoder, bf16, doubled for
+    producer and consumer; a tiled decode bounds it to a tile but adds the
+    fp32 accumulators at full size. On top rides the decoded fp32 batch."""
+    t_batch = cfg.batch_size + 1  # 4n+1-padded batch, worst case
+    hp, wp = -(-th // 16) * 16, -(-tw // 16) * 16
+    c0 = cfg.vae.block_out_channels[0]
+    if cfg.decode_tiled:
+        tile_h = min(cfg.decode_tile_size[0], hp)
+        tile_w = min(cfg.decode_tile_size[1], wp)
+        widest = t_batch * tile_h * tile_w * c0 * 2 * 2 * max(cfg.decode_tile_batch, 1)
+        widest += t_batch * hp * wp * 4 * 4  # fp32 acc (3ch) + cnt (1ch)
+    else:
+        widest = t_batch * hp * wp * c0 * 2 * 2
+    decoded_f32 = t_batch * hp * wp * 3 * 4
+    return int(widest + decoded_f32)
+
+
+def _hbm_bytes(device) -> int:
+    """The card's total memory; 16 GiB (the JAX package's constant when the
+    device reports no limit) for a CPU device, so that the two packages'
+    budget decisions can be compared."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return 16 << 30
+
+
+def _run_budget(cfg: PipelineConfig, ctx: Dict[str, Any], runner=None) -> Dict[str, Any]:
+    """One device-memory budget for the whole run, computed once: the free
+    pool is the device memory less the resident weights less 5%; offload
+    the latents to host when latents + peak exceed 75% of it; stash the
+    colour reference on the device only when latents + stash + peak fit in
+    75% and the run does not offload."""
+    cached = ctx.get("_budget")
+    if cached is None:
+        th, tw = ctx["true_dims"]
+        total = max(ctx["total_frames"], 1)
+        hbm = _hbm_bytes(runner.device if runner is not None else "cpu")
+        weights = runner.weight_bytes() if runner is not None else 0
+        free = max(hbm - weights - int(0.05 * hbm), 1)
+        lat_frames = total // 4 + 1  # 4x temporal compression, 4n+1 batches
+        latents = 2 * lat_frames * (th // 8) * (tw // 8) * cfg.vae.latent_channels * 2
+        n_batches = max(len(ctx["batches"] or ()), 1)
+        stash = n_batches * (cfg.batch_size + 1) * th * tw * 3 * 4 if cfg.color_correction != "none" else 0
+        peak = _phase_peak_bytes(cfg, th, tw)
+        offload = (latents + peak) > 0.75 * free
+        stash_ok = stash > 0 and not offload and (latents + stash + peak) < 0.75 * free
+        cached = {"offload": offload, "stash": stash_ok, "latents_gib": latents / 2**30, "stash_gib": stash / 2**30,
+                  "peak_gib": peak / 2**30, "free_gib": free / 2**30}
+        ctx["_budget"] = cached
+    return cached
+
+
+def _stash_color_ref(cfg: PipelineConfig, ctx: Dict[str, Any], runner=None) -> bool:
+    """Keep phase 1's transformed frames on the device as the colour
+    reference of phases 3/4, when the run budget allows."""
+    if cfg.color_correction == "none" or cfg.tensor_offload == "always":
+        return False
+    return _run_budget(cfg, ctx, runner)["stash"]
+
+
+def _offload(cfg: PipelineConfig, ctx: Dict[str, Any], runner=None) -> bool:
+    """Pull the latents to host memory between phases: always, never, or
+    ("auto") as the run budget says."""
+    if cfg.tensor_offload == "always":
+        return True
+    if cfg.tensor_offload == "never":
+        return False
+    return _run_budget(cfg, ctx, runner)["offload"]

@@ -1,9 +1,14 @@
 """Inference runner: the port's modules, the text embedding and the per-batch
-chain (counterpart of seedvr2_tpu/pipeline/runner.py, fused path).
+stages (counterpart of seedvr2_tpu/pipeline/runner.py).
 
 ``fused_batch`` is the JAX package's ``_make_fused_fn`` chain, run eagerly:
 to_f01 -> pipeline_transform -> VAE encode -> one Euler step of the NaDiT
--> VAE decode -> colour fix -> packed pixels. Each stage is a
+-> VAE decode -> trim, colour fix, packed pixels (``finalize_batch``). The
+4-phase path (pipeline/phases.py) calls the same stages one phase at a
+time: ``vae_encode``, ``upscale``, ``vae_decode``, ``finalize_batch``. The
+VAE stages read the tile settings of the config (the OOM ladder of the JAX
+runner, which turns tiling on after RESOURCE_EXHAUSTED, is not ported: a
+torch.cuda.OutOfMemoryError propagates). Each stage of ``fused_batch`` is a
 ``torch.profiler.record_function`` range ("runner.<stage>"), read by
 profile_batch.py; without a running profiler a range is one small host call.
 """
@@ -18,8 +23,8 @@ from torch.profiler import record_function
 
 from ..config import PipelineConfig
 from ..models.dit.nadit import NaDiT, build_attn_plans, device_plans
+from ..models.vae import tiling
 from ..models.vae.model import VAE
-from ..models.vae.tiling import vae_decode, vae_encode
 from ..ops import color as color_ops
 from ..ops.resize import pipeline_transform, to_f01
 from . import diffusion as dm
@@ -33,20 +38,14 @@ def _not_ported(setting: str, item: str):
 
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise for every setting off the ported path."""
-    if cfg.encode_tiled or cfg.decode_tiled:
-        raise _not_ported("tiled VAE encode/decode", "tiled VAE")
     if cfg.color_correction not in color_ops.SUPPORTED:
-        raise _not_ported(f"color_correction={cfg.color_correction!r}", "the rest of the pipeline")
+        raise ValueError(f"Unknown color correction: {cfg.color_correction}")
     if cfg.diffusion.cfg_scale != 1.0:
-        raise _not_ported("cfg_scale != 1", "the rest of the pipeline")
+        raise _not_ported("cfg_scale != 1", "cfg_scale")
     if cfg.output_pixfmt != "rgb":
-        raise _not_ported(f"output_pixfmt={cfg.output_pixfmt!r}", "the rest of the pipeline")
-    if cfg.prepend_frames > 0:
-        raise _not_ported("prepend_frames > 0", "the rest of the pipeline")
+        raise _not_ported(f"output_pixfmt={cfg.output_pixfmt!r}", "yuv420 output")
     if cfg.input_noise_scale > 0 or cfg.latent_noise_scale > 0:
-        raise _not_ported("input/latent noise augmentation", "the rest of the pipeline")
-    if cfg.fused_pipeline == "off" or cfg.phased_weights or cfg.tensor_offload == "always":
-        raise _not_ported("the 4-phase pipeline", "the rest of the pipeline")
+        raise _not_ported("input/latent noise augmentation", "noise augmentation")
 
 
 def pack_frames(out01: torch.Tensor, bits: int) -> torch.Tensor:
@@ -90,15 +89,40 @@ class Runner:
             raise NotImplementedError(task)
         return torch.cat([latent_blur, torch.ones_like(noise[..., :1])], dim=-1)
 
-    def step(self, latent: torch.Tensor, seed: int, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One-step upscale of a scaled latent [B, t, h, w, C]. The noise is
-        one per-batch draw [t, h, w, C] broadcast over B, from a generator
-        seeded with ``seed`` for every batch (identical inputs give identical
-        outputs whatever their batch position). torch's draws differ from
-        JAX's threefry, so ``noise`` overrides the draw: the tests hand in
-        the JAX package's."""
+    # ------------------------------- VAE ----------------------------------- #
+
+    @torch.inference_mode()
+    def vae_encode(self, video: torch.Tensor) -> torch.Tensor:
+        """[B, T, H, W, 3] in [-1, 1] -> scaled latent, tiled as cfg says."""
+        c = self.cfg
+        return tiling.vae_encode(
+            self.vae, video, tiled=c.encode_tiled, tile_size=c.encode_tile_size,
+            tile_overlap=c.encode_tile_overlap, tile_batch=c.encode_tile_batch,
+        )
+
+    @torch.inference_mode()
+    def vae_decode(self, latent: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        return tiling.vae_decode(
+            self.vae, latent, tiled=c.decode_tiled, tile_size=c.decode_tile_size,
+            tile_overlap=c.decode_tile_overlap, tile_batch=c.decode_tile_batch,
+        )
+
+    # ------------------------------- DiT ----------------------------------- #
+
+    @torch.inference_mode()
+    def upscale(self, latent: torch.Tensor, seed: int, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One-step upscale of a scaled latent [B, t, h, w, C] (phase 2's
+        per-batch step; the DiT comes back to the device first if
+        ``phased_weights`` moved it off). The noise is one per-batch draw
+        [t, h, w, C] broadcast over B, from a generator seeded with ``seed``
+        for every batch (identical inputs give identical outputs whatever
+        their batch position). torch's draws differ from JAX's threefry, so
+        ``noise`` overrides the draw: the tests hand in the JAX package's."""
+        self.ensure_dit_resident()
         cfg = self.cfg
         dt = self.compute_dtype
+        latent = latent.to(self.device)
         per = tuple(latent.shape[1:])
         if noise is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -121,6 +145,8 @@ class Runner:
         out = dm.euler_sample(base_noise, f, list(timesteps), T, cfg.diffusion.prediction_type)
         return out.to(dt)
 
+    # --------------------------- the batch chain --------------------------- #
+
     @torch.inference_mode()
     def fused_batch(
         self,
@@ -129,24 +155,69 @@ class Runner:
         true_w: int,
         seed: int,
         noise: Optional[torch.Tensor] = None,
+        ori: Optional[int] = None,
     ) -> torch.Tensor:
-        """The whole per-batch pipeline. Returns packed codes [T', true_h,
-        true_w, 3] int32 (cfg.output_bits wide) on the device; the caller
-        trims temporal padding (the colour methods here are per pixel)."""
+        """The whole per-batch pipeline. Returns packed codes [ori, true_h,
+        true_w, 3] int32 (cfg.output_bits wide) on the device, the temporal
+        padding trimmed before the colour fix (``ori`` defaults to every
+        frame)."""
         c = self.cfg
         with record_function("runner.transform"):
             tv = pipeline_transform(to_f01(frames), c.resolution, c.max_resolution)  # fp32 [-1, 1]
         with record_function("runner.vae_encode"):
-            latent = vae_encode(self.vae, tv[None].to(self.compute_dtype))
+            latent = self.vae_encode(tv[None].to(self.compute_dtype))
         with record_function("runner.dit_step"):
-            up = self.step(latent, seed, noise)
+            up = self.upscale(latent, seed, noise)
         with record_function("runner.vae_decode"):
-            dec = vae_decode(self.vae, up)
+            dec = self.vae_decode(up)
         with record_function("runner.color_pack"):
-            x = dec[0, :, :true_h, :true_w].float()
-            if c.color_correction != "none":
-                style = tv[:, :true_h, :true_w]
-                x = color_ops.apply_color_correction(
-                    c.color_correction, x.permute(0, 3, 1, 2), style.permute(0, 3, 1, 2)
-                ).permute(0, 2, 3, 1)
-            return pack_frames((x * 0.5 + 0.5).clamp(0.0, 1.0), c.output_bits)
+            return self.finalize_batch(dec, tv, tv.shape[0] if ori is None else ori, true_h, true_w, True)
+
+    @torch.inference_mode()
+    def finalize_batch(
+        self,
+        decoded: torch.Tensor,  # [1, T, H, W, 3] in [-1, 1] on the device
+        ref,  # [T', h, w, 3]: raw frames (uint8 / int32 codes / float16 [0, 1]), or transformed when ref_transformed
+        ori: int,
+        true_h: int,
+        true_w: int,
+        ref_transformed: bool = False,
+    ) -> torch.Tensor:
+        """Trim to ``ori`` frames and the true size, colour-fix against the
+        (transformed) reference, normalise and pack: [ori, true_h, true_w, 3]
+        int32 codes on the device. Trimming first keeps the methods whose
+        statistics span frames (lab, hsv, wavelet_adaptive, adain) free of
+        the temporal padding."""
+        c = self.cfg
+        x = decoded[0, :ori, :true_h, :true_w].float()
+        if ref is not None and c.color_correction != "none":
+            if ref_transformed:
+                style = ref.float()[:ori, :true_h, :true_w]
+            else:
+                style = pipeline_transform(to_f01(ref), c.resolution, c.max_resolution)[:ori, :true_h, :true_w]
+            x = color_ops.apply_color_correction(
+                c.color_correction, x.permute(0, 3, 1, 2), style.permute(0, 3, 1, 2)
+            ).permute(0, 2, 3, 1)
+        return pack_frames((x * 0.5 + 0.5).clamp(0.0, 1.0), c.output_bits)
+
+    # ------------------------- phased weight residency ---------------------- #
+
+    def weight_bytes(self) -> int:
+        """Bytes of the DiT and VAE buffers: the resident weights that the run
+        budget (phases._run_budget) subtracts from the device memory."""
+        return sum(b.numel() * b.element_size() for m in (self.dit, self.vae) for b in m.buffers())
+
+    def ensure_dit_resident(self) -> None:
+        """Move the DiT back to the device after release_dit."""
+        if next(self.dit.buffers()).device != self.device:
+            self.dit.to(self.device)
+
+    def release_dit(self) -> None:
+        """With cfg.phased_weights, move the DiT's weights to host memory
+        between phase 2 and the next run's phase 2, freeing device memory
+        for the decode (the reference's phase-wise offload). No-op
+        otherwise."""
+        if self.cfg.phased_weights:
+            self.dit.to("cpu")
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()

@@ -51,6 +51,53 @@ def test_conv3d_kernel_matches_plain(cuda, cin, cout, H, W):
     assert _rel(y, k1.conv3d_3x3x3_plain(x, w, b)) <= REL_BOUND
 
 
+def _gn_case(cuda, cin, cout, H, W, T=3, B=2):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(B, T + 2, H, W, cin, device=cuda, generator=g) * 0.7 + 0.3).bfloat16()
+    w = (torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5).bfloat16()
+    b = torch.randn(cout, device=cuda, generator=g)
+    gw = 1 + 0.2 * torch.randn(cin, device=cuda, generator=g)
+    gb = 0.3 * torch.randn(cin, device=cuda, generator=g)
+    scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
+    return x, w, b, scale, shift
+
+
+@pytest.mark.parametrize("cin,cout,H,W", [(128, 128, 9, 13), (256, 128, 16, 16), (128, 256, 5, 70), (128, 128, 3, 100)])
+def test_conv3d_gn_kernel_matches_plain(cuda, cin, cout, H, W):
+    """K4. W=13, 70, 100 are not multiples of 64 and H=3 is all halo rows:
+    many of a tile's rows straddle the image edge, where the kernel must
+    load zeros, not silu(shift) (which the tables make far from 0)."""
+    x, w, b, scale, shift = _gn_case(cuda, cin, cout, H, W)
+    assert float(torch.nn.functional.silu(shift).abs().mean()) > 0.05
+    n0 = (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn)
+    y = k1.conv3d_3x3x3(x, w, b, scale, shift)
+    torch.cuda.synchronize()
+    assert (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn) == (n0[0], n0[1] + 1)
+    ref = k1.conv3d_3x3x3_plain(x, w, b, scale, shift)
+    assert _rel(y, ref) <= REL_BOUND
+    border = torch.zeros(H, W, dtype=torch.bool, device=cuda)
+    border[0], border[-1], border[:, 0], border[:, -1] = True, True, True, True
+    assert _rel(y[:, :, border], ref[:, :, border]) <= REL_BOUND
+    # the unfused route (normalise, then K1) computes the same function
+    unfused = k1.conv3d_3x3x3(k1.gn_silu_apply(x, scale, shift).contiguous(), w, b)
+    assert _rel(unfused, ref) <= REL_BOUND
+
+
+@pytest.mark.parametrize("cin,cout,H,W", [(128, 128, 9, 13), (256, 128, 16, 16), (128, 256, 5, 70)])
+def test_conv3d_im2col_kernel_matches_plain(cuda, cin, cout, H, W):
+    """K6 against its plain version and against K1 on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 4, H, W, cin, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5).bfloat16()
+    b = torch.randn(cout, device=cuda, generator=g)
+    n0 = (k1.conv3d_3x3x3_im2col.launches, k1.conv3d_3x3x3.launches)
+    y = k1.conv3d_3x3x3_im2col(x, w, b)
+    torch.cuda.synchronize()
+    assert (k1.conv3d_3x3x3_im2col.launches, k1.conv3d_3x3x3.launches) == (n0[0] + 1, n0[1])
+    assert _rel(y, k1.conv3d_3x3x3_im2col_plain(x, w, b)) <= REL_BOUND
+    assert _rel(y, k1.conv3d_3x3x3(x, w, b)) <= REL_BOUND
+
+
 @pytest.mark.parametrize("kt,A", [(1, 1), (2, 2), (3, 1)])
 def test_fold_upsample_kernel_matches_plain(cuda, kt, A):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -145,3 +192,20 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         k5.flash_attention(q, q, q.float())
+
+
+def test_conv_kernels_reject_what_they_do_not_take(cuda):
+    """K4: tables of the wrong type, shape or device, or only one of them;
+    K6: a Cin that is not a multiple of 64, an fp32 input."""
+    x, w, b, scale, shift = _gn_case(cuda, 128, 128, 4, 4, T=1, B=1)
+    strided = torch.zeros(1, 3, 256, device=cuda)[..., ::2]  # right shape, not contiguous
+    for bad in (scale.bfloat16(), scale[:, :2].contiguous(), scale.cpu(), strided):
+        with pytest.raises(ValueError):
+            k1.conv3d_3x3x3(x, w, b, bad, shift)
+    with pytest.raises(ValueError):
+        k1.conv3d_3x3x3(x, w, b, scale, None)
+    x96 = torch.zeros(1, 3, 4, 4, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        k1.conv3d_3x3x3_im2col(x96, torch.zeros(3, 3, 3, 96, 128, device=cuda, dtype=torch.bfloat16), b)
+    with pytest.raises(ValueError):
+        k1.conv3d_3x3x3_im2col(x.float(), w, b)

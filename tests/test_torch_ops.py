@@ -99,9 +99,15 @@ def test_wavelet_reconstruction(hw):
 
 
 def test_color_methods_not_ported_raise():
+    """Every colour method of the JAX package is ported now (held against it
+    in tests/test_torch_phases.py); a name the JAX package does not know
+    raises there and here."""
     x = torch.zeros(1, 3, 8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        color.apply_color_correction("lab", x, x)
+    assert set(color.SUPPORTED) == {"wavelet", "lab", "hsv", "wavelet_adaptive", "adain", "none"}
+    with pytest.raises(ValueError, match="Unknown color correction"):
+        color.apply_color_correction("sepia", x, x)
+    with pytest.raises(ValueError, match="Unknown color correction"):
+        jcolor.apply_color_correction("sepia", jnp.asarray(x.numpy()), jnp.asarray(x.numpy()))
 
 
 @pytest.mark.parametrize("pred_type", ["v_lerp", "x_0", "x_T", "v_cos"])

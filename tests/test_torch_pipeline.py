@@ -204,14 +204,16 @@ def test_load_runner_variant_rule(tmp_path, name, variant):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(temporal_overlap=2),
-        dict(encode_tiled=True),
-        dict(color_correction="lab"),
-        dict(prepend_frames=2),
+        dict(input_noise_scale=0.1),
+        dict(latent_noise_scale=0.1),
+        dict(diffusion=config.DiffusionConfig(cfg_scale=2.0)),
+        dict(output_pixfmt="yuv420", temporal_overlap=2),
         dict(output_pixfmt="yuv420"),
     ],
 )
 def test_settings_off_the_ported_path_raise(setup, kw):
+    """The settings still to port (overlap, tiling, prepend frames and the
+    colour methods are ported; tests/test_torch_phases.py)."""
     _, dit_p, vae_p, text = setup
     cfg = _port_cfg()
     runner = Runner(cfg, dit_from_jax(dit_p, cfg.dit, "meta", torch.float32), vae_from_jax(vae_p, cfg.vae, "meta", torch.float32), text, device="cpu")
