@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero without a result):
   3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K4 (K1 with the GroupNorm +
      SiLU prologue, tables from GroupNorm weights, at K1's shapes) and K6
      (the tap-folded conv) against their plain PyTorch
-     versions at the shapes of the 720p paths, bf16 inputs, bound
+     versions at the shapes of the 720p paths, and K3 again at the long
+     clip's DiT geometry (phase 7's latent 3 x 68 x 120), bf16 inputs, bound
      ||k - p||_2 / ||p||_2 <= 1e-2 (the kernels round their outputs to bf16,
      ~4e-3); K3q must also reproduce its plain version's step away from
      unquantised attention (step share within 0.1 of 1, see compare());
@@ -40,10 +41,11 @@ Phases (any failure raises and the script exits non-zero without a result):
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
 of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4:
-phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run); phase 7's
-counts stand under ``e2e.long_clip.launches``. K6 is on no path (the JAX
-package reaches it only from its benchmark scripts): its row's count is
-its sum over every driven run, which must be 0.
+phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run; the 1080p K3
+rows: phase 7); phase 7's counts also stand under
+``e2e.long_clip.launches``. K6 is on no path (the JAX package reaches it
+only from its benchmark scripts): its row's count is its sum over every
+driven run, which must be 0.
 Then: the kernels JSON line, the card line, and the final JSON line.
 """
 
@@ -175,9 +177,12 @@ def compare(kid, name, source, replaces, kernel, plain, bytes_moved, ops, librar
     return row
 
 
-def _window_attention_rows(dev, g, cfg, quant_qk):
-    """K3 (3B) or K3q (7B) at the 720p geometry: patched latent (2, 45, 80),
-    Lt = 58, the plain and the shifted plan."""
+def _window_attention_rows(dev, g, cfg, quant_qk, thw=(2, 45, 80), res="", path="main"):
+    """K3 (3B) or K3q (7B) at a patched latent geometry, Lt = 58, the plain
+    and the shifted plan: the 720p paths' (2, 45, 80) by default; the long
+    clip's 1080p batch of 9 frames is (3, 68, 120) (1080x1920 padded to
+    1088x1920, /8 by the VAE, /2 by the patch; 9 frames -> 3 latents).
+    ``path`` names the run whose count the row carries."""
     import torch.nn.functional as F
 
     from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
@@ -186,7 +191,7 @@ def _window_attention_rows(dev, g, cfg, quant_qk):
     kid = "K3q" if quant_qk else "K3"
     H, D, Lt = cfg.heads, cfg.head_dim, 58
     rows = []
-    for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, (2, 45, 80), Lt), D, dev)):
+    for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, thw, Lt), D, dev)):
         nW, S = dp.valid.shape
         vqkv = torch.randn((1, 3, H, nW, S, D), generator=g, device=dev).bfloat16()
         tqkv = torch.randn((1, 3, H, Lt, D), generator=g, device=dev).bfloat16()
@@ -210,12 +215,13 @@ def _window_attention_rows(dev, g, cfg, quant_qk):
 
             call = "F.scaled_dot_product_attention on pre-normed, pre-roped q/k/v [nW, H, S+Lt, D] with the key mask"
         rows.append(compare(
-            kid, f"{cfg.variant} {which} H{H} nW{nW} S{S} Lt{Lt}", "seedvr2_tpu_torch/csrc/window_attention.cuh",
+            kid, f"{cfg.variant} {res}{which} H{H} nW{nW} S{S} Lt{Lt}", "seedvr2_tpu_torch/csrc/window_attention.cuh",
             "seedvr2_tpu/ops/fused_window_attention.py:145" + (" (quant_qk=True, :100-117)" if quant_qk else ""),
             lambda: k3.fused_window_attention(*args, quant_qk=quant_qk),
             lambda: k3.fused_window_attention_plain(*args, quant_qk=quant_qk),
             moved, ops, library, call,
             rival=(lambda: k3.fused_window_attention_plain(*args, quant_qk=False)) if quant_qk else None,
+            extra_row={"path": path},
         ))
     return rows
 
@@ -337,6 +343,7 @@ def kernel_phase(dev):
         ))
         del x, xc
     rows += _window_attention_rows(dev, g, dit_3b(), quant_qk=False)
+    rows += _window_attention_rows(dev, g, dit_3b(), quant_qk=False, thw=(3, 68, 120), res="1080p ", path="long_clip")
     rows += _window_attention_rows(dev, g, dit_7b(), quant_qk=True)
     rows += _flash_attention_rows(dev, g, dit_7b())
     return rows
@@ -550,7 +557,7 @@ def main():
         raise RuntimeError(f"K6 is on no path but launched {k6} times")
     launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
     for row in rows:
-        row["launches"] = launches[row["kernel"]]
+        row["launches"] = (launches_long if row.get("path") == "long_clip" else launches)[row["kernel"]]
     e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long))
     print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,
                       "build_nvcc_s": b.compile_seconds}))

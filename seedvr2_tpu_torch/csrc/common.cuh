@@ -1,11 +1,12 @@
 // Shared pieces of the hand-written Hopper kernels: bf16 helpers, the WMMA
-// fragment types and the implicit-GEMM tile that the two VAE convolutions
-// (conv3d.cuh, fold_upsample.cuh) are built on.
+// fragment types and the implicit-GEMM tile that the VAE convolutions
+// (conv3d.cuh, conv3d_im2col.cuh, fold_upsample.cuh) are built on.
 //
-// Every kernel runs 128 threads (4 warps) per block and multiplies bf16
+// The convolutions run 128 threads (4 warps) per block and multiply bf16
 // tiles on the tensor cores through nvcuda::wmma (16x16x16, fp32
-// accumulation). A first, simple form: synchronous 16-byte loads into
-// shared memory, no cp.async/TMA pipeline and no wgmma yet.
+// accumulation), with synchronous 16-byte loads into shared memory: no
+// cp.async/TMA pipeline and no wgmma yet. The attention kernels have their
+// own core (attention_core.cuh, on the inline PTX of ptx.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -9,8 +9,9 @@ extern "C" {
 int seedvr2_flash_attention(const void* q, const void* k, const void* v, const void* kv_valid,
                             const void* q_valid, void* o, int B, int S, int H, int n_pad,
                             float scale, void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnSmem);
+  const auto kernel = attn::attention_kernel<attn::FlashPolicy>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, attn::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   FlashArgs a;
   a.q = (const bf16*)q;
@@ -23,8 +24,8 @@ int seedvr2_flash_attention(const void* q, const void* k, const void* v, const v
   a.H = H;
   a.n_pad = n_pad;
   a.scale = scale;
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
-  flash_attention_kernel<<<grid, kThreads, kAttnSmem, (cudaStream_t)stream>>>(a);
+  const dim3 grid((S + attn::kBM - 1) / attn::kBM, H, B);
+  kernel<<<grid, attn::kThreads, attn::kSmemBytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -12,10 +12,10 @@ int seedvr2_window_attention(const void* vqkv, const void* tqkv, const void* vco
                              int H, int nW, int S, int Lt, int rope_txt, int qk_norm, int quant_qk,
                              float eps, float scale, void* stream) {
   // above 48 KB of dynamic shared memory needs an opt-in (per device, so per call)
-  const auto kernel = quant_qk ? window_attention_kernel<true> : window_attention_kernel<false>;
-  const int smem = quant_qk ? kAttnSmemQ : kAttnSmem;
+  const auto kernel = quant_qk ? attn::attention_kernel<attn::WindowPolicy<true>>
+                               : attn::attention_kernel<attn::WindowPolicy<false>>;
   const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, attn::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   AttnArgs a;
   a.vqkv = (const bf16*)vqkv;
@@ -36,8 +36,8 @@ int seedvr2_window_attention(const void* vqkv, const void* tqkv, const void* vco
   a.qk_norm = qk_norm;
   a.eps = eps;
   a.scale = scale;
-  const dim3 grid((S + Lt + kTile - 1) / kTile, nW * H, B);
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  const dim3 grid((S + Lt + attn::kBM - 1) / attn::kBM, nW * H, B);
+  kernel<<<grid, attn::kThreads, attn::kSmemBytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,10 @@
 
 Counterpart of seedvr2_tpu/ops/flash_attention.py:flash_attention, which the
 DiT's unfused window attention calls under attention_mode flash_attn_2/3
-("pallas"). On a CUDA tensor it launches the hand-written flash-style kernel
-(csrc/flash_attention.cuh); on a CPU tensor it runs the plain version.
+("pallas"). On a CUDA tensor it launches the hand-written kernel (the
+strided policy of csrc/flash_attention.cuh on the flash core
+csrc/attention_core.cuh, which K3 shares); on a CPU tensor it runs the
+plain version.
 
 The JAX function pads S to Sp = max(ceil(S / 128) * 128, 128) with masked
 zero keys (an alignment need of the TPU compiler). Those keys enter its

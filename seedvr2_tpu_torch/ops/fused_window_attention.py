@@ -7,9 +7,10 @@ the attention_mode sageattn_2/3 ("fused_int8"): after q and k are
 normalised, roped and rounded, each q and k row is quantised to int8 with
 its own fp32 scale and the logits are the int32 dot products times both
 scales; softmax and PV are unchanged. On a CUDA tensor the wrapper launches
-the hand-written kernel (csrc/window_attention.cuh, one template for both);
-on a CPU tensor it runs the plain version, which is the Pallas kernel's
-math op for op.
+the hand-written kernel (the window policy of csrc/window_attention.cuh on
+the flash core csrc/attention_core.cuh, one template for both); on a CPU
+tensor it runs the plain version, which is the Pallas kernel's math op for
+op.
 """
 
 from __future__ import annotations

@@ -66,24 +66,59 @@ def test_fold_upsample_plain_matches_pallas(kt, A):
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
-@pytest.mark.parametrize("rope_txt", [True, False])
-def test_window_attention_plain_matches_pallas(rope_txt):
-    B, H, nW, S, Lt, D = 1, 2, 3, 24, 5, 128
-    vqkv, tqkv = _rand((B, 3, H, nW, S, D), 8), _rand((B, 3, H, Lt, D), 9)
-    vang = np.random.RandomState(10).rand(nW, S, D).astype(np.float32) * 6
-    tang = np.random.RandomState(11).rand(Lt, D).astype(np.float32) * 6 if rope_txt else np.zeros((Lt, D), np.float32)
+# The corners the CUDA kernel is held to on the card (tests/test_torch_kernels_gpu.py),
+# so that the plain version it is compared with there is held to the Pallas kernel
+# here: a window whose video slots are all invalid, B = 2, no qk norm, R = S + Lt
+# an exact multiple of the kernel's 128-row query tile and one row over, and
+# all-zero q/k rows.
+WINDOW_CASES = {
+    "True": dict(rope_txt=True),
+    "False": dict(rope_txt=False),
+    "all_invalid": dict(invalid_window=0),
+    "B2": dict(B=2),
+    "no_qk_norm": dict(qk_norm=False),
+    "R128": dict(S=120, Lt=8, nW=1),
+    "R129": dict(S=121, Lt=8, nW=1),
+    "zero_rows": dict(zero_rows=True),
+}
+
+
+def window_inputs(seed, rope_txt=True, B=1, nW=3, S=24, Lt=5, qk_norm=True, invalid_window=None, zero_rows=False):
+    """numpy inputs of fused_window_attention, windows 1 and 2 ragged."""
+    H, D = 2, 128
+    vqkv, tqkv = _rand((B, 3, H, nW, S, D), seed), _rand((B, 3, H, Lt, D), seed + 1)
+    if zero_rows:  # q and k of video slot 5 of window 0 and of text token 1
+        vqkv[:, :2, :, 0, 5] = 0.0
+        tqkv[:, :2, :, 1] = 0.0
+    vang = np.random.RandomState(seed + 2).rand(nW, S, D).astype(np.float32) * 6
+    tang = np.random.RandomState(seed + 3).rand(Lt, D).astype(np.float32) * 6 if rope_txt else np.zeros((Lt, D), np.float32)
     valid = np.ones((nW, S), bool)
-    valid[1, 17:] = False  # ragged windows
-    valid[2, 9:] = False
-    norms = 1 + _rand((4, D), 12, 0.1)
+    valid[1:2, S * 17 // 24 :] = False  # ragged windows
+    valid[2:3, S * 9 // 24 :] = False
+    if invalid_window is not None:
+        valid[invalid_window] = False
+    norms = 1 + _rand((4, D), seed + 4, 0.1)
+    return vqkv, tqkv, vang, tang, valid, rope_txt, norms, qk_norm
+
+
+def window_pallas_vs_plain(inputs, quant_qk):
+    """(plain, Pallas interpret) outputs on the same inputs, the padded video
+    query slots included (both compute them; downstream drops them)."""
+    vqkv, tqkv, vang, tang, valid, rope_txt, norms, qk_norm = inputs
     ref_v, ref_t = j_attn(
         jnp.asarray(vqkv), jnp.asarray(tqkv), jnp.asarray(vang), jnp.asarray(tang), jnp.asarray(valid),
-        rope_txt, norms=jnp.asarray(norms), qk_norm=True, eps=1e-5, interpret=True,
+        rope_txt, norms=jnp.asarray(norms), qk_norm=qk_norm, eps=1e-5, interpret=True, quant_qk=quant_qk,
     )
     t = torch.from_numpy
     got_v, got_t = fused_window_attention.fused_window_attention(
-        t(vqkv), t(tqkv), t(vang).cos(), t(vang).sin(), t(tang).cos(), t(tang).sin(), t(valid), rope_txt, t(norms), True, 1e-5
+        t(vqkv), t(tqkv), t(vang).cos(), t(vang).sin(), t(tang).cos(), t(tang).sin(), t(valid), rope_txt, t(norms),
+        qk_norm, 1e-5, quant_qk,
     )
-    mask = np.broadcast_to(valid[None, None, :, :, None], got_v.shape)
-    np.testing.assert_allclose(got_v.numpy()[mask], np.asarray(ref_v)[mask], **TOL)
-    np.testing.assert_allclose(got_t.numpy(), np.asarray(ref_t), **TOL)
+    return (got_v.numpy(), got_t.numpy()), (np.asarray(ref_v), np.asarray(ref_t))
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_attention_plain_matches_pallas(case):
+    (got_v, got_t), (ref_v, ref_t) = window_pallas_vs_plain(window_inputs(8, **WINDOW_CASES[case]), quant_qk=False)
+    np.testing.assert_allclose(got_v, ref_v, **TOL)
+    np.testing.assert_allclose(got_t, ref_t, **TOL)

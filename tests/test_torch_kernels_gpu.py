@@ -112,13 +112,30 @@ def test_fold_upsample_kernel_matches_plain(cuda, kt, A):
     assert _rel(y, k2.fold_upsample_conv_plain(x, K, btab, bc, A)) <= REL_BOUND
 
 
-@pytest.mark.parametrize("rope_txt", [True, False])
-def test_window_attention_kernel_matches_plain(cuda, rope_txt):
-    _check_window_attention(cuda, rope_txt, quant_qk=False)
+# Window attention corners a register-resident kernel can get wrong: the
+# original 3-window case (window 1 ragged), a window whose video slots are
+# all invalid (its keys are text only), B = 2, no qk norm, R = S + Lt an
+# exact multiple of the 128-row query tile and one row over, and all-zero
+# q/k rows (K3q's scale is then 1e-8 and every code 0).
+_WINDOW_CASES = {
+    "True": dict(rope_txt=True),
+    "False": dict(rope_txt=False),
+    "all_invalid": dict(invalid_window=2),
+    "B2": dict(B=2),
+    "no_qk_norm": dict(qk_norm=False),
+    "R128": dict(S=120, Lt=8, nW=2),
+    "R129": dict(S=121, Lt=8, nW=2),
+    "zero_rows": dict(zero_rows=True),
+}
 
 
-@pytest.mark.parametrize("rope_txt", [True, False])
-def test_window_attention_int8_kernel_matches_plain(cuda, rope_txt):
+@pytest.mark.parametrize("case", list(_WINDOW_CASES))
+def test_window_attention_kernel_matches_plain(cuda, case):
+    _check_window_attention(cuda, quant_qk=False, **_WINDOW_CASES[case])
+
+
+@pytest.mark.parametrize("case", list(_WINDOW_CASES))
+def test_window_attention_int8_kernel_matches_plain(cuda, case):
     """K3q: both sides quantise the same bf16 q/k rows. The int8 step moves
     the output by about as much as the bf16 rounding, so the rel L2 bound
     alone would pass K3 here too; the kernel must also reproduce the step
@@ -127,41 +144,54 @@ def test_window_attention_int8_kernel_matches_plain(cuda, rope_txt):
     ~0.5 when one is, ~0.05 when neither is. The kernel's rounding noise
     averages out; the plain outputs' bf16 rounding (~2e-3 of a ~1e-2 step)
     stays in the denominator and moves the ends 0.05 inwards."""
-    _check_window_attention(cuda, rope_txt, quant_qk=True)
+    _check_window_attention(cuda, quant_qk=True, **_WINDOW_CASES[case])
 
 
-def _check_window_attention(cuda, rope_txt, quant_qk):
+def _check_window_attention(cuda, quant_qk, rope_txt=True, B=1, nW=3, S=100, Lt=7, qk_norm=True, invalid_window=None,
+                            zero_rows=False):
     g = torch.Generator(device=cuda).manual_seed(2)
-    B, H, nW, S, Lt, D = 1, 2, 3, 100, 7, 128
+    H, D = 2, 128
     vqkv = torch.randn(B, 3, H, nW, S, D, device=cuda, generator=g).bfloat16()
     tqkv = torch.randn(B, 3, H, Lt, D, device=cuda, generator=g).bfloat16()
+    if zero_rows:  # q and k of video slot 5 of window 0 and of text token 1
+        vqkv[:, :2, :, 0, 5] = 0
+        tqkv[:, :2, :, 1] = 0
     ang = torch.rand(nW, S, D, device=cuda, generator=g) * 6
     tang = torch.rand(Lt, D, device=cuda, generator=g) * 6
     valid = torch.ones(nW, S, dtype=torch.bool, device=cuda)
     valid[1, 60:] = False  # ragged window
+    if invalid_window is not None:
+        valid[invalid_window] = False
     norms = 1 + 0.1 * torch.randn(4, D, device=cuda, generator=g)
-    args = (vqkv, tqkv, ang.cos(), ang.sin(), tang.cos(), tang.sin(), valid, rope_txt, norms, True, 1e-5, quant_qk)
+    args = (vqkv, tqkv, ang.cos(), ang.sin(), tang.cos(), tang.sin(), valid, rope_txt, norms, qk_norm, 1e-5, quant_qk)
     n0 = (k3.fused_window_attention.launches, k3.fused_window_attention.launches_int8)
     ov, ot = k3.fused_window_attention(*args)
     torch.cuda.synchronize()
     n1 = (k3.fused_window_attention.launches, k3.fused_window_attention.launches_int8)
     assert n1 == ((n0[0], n0[1] + 1) if quant_qk else (n0[0] + 1, n0[1]))
     pv, pt = k3.fused_window_attention_plain(*args)
-    assert _rel(ov[:, :, valid.all(1)], pv[:, :, valid.all(1)]) <= REL_BOUND
-    assert _rel(ov[:, :, 1, :, :60], pv[:, :, 1, :, :60]) <= REL_BOUND
+    assert bool(torch.isfinite(ov).all()) and bool(torch.isfinite(ot).all())
+    # every row, the padded video slots' queries included (they attend like any other)
+    assert _rel(ov, pv) <= REL_BOUND
     assert _rel(ot, pt) <= REL_BOUND
+    if invalid_window is not None:
+        assert _rel(ov[:, :, invalid_window], pv[:, :, invalid_window]) <= REL_BOUND
+    if zero_rows:
+        assert _rel(ov[:, :, 0, 5], pv[:, :, 0, 5]) <= REL_BOUND
     if quant_qk:
         uv, ut = k3.fused_window_attention_plain(*args[:-1], False)
-        rows = valid[None, None, :, :, None]  # the padded query slots of window 1 are dropped downstream
+        rows = valid[None, None, :, :, None]  # the padded query slots are dropped downstream
         got, ref, unq = (torch.cat([(v * rows).flatten(), t.flatten()]).float() for v, t in ((ov, ot), (pv, pt), (uv, ut)))
         share = float(((got - unq) * (ref - unq)).sum() / ((ref - unq) * (ref - unq)).sum())
         assert abs(share - 1.0) <= 0.1, share
         assert _rel(got, ref) < _rel(got, unq)
 
 
-@pytest.mark.parametrize("S", [463, 64, 37])
+@pytest.mark.parametrize("S", [463, 64, 37, 128, 129])
 def test_flash_attention_kernel_matches_plain(cuda, S):
-    """A masked key tail, one batch row with no valid key, q_valid."""
+    """A masked key tail, one batch row with no valid key, q_valid as a tail
+    and as a strided row pattern. S = 128 fills the 128-row query tile and
+    two 64-key tiles exactly; S = 129 is one row over."""
     g = torch.Generator(device=cuda).manual_seed(3)
     B, H, D = 3, 4, 128
     q, k, v = (torch.randn(B, S, H, D, device=cuda, generator=g).bfloat16() for _ in range(3))
@@ -170,14 +200,16 @@ def test_flash_attention_kernel_matches_plain(cuda, S):
     kv_valid[2] = False
     q_valid = torch.ones(B, S, dtype=torch.bool, device=cuda)
     q_valid[1, S // 2 :] = False
+    strided = torch.arange(S, device=cuda)[None, :].expand(B, S) % 3 != 1
     n0 = k5.flash_attention.launches
-    for qv in (None, q_valid):
+    for qv in (None, strided, q_valid):
         o = k5.flash_attention(q, k, v, kv_valid, qv)
         torch.cuda.synchronize()
         p = k5.flash_attention_plain(q, k, v, kv_valid, qv)
         assert bool(torch.isfinite(o).all())
         assert _rel(o, p) <= REL_BOUND
-    assert k5.flash_attention.launches == n0 + 2
+        assert _rel(o[2], p[2]) <= REL_BOUND  # no valid key: sum(v) / Sp
+    assert k5.flash_attention.launches == n0 + 3
     assert not bool(o[1, S // 2 :].any())
 
 
