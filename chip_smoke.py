@@ -9,15 +9,17 @@ Phases (any failure raises and the script exits non-zero without a result):
   3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K4 (K1 with the GroupNorm +
      SiLU prologue, tables from GroupNorm weights, at K1's shapes) and K6
      (the tap-folded conv) against their plain PyTorch
-     versions at the shapes of the 720p paths, and K3 again at the long
-     clip's DiT geometry (phase 7's latent 3 x 68 x 120), bf16 inputs, bound
+     versions at the shapes of the 720p paths, and K3 and K4 again at the
+     long clip's shapes (phase 7's DiT latent 3 x 68 x 120; the c128 and
+     c256 convs of one 608 x 1024 decode tile), bf16 inputs, bound
      ||k - p||_2 / ||p||_2 <= 1e-2 (the kernels round their outputs to bf16,
      ~4e-3); K3q must also reproduce its plain version's step away from
      unquantised attention (step share within 0.1 of 1, see compare());
      CUDA-event times of kernel, plain version and the nearest
      single PyTorch call (library_ms, a yardstick the port never calls);
      bound_ms from the shapes and the card's published peaks; K4 and K6
-     rows also carry K1's time at the same shape (``k1_ms``), their rival;
+     rows also carry K1's time at the same shape (``k1_ms``), their rival,
+     and K4 rows cuDNN's bf16 conv alone (``cudnn_conv_ms``);
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
@@ -42,7 +44,7 @@ Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
 of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4:
 phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run; the 1080p K3
-rows: phase 7); phase 7's counts also stand under
+rows and the long-clip K4 rows: phase 7); phase 7's counts also stand under
 ``e2e.long_clip.launches``. K6 is on no path (the JAX package reaches it
 only from its benchmark scripts): its row's count is its sum over every
 driven run, which must be 0.
@@ -256,6 +258,82 @@ def _flash_attention_rows(dev, g, cfg):
     return rows
 
 
+def long_clip_conv_shapes():
+    """(C, T, H, W) of the c128 and c256 resnet convs of one tile of phase 7's
+    tiled decode: the 1080p frame padded to a multiple of 16 (1088 x 1920) is
+    a 136 x 240 latent, which the decode's grid (1024 px tiles, 128 px
+    overlap) cuts into 76 x 128 latent tiles, i.e. 608 x 1024 px (c128) and
+    304 x 512 (c256); the first temporal slice of a 9-frame batch decodes 2
+    latent frames into 5."""
+    from seedvr2_tpu_torch.config import PipelineConfig
+    from seedvr2_tpu_torch.models.vae import tiling
+    from seedvr2_tpu_torch.profile_batch import long_clip_config, long_clip_frames
+
+    cfg = long_clip_config(PipelineConfig())
+    sf = cfg.vae.spatial_downsample_factor
+    fh, fw = long_clip_frames().shape[1:3]
+    lat = [-(-n // 16) * 16 // sf for n in (cfg.resolution, cfg.resolution * fw // fh)]
+    tile = []
+    for n, size, ov in zip(lat, cfg.decode_tile_size, cfg.decode_tile_overlap):
+        ltmax = size // sf
+        lo = max(0, min(tiling.effective_pixel_overlap(ov, n, ltmax, sf) // sf, ltmax - 1))
+        tile.append(tiling._axis_grid(n, ltmax, lo)[0])
+    return [(128, 5, tile[0] * sf, tile[1] * sf), (256, 5, tile[0] * sf // 2, tile[1] * sf // 2)]
+
+
+def _conv_rows(dev, g, c, T, H, W, k1_ms, path="main"):
+    """K1 (on the main path only) and K4 rows at one resnet conv shape. K4's
+    library call is the three-call chain it fuses; ``cudnn_conv_ms`` is
+    cuDNN's bf16 F.conv3d at the same shape, its rival for the conv alone."""
+    import torch.nn.functional as F
+
+    from seedvr2_tpu_torch.ops import conv3d_kernel as k1
+
+    x = (torch.randn((1, T + 2, H, W, c), generator=g, device=dev)).bfloat16()
+    w = (torch.randn((3, 3, 3, c, c), generator=g, device=dev) * (27 * c) ** -0.5).bfloat16()
+    b = torch.randn(c, generator=g, device=dev)
+    w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
+    xc = x.permute(0, 4, 1, 2, 3)
+    ops = {"bf16": 2 * T * H * W * 27 * c * c}
+    shape = f"c{c} {T}x{H}x{W}"
+    rows = []
+
+    def cudnn():
+        return F.conv3d(xc, w_oidhw, b.bfloat16(), padding=(0, 1, 1))
+
+    if path == "main":
+        rows.append(compare(
+            "K1", f"conv3d_3x3x3 {shape}", "seedvr2_tpu_torch/csrc/conv3d.cuh",
+            "seedvr2_tpu/ops/conv3d_kernel.py:193",
+            lambda: k1.conv3d_3x3x3(x, w, b), lambda: k1.conv3d_3x3x3_plain(x, w, b),
+            nbytes(x, w, b) + T * H * W * c * 2, ops, cudnn, "F.conv3d in bf16 (cuDNN), NCDHW view",
+        ))
+        k1_ms[shape] = (rows[-1]["ms"], rows[-1]["library_ms"])
+    gw = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+    gb = 0.3 * torch.randn(c, generator=g, device=dev)
+    scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
+
+    def chain():
+        h = x.permute(0, 1, 4, 2, 3).reshape(T + 2, c, H, W)  # per-frame GroupNorm on NCHW frames
+        h = F.silu(F.group_norm(h, 32, gw.bfloat16(), gb.bfloat16(), eps=1e-6))
+        return F.conv3d(h.reshape(1, T + 2, c, H, W).transpose(1, 2), w_oidhw, b.bfloat16(), padding=(0, 1, 1))
+
+    extra = {"path": path}
+    if shape in k1_ms:
+        extra.update(k1_ms=k1_ms[shape][0], cudnn_conv_ms=k1_ms[shape][1])
+    else:
+        extra["cudnn_conv_ms"] = cuda_ms(cudnn, 20)
+    rows.append(compare(
+        "K4", f"conv3d_3x3x3 + GroupNorm/SiLU prologue {shape}" + (" (long clip)" if path == "long_clip" else ""),
+        "seedvr2_tpu_torch/csrc/conv3d.cuh", "seedvr2_tpu/ops/conv3d_kernel.py:193 (scale=, shift=: _kernel_gn :100)",
+        lambda: k1.conv3d_3x3x3(x, w, b, scale, shift), lambda: k1.conv3d_3x3x3_plain(x, w, b, scale, shift),
+        nbytes(x, w, b, scale, shift) + T * H * W * c * 2, ops, chain,
+        "chain: per-frame F.group_norm + F.silu + cuDNN bf16 F.conv3d (channels-first copies of x included)",
+        extra_row=extra,
+    ))
+    return rows
+
+
 def kernel_phase(dev):
     import torch.nn.functional as F
 
@@ -271,43 +349,14 @@ def kernel_phase(dev):
 
     # K1: the resnet convs of the 720p decode (latent 2x90x160 -> 5x720x1280);
     # K4: the same convs with the resnet's GroupNorm + SiLU folded into the
-    # load (tables from GroupNorm weights of the input); K6: the folded
+    # load (tables from GroupNorm weights of the input), and again at the long
+    # clip's decode-tile shapes (phase 7's path, no K1 there); K6: the folded
     # product at the shapes of the JAX package's c128 A/B and c256
     k1_ms = {}
     for c, T, H, W in ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280)):
-        x = randn(1, T + 2, H, W, c)
-        w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
-        b = torch.randn(c, generator=g, device=dev)
-        w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
-        xc = x.permute(0, 4, 1, 2, 3)
-        ops = {"bf16": 2 * T * H * W * 27 * c * c}
-        shape = f"c{c} {T}x{H}x{W}"
-        rows.append(compare(
-            "K1", f"conv3d_3x3x3 {shape}", "seedvr2_tpu_torch/csrc/conv3d.cuh",
-            "seedvr2_tpu/ops/conv3d_kernel.py:193",
-            lambda: k1.conv3d_3x3x3(x, w, b), lambda: k1.conv3d_3x3x3_plain(x, w, b),
-            nbytes(x, w, b) + T * H * W * c * 2, ops,
-            lambda: F.conv3d(xc, w_oidhw, b.bfloat16(), padding=(0, 1, 1)), "F.conv3d in bf16 (cuDNN), NCDHW view",
-        ))
-        k1_ms[shape] = rows[-1]["ms"]
-        gw = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
-        gb = 0.3 * torch.randn(c, generator=g, device=dev)
-        scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
-
-        def chain():
-            h = x.permute(0, 1, 4, 2, 3).reshape(T + 2, c, H, W)  # per-frame GroupNorm on NCHW frames
-            h = F.silu(F.group_norm(h, 32, gw.bfloat16(), gb.bfloat16(), eps=1e-6))
-            return F.conv3d(h.reshape(1, T + 2, c, H, W).transpose(1, 2), w_oidhw, b.bfloat16(), padding=(0, 1, 1))
-
-        rows.append(compare(
-            "K4", f"conv3d_3x3x3 + GroupNorm/SiLU prologue {shape}", "seedvr2_tpu_torch/csrc/conv3d.cuh",
-            "seedvr2_tpu/ops/conv3d_kernel.py:193 (scale=, shift=: _kernel_gn :100)",
-            lambda: k1.conv3d_3x3x3(x, w, b, scale, shift), lambda: k1.conv3d_3x3x3_plain(x, w, b, scale, shift),
-            nbytes(x, w, b, scale, shift) + T * H * W * c * 2, ops, chain,
-            "chain: per-frame F.group_norm + F.silu + cuDNN bf16 F.conv3d (channels-first copies of x included)",
-            extra_row={"k1_ms": k1_ms[shape]},
-        ))
-        del x, xc, scale, shift
+        rows += _conv_rows(dev, g, c, T, H, W, k1_ms)
+    for c, T, H, W in long_clip_conv_shapes():
+        rows += _conv_rows(dev, g, c, T, H, W, k1_ms, path="long_clip")
     for c, T, H, W in ((128, 5, 720, 1280), (256, 5, 360, 640)):
         x = randn(1, T + 2, H, W, c)
         w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
@@ -321,7 +370,7 @@ def kernel_phase(dev):
             lambda: k1.conv3d_3x3x3_im2col(x, w, b), lambda: k1.conv3d_3x3x3_im2col_plain(x, w, b),
             nbytes(x, w, b) + T * H * W * c * 2, {"bf16": 2 * T * H * W * 27 * c * c},
             lambda: F.conv3d(xc, w_oidhw, b.bfloat16(), padding=(0, 1, 1)), "F.conv3d in bf16 (cuDNN), NCDHW view",
-            extra_row={"k1_ms": k1_ms[shape]},
+            extra_row={"k1_ms": k1_ms[shape][0]},
         ))
         del x, xc
     # K2: the decoder's three upsamples at 720p (the phase-pure call of each)
@@ -461,11 +510,12 @@ def main_path_phase(dev, text, frames):
     print(f"  3B weights on the card in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     launches, e2e = drive(runner, frames, "3B fused")
-    expect("3B fused", launches, {"K3": cfg.dit.num_layers, "K3q": 0, "K5": 0, "K4": 0})
+    # 48 resnet convs (20 in the encoder, 28 in the decoder); K2 per decoder upsample and latent slice
+    expect("3B fused", launches, {"K1": 48, "K2": 6, "K3": cfg.dit.num_layers, "K3q": 0, "K5": 0, "K4": 0})
     # the same path with the resnets' GroupNorm + SiLU folded into their convs
     runner.vae.set_gn_fusion(True)
     launches_gn, e2e_gn = drive(runner, frames, "3B fused gn_fusion")
-    expect("3B fused gn_fusion", launches_gn, {"K4": 48, "K1": 0, "K3": cfg.dit.num_layers})
+    expect("3B fused gn_fusion", launches_gn, {"K4": 48, "K1": 0, "K2": 6, "K3": cfg.dit.num_layers})
     return launches, launches_gn, {"3b_fused": e2e, "3b_fused_gn_fusion": e2e_gn}
 
 
@@ -482,7 +532,7 @@ def long_clip_phase(dev, text):
     runner = Runner(cfg, random_dit(cfg.dit, g), random_vae(cfg.vae, g).set_gn_fusion(True), text, device=dev)
     launches, e2e = drive(runner, long_clip_frames(), "3B long clip", out_shape=(15, 1080, 1920, 3), runs=1)
     # 2 batches x (20 resnet convs x 2 encode slices + 28 x 2 decode slices) x 4 tiles; 32 layers x 2 batches
-    expect("3B long clip", launches, {"K4": 768, "K1": 0, "K3": 64, "K3q": 0, "K5": 0})
+    expect("3B long clip", launches, {"K4": 768, "K1": 0, "K2": 72, "K3": 64, "K3q": 0, "K5": 0})
     return launches, e2e
 
 

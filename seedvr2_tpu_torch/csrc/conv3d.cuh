@@ -6,155 +6,164 @@
 // (_kernel, and _kernel_gn when scale/shift tables are given). Same
 // contract: the input is already extended in time (causal head or streaming
 // carry), SAME zero padding in H and W, valid in time, fp32 accumulation,
-// bias added in fp32, output in bf16.
+// bias added in fp32, output in bf16. The Pallas wrapper's jnp.pad and its
+// +7 column alignment pad were TPU artefacts and are gone: the slab loads
+// are predicated on the unpadded input.
 //
-// What bounds it on the H100: at the VAE's shapes (Cin, Cout in 128..512)
-// the conv does 27*Cin*2 FLOPs per output value against ~4 bytes of
-// activation traffic, far above the ~295 FLOP/byte ridge, so it is bound by
-// tensor-core issue. The design follows from that: an implicit GEMM whose
-// M = 64 output pixels are a 4 x 16 patch of one frame, N = 64 output
-// channels, K = 27 * Cin looped as (temporal tap, 32-channel chunk, spatial
-// tap). For each temporal tap and chunk the block loads the patch's 6 x 18
-// halo'd input slab once into shared memory (predicated 16-byte loads from
-// the unpadded input: out-of-image pixels are zero; the Pallas wrapper's
-// jnp.pad and its +7 column alignment pad were TPU artefacts and are gone),
-// and the 9 spatial taps read their A fragments straight from the slab at
-// shifted offsets: 108 loads per 64 x 32 chunk instead of 9 x 64. The
-// batch and the frames ride grid.z instead of a host loop; the weights are
-// laid out once at load as [27, Cin, Cout].
+// What bounds it on the H100: tensor-core issue (27*Cin*2 FLOPs per output
+// value) and, behind it, the L2 -> shared memory traffic of the weight and
+// slab tiles. The design is the conv core's (conv_core.cuh): an implicit
+// GEMM of M = 256 output pixels (a 16 x 16 patch of one frame, from an 18 x
+// 18 halo'd slab) x N = 128 output channels x K = 27 * Cin, walked as
+// (temporal tap, 32-channel chunk) stages, each warp reading the 9 spatial
+// taps from the slab at shifted offsets. This policy maps the stage to
+// frame t + kt of the extended input and rows (kt*9 + tap)*Cin + c of the
+// weights, laid out once at load as [27, Cin, Cout]; batch, frames, patches
+// and column blocks ride blockIdx.x.
+//
+// Chunk depth, ring and occupancy: a stage is the slab (324 pixels x 40
+// bf16, 25,920 B) and 9 weight tiles of 32 x 128 bf16 (73,728 B); the two
+// stages are 199,296 B of the 227 KB a block may have, so one block (8
+// warps) an SM, with up to 255 registers a thread (128 fp32 accumulators,
+// 48 B-fragment and 4 A-fragment registers of the tap walk). 32-channel
+// chunks give each warp 576 mma.sync between barriers.
 //
 // K4 (kGn): the GroupNorm statistics are folded by the caller into fp32
 // tables scale/shift [B, T+2, Cin] (one row per frame of the extended
-// input); every in-image slab element of frame t+kt is stored as
-// silu(x * scale + shift), rounded to bf16, so each element is normalised
-// once per block and temporal tap. The normalised tensor is never written
-// to device memory, which is what the fusion buys (the unfused path writes
-// it and the conv reads it back). An out-of-image slab element stays 0:
-// SAME padding pads the normalised activations, and silu(shift) of a raw
-// zero is not 0 (the Pallas kernel's mask at _kernel_gn does the same).
-// Not yet done (later work): cp.async/TMA double buffering and wgmma.
+// input). cp.async lands the raw slab chunk; each thread then stores every
+// in-image element of the units it copied as silu(x * scale + shift),
+// rounded to bf16, with its 8 channels' table entries read once a stage,
+// so each element is normalised once per block and stage. The normalised
+// tensor is never written to device memory, which is what the fusion buys.
+// An out-of-image slab element stays 0: SAME padding pads the normalised
+// activations, and silu(shift) of a raw zero is not 0 (the Pallas kernel's
+// mask at _kernel_gn does the same).
 #pragma once
 
-#include "common.cuh"
+#include "conv_core.cuh"
 
 namespace seedvr2 {
 
-constexpr int kTH = 4, kTW = 16;             // output patch: kTH x kTW = kBM pixels
-constexpr int kSH = kTH + 2, kSW = kTW + 2;  // input slab with the 3x3 halo
-constexpr int kSlabPix = kSH * kSW;
-constexpr int kLdS = kBK + 16;  // 48 bf16 = 96 bytes a slab pixel: every shifted fragment start is 32-byte aligned
-constexpr int kSlabBytes = kSlabPix * kLdS * 2;
-constexpr int kConvSmem = kTileCBytes > kSlabBytes + kTileBBytes ? kTileCBytes : kSlabBytes + kTileBBytes;
-static_assert(kTH * kTW == kBM, "the patch is the M tile");
-
 // silu(x * scale + shift) of eight bf16 channels, in fp32 with the multiply
 // and the add rounded separately (as the plain version's two tensor ops),
-// rounded once back to bf16. scale/shift point at the eight channels' fp32
-// table entries (16-byte aligned).
-__device__ __forceinline__ uint4 gn_silu8(uint4 raw, const float* __restrict__ scale,
-                                          const float* __restrict__ shift) {
-  Pack8 in, out;
-  in.u = raw;
-  const float4 s0 = *reinterpret_cast<const float4*>(scale);
-  const float4 s1 = *reinterpret_cast<const float4*>(scale + 4);
-  const float4 f0 = *reinterpret_cast<const float4*>(shift);
-  const float4 f1 = *reinterpret_cast<const float4*>(shift + 4);
-  const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-  const float f[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+// rounded once back to bf16. The sigmoid takes the hardware exp2 and
+// reciprocal (__expf, __fdividef: a few fp32 ulps, far under the bf16
+// rounding that follows); IEEE expf and division made the pass cost ~40%
+// of the conv.
+struct GnSilu8 {
+  float s[8], f[8];  // the eight channels' scale and shift
+  __device__ uint4 operator()(uint4 raw) const {
+    Pack8 in, out;
+    in.u = raw;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float v = __fadd_rn(__fmul_rn(__bfloat162float(in.h[j]), s[j]), f[j]);
-    out.h[j] = __float2bfloat16(v / (1.0f + expf(-v)));
+    for (int j = 0; j < 8; ++j) {
+      const float v = __fadd_rn(__fmul_rn(__bfloat162float(in.h[j]), s[j]), f[j]);
+      out.h[j] = __float2bfloat16(__fdividef(v, 1.0f + __expf(-v)));
+    }
+    return out.u;
   }
-  return out.u;
-}
+};
 
-// x: [B, T+2, H, W, cin]; w: [27, cin, cout]; bias: [cout] fp32;
-// scale, shift (kGn only): [B, T+2, cin] fp32; y: [B, T, H, W, cout].
-// grid = (ceil(H/4) * ceil(W/16), cout/64, B*T).
+struct Conv3dArgs {
+  const bf16* x;       // [B, T+2, H, W, cin]
+  const bf16* w;       // [27, cin, cout]
+  const float* bias;   // [cout]
+  const float* scale;  // [B, T+2, cin] (K4)
+  const float* shift;  // [B, T+2, cin] (K4)
+  bf16* y;             // [B, T, H, W, cout]
+  int T, H, W, cin, cout;
+};
+
+// grid = B * ceil(H/16) * ceil(W/16) * T * cout/128 blocks.
 template <bool kGn>
-__global__ void __launch_bounds__(kThreads)
-    conv3d_3x3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                        const float* __restrict__ bias, const float* __restrict__ scale,
-                        const float* __restrict__ shift, bf16* __restrict__ y, int T, int H, int W,
-                        int cin, int cout) {
-  __shared__ __align__(128) unsigned char smem[kConvSmem];
-  bf16* slab = reinterpret_cast<bf16*>(smem);
-  bf16* sb = reinterpret_cast<bf16*>(smem + kSlabBytes);
-  float* sc = reinterpret_cast<float*>(smem);
+struct Conv3dPolicy {
+  using Args = Conv3dArgs;
+  static constexpr int kBK = 32;
+  static constexpr int kDY = 3, kDX = 3, kTiles = 9;  // weight tile kh * 3 + kw of the temporal tap
+  static constexpr bool kPrepare = kGn;
+  __host__ __device__ static constexpr bool uses(int, int) { return true; }
+  __host__ __device__ static constexpr int b_tile(int dy, int dx, int) { return dy * kDX + dx; }
+  // warp wn's output channels n0 + 64 wn ..: 16-column group np at unit 8 wn + 2 np
+  __host__ __device__ static constexpr int b_unit(int wn, int np) { return wn * 8 + np * 2; }
+  using L = conv::Layout<kBK, kTiles>;
+  using Prep = GnSilu8;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int tiles_w = (W + kTW - 1) / kTW;
-  const int h0 = (blockIdx.x / tiles_w) * kTH, w0 = (blockIdx.x % tiles_w) * kTW;
-  const int n0 = blockIdx.y * kBN;
-  const int bt = blockIdx.z;
-  const int b = bt / T, t = bt - b * T;
-  const long hw = (long)H * W;
-  const long frame0 = (long)b * (T + 2) + t;  // frame t of the extended input
+  const Args a;  // a copy: the compiler reads its fields from the parameter space
+  int h0_, w0_, n0, bt;
+  long frame0;  // frame t of the extended input of batch b
 
-  FragC acc[2][2];
-  igemm_zero(acc);
-  for (int kt = 0; kt < 3; ++kt) {
-    const bf16* xf = x + (frame0 + kt) * hw * cin;
-    const float* gs = kGn ? scale + (frame0 + kt) * cin : nullptr;
-    const float* gf = kGn ? shift + (frame0 + kt) * cin : nullptr;
-    for (int c0 = 0; c0 < cin; c0 += kBK) {
-      // the slab: kSlabPix pixels x 4 chunks of 8 channels
-      for (int e = tid; e < kSlabPix * (kBK / 8); e += kThreads) {
-        const int pix = e >> 2, kc = e & 3;
-        const int hh = h0 - 1 + pix / kSW, ww = w0 - 1 + pix % kSW;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-          v = *reinterpret_cast<const uint4*>(xf + ((long)hh * W + ww) * cin + c0 + kc * 8);
-          if constexpr (kGn) v = gn_silu8(v, gs + c0 + kc * 8, gf + c0 + kc * 8);
-        }
-        *reinterpret_cast<uint4*>(slab + pix * kLdS + kc * 8) = v;
-      }
-      for (int tap = 0; tap < 9; ++tap) {
-        const int kh = tap / 3, kw = tap - kh * 3;
-        const bf16* wt = w + ((long)(kt * 9 + tap) * cin + c0) * cout + n0;
+  // blockIdx.x = ((b * tiles + tile) * T + t) * (cout / 128) + column block:
+  // the blocks that read the same input (a frame's column blocks, and the
+  // frames whose temporal taps overlap) run side by side and share it in L2
+  __device__ explicit Conv3dPolicy(const Args& args) : a(args) {
+    const int tiles_w = (a.W + conv::kPW - 1) / conv::kPW;
+    const int tiles = (a.H + conv::kPH - 1) / conv::kPH * tiles_w;
+    const int nbk = a.cout / conv::kBN;
+    int idx = blockIdx.x;
+    n0 = (idx % nbk) * conv::kBN;
+    idx /= nbk;
+    const int t = idx % a.T;
+    idx /= a.T;
+    const int tile = idx % tiles, b = idx / tiles;
+    h0_ = (tile / tiles_w) * conv::kPH;
+    w0_ = (tile % tiles_w) * conv::kPW;
+    bt = b * a.T + t;
+    frame0 = (long)b * (a.T + 2) + t;
+  }
+  __device__ int H() const { return a.H; }
+  __device__ int W() const { return a.W; }
+  __device__ int h0() const { return h0_; }
+  __device__ int w0() const { return w0_; }
+  __device__ int cin() const { return a.cin; }
+  __device__ int temporal_taps() const { return 3; }
+  __device__ const bf16* frame(int kt) const { return a.x + (frame0 + kt) * a.H * a.W * a.cin; }
+  __device__ const bf16* weight(int kt, int tap, int k, int col) const {
+    return a.w + ((long)(kt * 9 + tap) * a.cin + k) * a.cout + n0 + col;
+  }
+  __device__ int ox(int) const { return 0; }
+
+  // K4: the transform of channels c .. c+7 of frame t + kt, its fp32 table
+  // entries read once (16-byte aligned rows)
+  __device__ GnSilu8 prep(int kt, int c) const {
+    GnSilu8 g;
+    const long row = (frame0 + kt) * a.cin + c;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int c = tid + kThreads * i;
-          const int r = c >> 3, nc = c & 7;
-          *reinterpret_cast<uint4*>(sb + r * kLdB + nc * 8) =
-              *reinterpret_cast<const uint4*>(wt + (long)r * cout + nc * 8);
-        }
-        __syncthreads();  // the slab (at the first tap) and this tap's weights are in place
+    for (int h = 0; h < 2; ++h) {
+      const float4 s4 = *reinterpret_cast<const float4*>(a.scale + row + 4 * h);
+      const float4 f4 = *reinterpret_cast<const float4*>(a.shift + row + 4 * h);
+      g.s[4 * h] = s4.x, g.s[4 * h + 1] = s4.y, g.s[4 * h + 2] = s4.z, g.s[4 * h + 3] = s4.w;
+      g.f[4 * h] = f4.x, g.f[4 * h + 1] = f4.y, g.f[4 * h + 2] = f4.z, g.f[4 * h + 3] = f4.w;
+    }
+    return g;
+  }
+
+  // accumulator (mi, ni, c): pixel (h0 + 4*wm + mi, w0 + g [+8 for c2, c3]),
+  // channel n0 + 64*wn + 8*ni + 2t [+1]
+  __device__ void store(const conv::Acc& acc, int wm, int wn, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+    const int c = n0 + wn * 64 + 2 * t;
+    float bias[8][2];
 #pragma unroll
-        for (int kk = 0; kk < kBK; kk += 16) {
-          FragA fa[2];
-          FragBRow fb[2];
-          // fragment mi of warp wm: output row 2*wm + mi of the patch, its 16 columns
+    for (int ni = 0; ni < 8; ++ni) {
+      bias[ni][0] = a.bias[c + ni * 8];
+      bias[ni][1] = a.bias[c + ni * 8 + 1];
+    }
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            wmma::load_matrix_sync(fa[mi], slab + ((2 * wm + mi + kh) * kSW + kw) * kLdS + kk, kLdS);
+    for (int mi = 0; mi < 4; ++mi) {
+      const int h = h0_ + 4 * wm + mi;
+      if (h >= a.H) continue;
 #pragma unroll
-          for (int ni = 0; ni < 2; ++ni)
-            wmma::load_matrix_sync(fb[ni], sb + kk * kLdB + wn * 32 + ni * 16, kLdB);
+      for (int half = 0; half < 2; ++half) {
+        const int w = w0_ + g + 8 * half;
+        if (w >= a.W) continue;
+        bf16* out = a.y + (((long)bt * a.H + h) * a.W + w) * a.cout + c;
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < 2; ++ni) wmma::mma_sync(acc[mi][ni], fa[mi], fb[ni], acc[mi][ni]);
-        }
-        __syncthreads();  // before the weights (or, after the last tap, the slab) are replaced
+        for (int ni = 0; ni < 8; ++ni)
+          *reinterpret_cast<uint32_t*>(out + ni * 8) = pack_bf16(acc[mi][ni][2 * half] + bias[ni][0],
+                                                                 acc[mi][ni][2 * half + 1] + bias[ni][1]);
       }
     }
   }
-  igemm_store_c(acc, sc);
-
-  // epilogue: tile row m is patch pixel (m / 16, m % 16); 64 rows x 8 chunks of 8 channels
-  for (int e = tid; e < kBM * (kBN / 8); e += kThreads) {
-    const int m = e >> 3, cc = (e & 7) * 8;
-    const int h = h0 + m / kTW, ww = w0 + m % kTW;
-    if (h >= H || ww >= W) continue;
-    Pack8 out;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out.h[j] = __float2bfloat16(sc[m * kLdC + cc + j] + bias[n0 + cc + j]);
-    *reinterpret_cast<uint4*>(y + ((long)bt * hw + (long)h * W + ww) * cout + n0 + cc) = out.u;
-  }
-}
+};
 
 }  // namespace seedvr2

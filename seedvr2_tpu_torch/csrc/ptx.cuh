@@ -42,6 +42,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Row and column (in 16-byte units) of the 16x16 region this lane addresses.
 __device__ __forceinline__ int frag_row(int lane) { return lane & 15; }
 __device__ __forceinline__ int frag_col(int lane) { return lane >> 4; }

@@ -80,12 +80,14 @@ def conv3d_3x3x3_plain(
     return y.permute(0, 2, 3, 4, 1).to(x_ext.dtype).contiguous()
 
 
-def _check_conv_args(name, x_ext, w, b, cin_multiple):
+def _check_conv_args(name, x_ext, w, b, cin_multiple, cout_multiple):
     B, Text, H, W, cin = x_ext.shape
     cout = w.shape[-1]
     T = Text - 2
     cuda_lib.require(T >= 1, f"{name}: need T+2 >= 3 frames, got {Text}")
-    cuda_lib.require(cin % cin_multiple == 0 and cout % 64 == 0, f"{name}: channels {cin}->{cout} not supported")
+    cuda_lib.require(
+        cin % cin_multiple == 0 and cout % cout_multiple == 0, f"{name}: channels {cin}->{cout} not supported"
+    )
     cuda_lib.require(B * T <= cuda_lib.MAX_GRID_YZ, f"{name}: B*T={B * T} frames per launch")
     cuda_lib.require_cuda_tensor(x_ext, "x_ext", torch.bfloat16)
     cuda_lib.require_cuda_tensor(w, "w", torch.bfloat16, (3, 3, 3, cin, cout))
@@ -105,12 +107,14 @@ def conv3d_3x3x3(
     Cin, Cout] (DHWIO, i.e. [27, Cin, Cout] row-major), b [Cout] fp32.
     Returns [B, T, H, W, Cout]: SAME spatial padding, valid in time. With
     ``scale``/``shift`` [B, T+2, Cin] fp32 (gn_silu_tables of x_ext) the
-    conv reads silu(x * scale + shift) instead of x (K4)."""
+    conv reads silu(x * scale + shift) instead of x (K4). The kernel takes
+    Cin % 32 == 0 and Cout % 128 == 0 (its 128-column tile; every conv the
+    routing rule sends here)."""
     if (scale is None) != (shift is None):
         raise ValueError("conv3d_3x3x3: give both scale and shift, or neither")
     if x_ext.device.type == "cpu":
         return conv3d_3x3x3_plain(x_ext, w, b, scale, shift)
-    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3", x_ext, w, b, 32)
+    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3", x_ext, w, b, 32, 128)
     gn = scale is not None
     if gn:
         for t, n in ((scale, "scale"), (shift, "shift")):
@@ -148,7 +152,7 @@ def conv3d_3x3x3_im2col(x_ext: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
     [27*Cin, Cout]. Needs Cin % 64 == 0 (every VAE Cin is 128-512)."""
     if x_ext.device.type == "cpu":
         return conv3d_3x3x3_im2col_plain(x_ext, w, b)
-    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3_im2col", x_ext, w, b, 64)
+    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3_im2col", x_ext, w, b, 64, 64)
     wf = w.view(27 * cin, cout)
     y = torch.empty((B, T, H, W, cout), dtype=torch.bfloat16, device=x_ext.device)
     lib = cuda_lib.library()

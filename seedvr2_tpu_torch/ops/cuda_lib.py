@@ -150,6 +150,7 @@ def require(cond: bool, what: str) -> None:
 
 
 MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
+MAX_GRID_X = 2**31 - 1  # and on gridDim.x
 
 
 def require_cuda_tensor(t, name: str, dtype, shape=None) -> None:

@@ -63,7 +63,8 @@ def fold_upsample_conv(
     P = A * 4 * C
     cuda_lib.require(A in (1, 2) and kt in (1, 2, 3) and Tp >= 1, f"fold_upsample_conv: kt={kt} A={A} Tp={Tp}")
     cuda_lib.require(C % 64 == 0, f"fold_upsample_conv: C={C} not a multiple of 64")
-    cuda_lib.require(B * Tp * A * 4 <= cuda_lib.MAX_GRID_YZ, f"fold_upsample_conv: {B * Tp * A * 4} output phase slices")
+    blocks = -(-H // 16) * -(-W // 16) * B * Tp * A * (C // 32)  # one per 16 x 16 patch, frame, 32 channels
+    cuda_lib.require(blocks <= cuda_lib.MAX_GRID_X, f"fold_upsample_conv: {blocks} blocks")
     cuda_lib.require_cuda_tensor(x_ext, "x_ext", torch.bfloat16)
     cuda_lib.require_cuda_tensor(K, "K", torch.bfloat16, (kt, 2, 2, C, P))
     cuda_lib.require_cuda_tensor(btab, "btab", torch.float32, (2, 2, P))

@@ -56,8 +56,15 @@ def _gn_inputs(shape, seed):
     return x, w, b, gw, gb
 
 
+# The shapes of the JAX package's fused-GN test, then the CUDA kernel's
+# edges: H, W not multiples of its 16 x 16 patch (9 x 17, W < 16), Cin !=
+# Cout, B = 2 at T = 1.
+GN_SHAPES = [(1, 3, 16, 256, 128, 128), (2, 2, 10, 130, 256, 128), (1, 1, 9, 17, 128, 128), (2, 1, 5, 7, 256, 128),
+             (1, 1, 6, 10, 512, 256), (1, 2, 9, 17, 128, 256)]
+
+
 @pytest.mark.parametrize("groups", [32, 4])
-@pytest.mark.parametrize("shape", [(1, 3, 16, 256, 128, 128), (2, 2, 10, 130, 256, 128)])
+@pytest.mark.parametrize("shape", GN_SHAPES)
 def test_gn_silu_tables_match_jax(shape, groups):
     x, _, _, gw, gb = _gn_inputs(shape, 0)
     ref = jck.gn_silu_tables(jnp.asarray(x), jnp.asarray(gw), jnp.asarray(gb), groups)
@@ -67,9 +74,9 @@ def test_gn_silu_tables_match_jax(shape, groups):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(1, 3, 16, 256, 128, 128), (2, 2, 10, 130, 256, 128)])
+@pytest.mark.parametrize("shape", GN_SHAPES)
 def test_k4_plain_matches_pallas_with_the_halo_zeroed_after_normalisation(shape):
-    """The shapes of the JAX package's fused-GN test. silu(shift) is far from
+    """GN_SHAPES. silu(shift) is far from
     0 at these tables, so a version that normalised the zero padding as well
     (the trap the kernel's predicated loads avoid) would miss by far more
     than the tolerance: that version is computed and required to disagree."""

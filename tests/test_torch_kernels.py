@@ -26,7 +26,13 @@ def _rand(shape, seed, scale=1.0):
     return (np.random.RandomState(seed).randn(*shape) * scale).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape", [(1, 2, 16, 24, 128, 128), (2, 1, 5, 13, 128, 256)])
+# The CUDA kernel's edges (tests/test_torch_kernels_gpu.py): H, W not
+# multiples of its 16 x 16 patch (9 x 17, W < 16), Cin != Cout, B = 2 at T = 1.
+CONV_SHAPES = [(1, 2, 16, 24, 128, 128), (2, 1, 5, 13, 128, 256), (1, 1, 9, 17, 128, 128), (2, 1, 5, 7, 256, 128),
+               (1, 1, 6, 10, 512, 256), (1, 2, 9, 17, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv3d_plain_matches_pallas(shape):
     """Includes an H, W that is not a multiple of the kernel's tiles."""
     B, T, H, W, cin, cout = shape
@@ -63,6 +69,20 @@ def test_fold_upsample_plain_matches_pallas(kt, A):
     ref = np.asarray(j_fold_conv(jnp.asarray(x), K_j, bt_j, jnp.asarray(bc), A, interpret=True))
     got = fold_upsample_kernel.fold_upsample_conv(torch.from_numpy(x), K_t, bt_t, torch.from_numpy(bc), A)
     assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("C", [128, 256, 512])
+@pytest.mark.parametrize("kt,A", [(1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2)])
+def test_fold_upsample_plain_matches_pallas_at_the_kernel_edges(kt, A, C):
+    """Every (kt, A) the kernel takes, at odd H, W (a ragged 16 x 16 patch)
+    and the decoder's widths; random folded weights and bias table."""
+    x = _rand((1, kt, 5, 7, C), 40)
+    K = _rand((kt, 2, 2, C, A * 4 * C), 41, (kt * 4 * C) ** -0.5)
+    btab, bc = _rand((2, 2, A * 4 * C), 42, 0.5), _rand((C,), 43, 0.3)
+    ref = np.asarray(j_fold_conv(jnp.asarray(x), jnp.asarray(K), jnp.asarray(btab), jnp.asarray(bc), A, interpret=True))
+    got = fold_upsample_kernel.fold_upsample_conv(torch.from_numpy(x), *map(torch.from_numpy, (K, btab, bc)), A)
+    assert got.shape == ref.shape == (1, A, 10, 14, C)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 

@@ -38,10 +38,17 @@ def _rel(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-@pytest.mark.parametrize("cin,cout,H,W", [(128, 128, 9, 13), (256, 128, 16, 16), (128, 256, 5, 70)])
-def test_conv3d_kernel_matches_plain(cuda, cin, cout, H, W):
+# The conv core's edges: H, W not multiples of the 16 x 16 output patch
+# (9 x 17; W < 16), Cin != Cout (512 -> 256, 256 -> 128, 128 -> 256), B = 2
+# at T = 1, several patches and 128-column blocks (33 x 40, Cout 256).
+CONV_CASES = [(2, 2, 128, 128, 9, 13), (2, 2, 256, 128, 16, 16), (2, 2, 128, 256, 5, 70), (1, 2, 128, 128, 9, 17),
+              (1, 1, 128, 128, 5, 7), (2, 1, 512, 256, 9, 17), (2, 1, 256, 128, 17, 12), (1, 2, 128, 256, 33, 40)]
+
+
+@pytest.mark.parametrize("B,T,cin,cout,H,W", CONV_CASES)
+def test_conv3d_kernel_matches_plain(cuda, B, T, cin, cout, H, W):
     g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(2, 4, H, W, cin, device=cuda, generator=g).bfloat16()
+    x = torch.randn(B, T + 2, H, W, cin, device=cuda, generator=g).bfloat16()
     w = (torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5).bfloat16()
     b = torch.randn(cout, device=cuda, generator=g)
     n0 = k1.conv3d_3x3x3.launches
@@ -62,12 +69,13 @@ def _gn_case(cuda, cin, cout, H, W, T=3, B=2):
     return x, w, b, scale, shift
 
 
-@pytest.mark.parametrize("cin,cout,H,W", [(128, 128, 9, 13), (256, 128, 16, 16), (128, 256, 5, 70), (128, 128, 3, 100)])
-def test_conv3d_gn_kernel_matches_plain(cuda, cin, cout, H, W):
-    """K4. W=13, 70, 100 are not multiples of 64 and H=3 is all halo rows:
-    many of a tile's rows straddle the image edge, where the kernel must
-    load zeros, not silu(shift) (which the tables make far from 0)."""
-    x, w, b, scale, shift = _gn_case(cuda, cin, cout, H, W)
+@pytest.mark.parametrize("B,T,cin,cout,H,W", CONV_CASES + [(2, 3, 128, 128, 3, 100), (1, 1, 256, 256, 16, 16)])
+def test_conv3d_gn_kernel_matches_plain(cuda, B, T, cin, cout, H, W):
+    """K4. Most cases leave a ragged patch; 5 x 7 and 16 x 16 are one
+    patch whose halo crosses the image edge on all four sides, 3 x 100 is
+    all halo rows: there the kernel must load zeros, not silu(shift) (which
+    the tables make far from 0)."""
+    x, w, b, scale, shift = _gn_case(cuda, cin, cout, H, W, T, B)
     assert float(torch.nn.functional.silu(shift).abs().mean()) > 0.05
     n0 = (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn)
     y = k1.conv3d_3x3x3(x, w, b, scale, shift)
@@ -98,10 +106,14 @@ def test_conv3d_im2col_kernel_matches_plain(cuda, cin, cout, H, W):
     assert _rel(y, k1.conv3d_3x3x3(x, w, b)) <= REL_BOUND
 
 
-@pytest.mark.parametrize("kt,A", [(1, 1), (2, 2), (3, 1)])
-def test_fold_upsample_kernel_matches_plain(cuda, kt, A):
+@pytest.mark.parametrize("C", [128, 256, 512])
+@pytest.mark.parametrize("kt,A", [(1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2)])
+def test_fold_upsample_kernel_matches_plain(cuda, kt, A, C):
+    """Every (kt, A) the kernel takes at the decoder's widths; H, W odd and
+    past one 16 x 16 patch, so the ragged patch and the masked bias table
+    at every edge are covered."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    C, H, W = 128, 9, 11
+    H, W = 19, 17
     x = torch.randn(1, kt + 1, H, W, C, device=cuda, generator=g).bfloat16()
     K = (torch.randn(kt, 2, 2, C, A * 4 * C, device=cuda, generator=g) / (kt * 4 * C) ** 0.5).bfloat16()
     btab = torch.randn(2, 2, A * 4 * C, device=cuda, generator=g)
@@ -227,9 +239,17 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 
 def test_conv_kernels_reject_what_they_do_not_take(cuda):
-    """K4: tables of the wrong type, shape or device, or only one of them;
-    K6: a Cin that is not a multiple of 64, an fp32 input."""
+    """K1: a Cout that is not a multiple of its 128-column tile; K4: tables
+    of the wrong type, shape or device, or only one of them; K6: a Cin that
+    is not a multiple of 64, an fp32 input; K2: a C that is not a multiple
+    of 64 (its chunk depth)."""
     x, w, b, scale, shift = _gn_case(cuda, 128, 128, 4, 4, T=1, B=1)
+    with pytest.raises(ValueError):
+        k1.conv3d_3x3x3(x, w[..., :64].contiguous(), b[:64].contiguous())
+    x48 = torch.zeros(1, 2, 3, 3, 48, device=cuda, dtype=torch.bfloat16)
+    K48 = torch.zeros(1, 2, 2, 48, 4 * 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        k2.fold_upsample_conv(x48, K48, torch.zeros(2, 2, 4 * 48, device=cuda), torch.zeros(48, device=cuda), 1)
     strided = torch.zeros(1, 3, 256, device=cuda)[..., ::2]  # right shape, not contiguous
     for bad in (scale.bfloat16(), scale[:, :2].contiguous(), scale.cpu(), strided):
         with pytest.raises(ValueError):
