@@ -1,14 +1,17 @@
-"""A/B of the convolution kernels on the card: K1, K4 and K2 of this tree
-against the same kernels built from other source trees, and cuDNN, at the
-shapes of the main paths, in turns within one process.
+"""A/B of the convolution kernels on the card: K1, K4, K6 and K2 of this
+tree against the same kernels built from other source trees, and cuDNN, at
+the shapes of the main paths (K6: of chip_smoke.py's phase 3), in turns
+within one process.
 
-    python -m seedvr2_tpu_torch.conv_ab --against DIR [--against DIR ...] [--rounds 4]
+    python -m seedvr2_tpu_torch.conv_ab --against DIR [--against DIR ...] [--rounds 4] [--kernels K6]
 
 Each DIR is a ``csrc/`` directory, for example the parent commit's,
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
-Its ``conv3d.cu`` and ``fold_upsample.cu`` are compiled with this tree's
-``nvcc`` flags into a library of their own and called through the same C
-entry points (``ops/cuda_lib.py:_SIGNATURES``), so DIR must keep them.
+Its ``conv3d.cu``, ``conv3d_im2col.cu`` and ``fold_upsample.cu`` are
+compiled with this tree's ``nvcc`` flags into a library of their own and
+called through the same C entry points (``ops/cuda_lib.py:_SIGNATURES``),
+so DIR must keep them. ``--kernels`` picks a subset (K1 and K4 run
+together).
 Prints ptxas's register and spill report of every build, then per shape
 each build's rel L2 against the plain version and, for ``--rounds`` rounds,
 ms per call (CUDA events over 10 calls after a warm-up) of cuDNN's bf16
@@ -34,20 +37,22 @@ from .ops import cuda_lib
 from .ops import fold_upsample_kernel as k2
 
 CONV_SHAPES = ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280), (128, 5, 608, 1024), (256, 5, 304, 512))
+K6_SHAPES = CONV_SHAPES[:3]
+ENTRIES = ("seedvr2_conv3d_3x3x3", "seedvr2_conv3d_im2col", "seedvr2_fold_upsample")
 FOLD_SHAPES = ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7, 360, 640))  # C, kt, A, frames, H, W
 
 
 def build_other(csrc: Path, out: Path):
-    """(library, ptxas report) of csrc's conv3d.cu and fold_upsample.cu."""
+    """(library, ptxas report) of csrc's conv3d.cu, conv3d_im2col.cu and fold_upsample.cu."""
     out.mkdir(parents=True, exist_ok=True)
     so = out / "libconv_ab.so"
     cmd = [cuda_lib._nvcc(), *cuda_lib.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared",
-           "-o", str(so), str(csrc / "conv3d.cu"), str(csrc / "fold_upsample.cu")]
+           "-o", str(so), *(str(csrc / f) for f in ("conv3d.cu", "conv3d_im2col.cu", "fold_upsample.cu"))]
     p = subprocess.run(cmd, capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"nvcc failed for {csrc}:\n{p.stdout}{p.stderr}")
     lib = ctypes.CDLL(str(so))
-    for fn in ("seedvr2_conv3d_3x3x3", "seedvr2_fold_upsample"):
+    for fn in ENTRIES:
         getattr(lib, fn).argtypes = cuda_lib._SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     return lib, ptxas_report(p.stdout + p.stderr)
@@ -92,6 +97,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--against", action="append", default=[], help="a csrc/ directory to build and time beside this tree")
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--kernels", default="K1,K4,K6,K2", help="comma-separated subset of K1,K4,K6,K2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_ab: no CUDA device")
@@ -113,13 +119,18 @@ def main():
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
 
+    kernels = set(args.kernels.split(","))
     for c, T, H, W in CONV_SHAPES:
+        k14 = bool(kernels & {"K1", "K4"})
+        k6 = "K6" in kernels and (c, T, H, W) in K6_SHAPES
+        if not (k14 or k6):
+            continue
         x, w = randn(1, T + 2, H, W, c), randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
         b = torch.randn(c, generator=g, device=dev)
         gw, gb = 1 + 0.2 * torch.randn(c, generator=g, device=dev), 0.3 * torch.randn(c, generator=g, device=dev)
-        sc, sf = k1.gn_silu_tables(x, gw, gb, 32)
+        sc, sf = k1.gn_silu_tables(x, gw, gb, 32) if k14 else (None, None)
         y = torch.empty((1, T, H, W, c), dtype=torch.bfloat16, device=dev)
-        ref1, ref4 = k1.conv3d_3x3x3_plain(x, w, b), k1.conv3d_3x3x3_plain(x, w, b, sc, sf)
+        ref1 = k1.conv3d_3x3x3_plain(x, w, b)
         xc, wo = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
 
         def run(lib, gn):
@@ -128,16 +139,28 @@ def main():
                                                      y.data_ptr(), 1, T, H, W, c, c, stream()), "conv3d_3x3x3")
             return y
 
-        errs = " ".join(f"{n} K1 {rel_l2(run(L, False), ref1):.2e} K4 {rel_l2(run(L, True), ref4):.2e}"
-                        for n, L in libs.items())
-        print(f"K1/K4 c{c} {T}x{H}x{W}: rel L2 {errs}", flush=True)
-        calls = {"cudnn": lambda: F.conv3d(xc, wo, b.bfloat16(), padding=(0, 1, 1))}
-        for n, L in libs.items():
-            calls[f"{n} K1"], calls[f"{n} K4"] = (lambda L=L: run(L, False)), (lambda L=L: run(L, True))
-        timed_rounds(calls, args.rounds)
-        del x, w, sc, sf, y, ref1, ref4, xc, wo
+        def run6(lib):
+            cuda_lib.check(lib.seedvr2_conv3d_im2col(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                                                      1, T, H, W, c, c, stream()), "conv3d_im2col")
+            return y
 
-    for c, kt, A, frames, H, W in FOLD_SHAPES:
+        calls = {"cudnn": lambda: F.conv3d(xc, wo, b.bfloat16(), padding=(0, 1, 1))}
+        if k14:
+            ref4 = k1.conv3d_3x3x3_plain(x, w, b, sc, sf)
+            errs = " ".join(f"{n} K1 {rel_l2(run(L, False), ref1):.2e} K4 {rel_l2(run(L, True), ref4):.2e}"
+                            for n, L in libs.items())
+            print(f"K1/K4 c{c} {T}x{H}x{W}: rel L2 {errs}", flush=True)
+            for n, L in libs.items():
+                calls[f"{n} K1"], calls[f"{n} K4"] = (lambda L=L: run(L, False)), (lambda L=L: run(L, True))
+            del ref4
+        if k6:
+            errs = " ".join(f"{n} {rel_l2(run6(L), ref1):.2e}" for n, L in libs.items())
+            print(f"K6 c{c} {T}x{H}x{W}: rel L2 {errs}", flush=True)
+            calls.update({f"{n} K6": (lambda L=L: run6(L)) for n, L in libs.items()})
+        timed_rounds(calls, args.rounds)
+        del x, w, sc, sf, y, ref1, xc, wo
+
+    for c, kt, A, frames, H, W in FOLD_SHAPES if "K2" in kernels else ():
         x, K = randn(1, frames, H, W, c), randn(kt, 2, 2, c, A * 4 * c, scale=(kt * 4 * c) ** -0.5)
         bt, bc = torch.randn(2, 2, A * 4 * c, generator=g, device=dev), torch.randn(c, generator=g, device=dev)
         Tp = frames - kt + 1

@@ -8,131 +8,241 @@
 // [M, 27*Cin] VMEM matrix and runs a single contraction of depth 27*Cin
 // instead of 27 accumulating depth-Cin products. Same contract as K1: the
 // input is already extended in time, SAME zero padding in H and W, valid
-// in time, fp32 accumulation, bias in fp32, bf16 output.
+// in time, fp32 accumulation, bias in fp32, one rounding to bf16.
 //
-// How it differs from K1 (conv3d.cuh): K1 computes a 4 x 16 output patch
-// from a halo'd input slab loaded once per (temporal tap, 32-channel
-// chunk), its 9 spatial taps read from the slab. K6 computes 64 pixels in
-// raster order and walks the folded K axis of the product in uniform
-// 64-deep steps; each step is one panel of the column matrix, gathered
-// straight from the input from k -> (tap = k / Cin, c = k % Cin) (with
-// Cin % 64 == 0 a step never crosses a tap), against the matching 64 rows
-// of the folded weight [27*Cin, Cout] (K1's stored layout viewed flat).
-// The column matrix itself is never materialised: on the TPU it lived in
-// VMEM, here it would be 27x the input in device memory.
-//
-// What bounds it on the H100: the same tensor-core work as K1 (2*27*Cin
-// FLOPs per output value), so operations, not bytes. Its 64-deep steps
-// take half K1's block-wide barriers per unit of K, but every input
-// element is fetched once per spatial tap; it is a first, simple WMMA form
-// like K1 (no cp.async/TMA pipeline, no wgmma yet).
+// What bounds it on the H100: tensor-core work, 2 * 27 * Cin FLOPs per
+// output value against ~4 bytes of device-memory traffic, far above the
+// ~295 FLOP/byte ridge. What holds a kernel below the bf16 peak is how the
+// tensor cores are fed: mma.sync from registers tops out near half of it
+// (K1, PERF.md), and the column matrix is never materialised, so every
+// (tap, channel chunk) panel is re-read from L2. The design is Hopper's
+// GEMM pipeline over the folded K axis:
+// - Tile. A block owns M = 256 output pixels, a ph x pw patch of one frame
+//   (16 x 16, 8 x 32, 32 x 8 or 4 x 64: the entry picks the one that
+//   wastes least on the ragged edge), x N = 128 output columns. It reads
+//   256 * 128 / (256 + 128) = 85 FLOPs per byte from L2 into shared
+//   memory; every VAE Cout is a multiple of 128.
+// - Operands by TMA. The folded K axis walks (tap, 64-channel chunk) in
+//   stages of 64 (Cin % 64 == 0, so a stage never crosses a tap). A stage's
+//   A panel is one TMA box [64 ch, pw, ph, 1, 1] of the 5-D NDHWC input at
+//   (c0, w0 + kw - 1, h0 + kh - 1, t + kt, b): 256 pixel rows of 128 bytes,
+//   128-byte swizzled, the K-major layout wgmma takes. Coordinates off the
+//   image (negative, or past H or W) come back as zeros: that is the SAME
+//   padding and the ragged patch, with no predicate in the kernel. B is two
+//   boxes [64 cols, 64 k rows] of Wf [27*Cin, Cout] (K1's stored weight
+//   viewed flat), N-major, which wgmma reads transposed (tnspB); no copy of
+//   the weight is made.
+// - Pipeline. A ring of kStages = 4 stages (48 KB each) with a full and an
+//   empty mbarrier per stage. Warpgroup 0 is the producer: one thread waits
+//   for an empty stage, arms its full barrier with the stage's 48 KB
+//   (zero-filled bytes included) and issues the three TMA loads; it keeps
+//   the ring full across tiles, so the next tile's loads overlap this
+//   tile's epilogue (the grid is persistent: one block an SM walks tiles
+//   blockIdx.x, + gridDim.x, ...).
+// - Products. Warpgroups 1 and 2 each own 128 rows of the tile: per stage
+//   8 wgmma.m64n128k16 (2 row halves x 4 k16 steps), descriptors straight
+//   into the stage. Each stage's group is committed and the group before it
+//   waited for (wait_group 1), so one group is always queued behind the
+//   running one; only then is the earlier stage released (one arrival per
+//   warpgroup on its empty barrier). setmaxnreg gives the consumers 232
+//   registers (128 accumulators a thread) and the producer 40.
+// - Epilogue from registers: the fp32 bias is added, each pair rounded to
+//   bf16, a 4 x 4 transpose inside each lane quad turns four 4-byte pairs
+//   into one 16-byte run of 8 columns, and rows past the frame are masked.
+//   No fp32 tile goes through shared memory.
 #pragma once
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace seedvr2 {
+namespace im2col {
 
-constexpr int kIcBK = 64;  // depth of one folded-K step
-constexpr int kIcLdA = kIcBK + 8;
-constexpr int kIcLdB = kBN + 8;
-constexpr int kIcTileA = kBM * kIcLdA * 2;
-constexpr int kIcTileB = kIcBK * kIcLdB * 2;
-constexpr int kIcSmem = kTileCBytes > kIcTileA + kIcTileB ? kTileCBytes : kIcTileA + kIcTileB;
-constexpr int kIcRows = kBM * (kIcBK / 8) / kThreads;  // A-panel rows a thread loads (4)
+constexpr int kBM = 256;         // output pixels per tile (ph * pw)
+constexpr int kBN = 128;         // output columns per tile
+constexpr int kBK = 64;          // folded-K depth of a stage: 64 channels of one tap
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;    // consumer warpgroups, 128 rows each
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kABytes = kBM * kBK * 2;       // 256 rows of 128 bytes
+constexpr int kBHalfBytes = kBK * 64 * 2;    // 64 k rows of 64 columns
+constexpr int kStageBytes = kABytes + 2 * kBHalfBytes;
+constexpr int kSmemBytes = kStages * kStageBytes + 1024 + 2 * kStages * 8;  // + alignment slack, barriers
 
-// Epilogue: the spilled 64x64 tile plus the fp32 bias, rounded to bf16
-// and stored to y[frame bt][pixel m0 + r][channel n0 + c] (channels-last,
-// row stride cout); rows past the frame's hw pixels are dropped. 64 rows x
-// 8 chunks of 8 channels, 4 chunks per thread.
-__device__ __forceinline__ void im2col_epilogue(const float* sc, const float* __restrict__ bias,
-                                               bf16* __restrict__ y, int bt, int hw, int m0,
-                                               int n0, int cout) {
-  for (int c = threadIdx.x; c < kBM * (kBN / 8); c += kThreads) {
-    const int r = c >> 3, cc = (c & 7) * 8;
-    const int p = m0 + r;
-    if (p >= hw) continue;
-    Pack8 out;
+struct Args {
+  const float* bias;  // [cout] fp32
+  bf16* y;            // [B, T, H, W, cout]
+  int T, H, W, cin, cout;
+  int ph, pw;         // patch, ph * pw == kBM
+  int tiles_h, tiles_w, tiles_n, num_tiles;
+};
+
+struct Tile {
+  int b, t, h0, w0, n0;
+};
+
+// Tile i of the walk: output columns fastest, then patch column, patch row,
+// frame; blocks in flight at once share their input halos and weights in L2.
+__device__ __forceinline__ Tile tile_at(const Args& a, int i) {
+  Tile c;
+  c.n0 = (i % a.tiles_n) * kBN;
+  i /= a.tiles_n;
+  c.w0 = (i % a.tiles_w) * a.pw;
+  i /= a.tiles_w;
+  c.h0 = (i % a.tiles_h) * a.ph;
+  i /= a.tiles_h;
+  c.t = i % a.T;
+  c.b = i / a.T;
+  return c;
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// One consumer warpgroup's rows of a finished tile: + bias, bf16, stored.
+// Lane (g, q) = (lane / 4, lane % 4) holds columns 8j + 2q, +1 of rows g and
+// g + 8 of each 16-row warp slice; four 8-column blocks at a time, the quad
+// swaps pairs so that lane q ends with all 8 columns of block 4 j4 + q.
+__device__ __forceinline__ void epilogue(const Args& a, const Tile& c, float (&acc)[2][64], int row0) {
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  float2 bias[16];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out.h[j] = __float2bfloat16(sc[r * kLdC + cc + j] + bias[n0 + cc + j]);
-    *reinterpret_cast<uint4*>(y + ((long)bt * hw + p) * cout + n0 + cc) = out.u;
+  for (int j = 0; j < 16; ++j) bias[j] = __ldg(reinterpret_cast<const float2*>(a.bias + c.n0 + 8 * j + 2 * q));
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = row0 + mi * 64 + warp * 16 + g + 8 * rh;
+      const int ph = r / a.pw, pw = r - ph * a.pw;
+      const int h = c.h0 + ph, w = c.w0 + pw;
+      const bool ok = h < a.H && w < a.W;
+      bf16* dst = a.y + ((((long)c.b * a.T + c.t) * a.H + h) * a.W + w) * a.cout + c.n0 + 8 * q;
+#pragma unroll
+      for (int j4 = 0; j4 < 4; ++j4) {
+        uint32_t v[4], x[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * j4 + jj;
+          v[jj] = pack_bf16(acc[mi][4 * j + 2 * rh] + bias[j].x, acc[mi][4 * j + 2 * rh + 1] + bias[j].y);
+        }
+        // x[r] = lane (q ^ r)'s pair of block q: it sends v[q ^ r], which is what (q ^ r) needs of us
+        x[0] = pick4(v, q);
+#pragma unroll
+        for (int s = 1; s < 4; ++s) x[s] = __shfl_xor_sync(0xffffffffu, pick4(v, q ^ s), s);
+        uint4 out;
+        out.x = pick4(x, q);
+        out.y = pick4(x, q ^ 1);
+        out.z = pick4(x, q ^ 2);
+        out.w = pick4(x, q ^ 3);
+        if (ok) *reinterpret_cast<uint4*>(dst + 32 * j4) = out;
+      }
+    }
   }
 }
 
-// x: [B, T+2, H, W, cin]; wf: [27*cin, cout]; bias: [cout] fp32;
-// y: [B, T, H, W, cout]. grid = (ceil(H*W/64), cout/64, B*T); cin % 64 == 0.
-__global__ void __launch_bounds__(kThreads)
-    conv3d_im2col_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wf,
-                         const float* __restrict__ bias, bf16* __restrict__ y, int T, int H,
-                         int W, int cin, int cout) {
-  __shared__ __align__(128) unsigned char smem[kIcSmem];
-  bf16* sa = reinterpret_cast<bf16*>(smem);
-  bf16* sb = reinterpret_cast<bf16*>(smem + kIcTileA);
-  float* sc = reinterpret_cast<float*>(smem);
+// tmx: x_ext [B, T+2, H, W, cin] bf16 as a 5-D map (box [64, pw, ph, 1, 1],
+// 128-byte swizzle, zero fill); tmw: Wf [27*cin, cout] bf16 as a 2-D map
+// (box [64, 64], 128-byte swizzle). grid = min(num_tiles, SMs), kThreads
+// threads, kSmemBytes of dynamic shared memory.
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3d_im2col_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                         const Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int chunks = a.cin / kBK;
+  const int k_iters = 27 * chunks;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int bt = blockIdx.z;
-  const int b = bt / T, t = bt - b * T;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int hw = H * W;
-  const bf16* xf = x + ((long)b * (T + 2) + t) * hw * cin;
-
-  // this thread's A-panel rows (tid >> 3) + 16 i, 16-byte chunk (tid & 7)
-  const int kc = tid & 7;
-  int ph[kIcRows], pw[kIcRows];
-  bool pv[kIcRows];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < kIcRows; ++i) {
-    const int p = m0 + (tid >> 3) + 16 * i;
-    pv[i] = p < hw;
-    ph[i] = p / W;
-    pw[i] = p - ph[i] * W;
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, kConsumers);
+    }
+    sm90::mbar_fence_init();
   }
+  __syncthreads();
 
-  FragC acc[2][2];
-  igemm_zero(acc);
-  const int K = 27 * cin;
-  for (int k0 = 0; k0 < K; k0 += kIcBK) {
-    // column panel k0 .. k0+63: one tap, channels c0 .. c0+63
-    const int tap = k0 / cin, c0 = k0 - tap * cin;
-    const int kt = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-#pragma unroll
-    for (int i = 0; i < kIcRows; ++i) {
-      const int hh = ph[i] + kh - 1, ww = pw[i] + kw - 1;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (pv[i] && hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = *reinterpret_cast<const uint4*>(xf + ((long)kt * hw + (long)hh * W + ww) * cin + c0 +
-                                            kc * 8);
-      *reinterpret_cast<uint4*>(sa + ((tid >> 3) + 16 * i) * kIcLdA + kc * 8) = v;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      sm90::tma_prefetch(&tmx);
+      sm90::tma_prefetch(&tmw);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = blockIdx.x; i < a.num_tiles; i += gridDim.x) {
+        const Tile c = tile_at(a, i);
+        for (int tap = 0; tap < 27; ++tap) {
+          const int kt = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+          for (int ch = 0; ch < chunks; ++ch) {
+            sm90::mbar_wait(empty + stage, phase ^ 1);
+            unsigned char* sa = smem + stage * kStageBytes;
+            unsigned char* sb = sa + kABytes;
+            const int krow = tap * a.cin + ch * kBK;
+            sm90::mbar_arrive_expect_tx(full + stage, kStageBytes);
+            sm90::tma_load_5d(sa, &tmx, full + stage, ch * kBK, c.w0 + kw - 1, c.h0 + kh - 1, c.t + kt, c.b);
+            sm90::tma_load_2d(sb, &tmw, full + stage, c.n0, krow);
+            sm90::tma_load_2d(sb + kBHalfBytes, &tmw, full + stage, c.n0 + 64, krow);
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
     }
-    // weight panel: rows k0 .. k0+63 of the folded weight, columns n0 .. n0+63
+  } else {
+    // ---- consumers: warpgroup wg - 1 owns tile rows 128 (wg - 1) .. +127 ----
+    sm90::setmaxnreg_inc<232>();
+    const int row0 = (wg - 1) * 128;
+    const bool leader = (threadIdx.x & 127) == 0;
+    float acc[2][64];
 #pragma unroll
-    for (int i = 0; i < kIcRows; ++i) {
-      const int r = (tid >> 3) + 16 * i;
-      *reinterpret_cast<uint4*>(sb + r * kIcLdB + kc * 8) =
-          *reinterpret_cast<const uint4*>(wf + (long)(k0 + r) * cout + n0 + kc * 8);
-    }
-    __syncthreads();
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int kk = 0; kk < kIcBK; kk += 16) {
-      FragA fa[2];
-      FragBRow fb[2];
+      for (int e = 0; e < 64; ++e) acc[mi][e] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = blockIdx.x; i < a.num_tiles; i += gridDim.x) {
+      const Tile c = tile_at(a, i);
+      int prev = 0;
+      for (int k = 0; k < k_iters; ++k) {
+        sm90::mbar_wait(full + stage, phase);
+        const uint32_t sa = smem_addr(smem + stage * kStageBytes) + row0 * 128;
+        const uint32_t sb = smem_addr(smem + stage * kStageBytes + kABytes);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint64_t db = sm90::desc_sw128(sb + kk * 16 * 128, kBHalfBytes, 1024);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            sm90::wgmma_m64n128k16_bf16(acc[mi], sm90::desc_sw128(sa + mi * 64 * 128 + kk * 32, 16, 1024), db,
+                                        (k | kk) != 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // the group of stage k - 1 has retired: release it
+        if (k > 0 && leader) sm90::mbar_arrive(empty + prev);
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      sm90::wgmma_wait<0>();
+      if (leader) sm90::mbar_arrive(empty + prev);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
-        wmma::load_matrix_sync(fa[mi], sa + (wm * 32 + mi * 16) * kIcLdA + kk, kIcLdA);
 #pragma unroll
-      for (int ni = 0; ni < 2; ++ni)
-        wmma::load_matrix_sync(fb[ni], sb + kk * kIcLdB + wn * 32 + ni * 16, kIcLdB);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) wmma::mma_sync(acc[mi][ni], fa[mi], fb[ni], acc[mi][ni]);
+        for (int e = 0; e < 64; ++e) sm90::fence_operand(acc[mi][e]);
+      epilogue(a, c, acc, row0);
     }
-    __syncthreads();
   }
-  igemm_store_c(acc, sc);
-  im2col_epilogue(sc, bias, y, bt, hw, m0, n0, cout);
 }
 
+}  // namespace im2col
 }  // namespace seedvr2

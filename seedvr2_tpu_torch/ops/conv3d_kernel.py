@@ -149,10 +149,15 @@ def conv3d_3x3x3_im2col_plain(x_ext: torch.Tensor, w: torch.Tensor, b: Optional[
 def conv3d_3x3x3_im2col(x_ext: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K6: the same contract as conv3d_3x3x3 (no tables), computed as one
     product over the folded K axis; the kernel takes ``w`` viewed flat as
-    [27*Cin, Cout]. Needs Cin % 64 == 0 (every VAE Cin is 128-512)."""
+    [27*Cin, Cout]. Needs Cin % 64 == 0 (its stage depth) and Cout % 128 ==
+    0 (its tile width; every VAE conv is 128-512 wide). The kernel reads
+    ``x_ext`` and ``w`` through TMA tensor maps, which describe a tensor
+    from its base: views with a storage offset are refused."""
     if x_ext.device.type == "cpu":
         return conv3d_3x3x3_im2col_plain(x_ext, w, b)
-    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3_im2col", x_ext, w, b, 64, 64)
+    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3_im2col", x_ext, w, b, 64, 128)
+    for t, n in ((x_ext, "x_ext"), (w, "w")):
+        cuda_lib.require(t.storage_offset() == 0, f"conv3d_3x3x3_im2col: {n} is a view at a storage offset")
     wf = w.view(27 * cin, cout)
     y = torch.empty((B, T, H, W, cout), dtype=torch.bfloat16, device=x_ext.device)
     lib = cuda_lib.library()

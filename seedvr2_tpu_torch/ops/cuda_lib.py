@@ -131,7 +131,12 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+ENCODE_ERROR = 1 << 20  # + CUresult: a failed cuTensorMapEncodeTiled (csrc/conv3d_im2col.cu)
+
+
 def check(code: int, what: str) -> None:
+    if code >= ENCODE_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with CUresult {code - ENCODE_ERROR}")
     if code != 0:
         msg = library().seedvr2_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")

@@ -91,19 +91,46 @@ def test_conv3d_gn_kernel_matches_plain(cuda, B, T, cin, cout, H, W):
     assert _rel(unfused, ref) <= REL_BOUND
 
 
-@pytest.mark.parametrize("cin,cout,H,W", [(128, 128, 9, 13), (256, 128, 16, 16), (128, 256, 5, 70)])
-def test_conv3d_im2col_kernel_matches_plain(cuda, cin, cout, H, W):
-    """K6 against its plain version and against K1 on the same inputs."""
+def _check_im2col(cuda, B, T, cin, cout, H, W):
     g = torch.Generator(device=cuda).manual_seed(5)
-    x = torch.randn(2, 4, H, W, cin, device=cuda, generator=g).bfloat16()
+    x = torch.randn(B, T + 2, H, W, cin, device=cuda, generator=g).bfloat16()
     w = (torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5).bfloat16()
     b = torch.randn(cout, device=cuda, generator=g)
     n0 = (k1.conv3d_3x3x3_im2col.launches, k1.conv3d_3x3x3.launches)
     y = k1.conv3d_3x3x3_im2col(x, w, b)
     torch.cuda.synchronize()
     assert (k1.conv3d_3x3x3_im2col.launches, k1.conv3d_3x3x3.launches) == (n0[0] + 1, n0[1])
-    assert _rel(y, k1.conv3d_3x3x3_im2col_plain(x, w, b)) <= REL_BOUND
+    ref = k1.conv3d_3x3x3_im2col_plain(x, w, b)
+    assert bool(torch.isfinite(y).all())
+    assert _rel(y, ref) <= REL_BOUND
+    # the image border (TMA's zero fill is the SAME padding) and the last frame
+    border = torch.zeros(H, W, dtype=torch.bool, device=cuda)
+    border[0], border[-1], border[:, 0], border[:, -1] = True, True, True, True
+    assert _rel(y[:, :, border], ref[:, :, border]) <= REL_BOUND
+    assert _rel(y[:, -1], ref[:, -1]) <= REL_BOUND
     assert _rel(y, k1.conv3d_3x3x3(x, w, b)) <= REL_BOUND
+
+
+@pytest.mark.parametrize("cin,cout,H,W", [(128, 128, 9, 13), (256, 128, 16, 16), (128, 256, 5, 70)])
+def test_conv3d_im2col_kernel_matches_plain(cuda, cin, cout, H, W):
+    """K6 against its plain version and against K1 on the same inputs."""
+    _check_im2col(cuda, 2, 2, cin, cout, H, W)
+
+
+# K6's tiling edges: the patch it picks (16 x 16, 8 x 32, 32 x 8 or 4 x 64:
+# the fewest tiles) against H, W that are not multiples of it, W below the
+# patch width (9 x 13, 20 x 7), B = 2 at T = 1 and T = 3, Cin != Cout, Cout
+# 128 / 256 / 512 (one to four column tiles), Cin 64 (one stage a tap) and
+# 512, and more tiles than SMs (160 x 160 x 3 frames: 300 tiles, so blocks
+# walk several tiles and the ring runs on across them).
+IM2COL_CASES = [(2, 1, 64, 128, 9, 13), (2, 3, 128, 256, 20, 7), (1, 2, 512, 128, 17, 33), (1, 1, 256, 512, 10, 70),
+                (2, 1, 128, 128, 8, 64), (1, 1, 128, 128, 4, 130), (1, 3, 128, 256, 160, 160),
+                (2, 2, 512, 256, 36, 40), (1, 1, 64, 512, 24, 24)]
+
+
+@pytest.mark.parametrize("B,T,cin,cout,H,W", IM2COL_CASES)
+def test_conv3d_im2col_kernel_edges(cuda, B, T, cin, cout, H, W):
+    _check_im2col(cuda, B, T, cin, cout, H, W)
 
 
 @pytest.mark.parametrize("C", [128, 256, 512])
@@ -242,7 +269,9 @@ def test_conv_kernels_reject_what_they_do_not_take(cuda):
     """K1: a Cout that is not a multiple of its 128-column tile; K4: tables
     of the wrong type, shape or device, or only one of them; K6: a Cin that
     is not a multiple of 64, an fp32 input; K2: a C that is not a multiple
-    of 64 (its chunk depth)."""
+    of 64 (its chunk depth); K6 also a Cout that is not a multiple of its
+    128-column tile, and views of x or w that are misaligned or at a
+    storage offset."""
     x, w, b, scale, shift = _gn_case(cuda, 128, 128, 4, 4, T=1, B=1)
     with pytest.raises(ValueError):
         k1.conv3d_3x3x3(x, w[..., :64].contiguous(), b[:64].contiguous())
@@ -261,3 +290,18 @@ def test_conv_kernels_reject_what_they_do_not_take(cuda):
         k1.conv3d_3x3x3_im2col(x96, torch.zeros(3, 3, 3, 96, 128, device=cuda, dtype=torch.bfloat16), b)
     with pytest.raises(ValueError):
         k1.conv3d_3x3x3_im2col(x.float(), w, b)
+    for cout in (64, 192):  # K6's tile is 128 columns wide
+        with pytest.raises(ValueError):
+            k1.conv3d_3x3x3_im2col(x, w[..., :cout].contiguous(), torch.zeros(cout, device=cuda))
+    # contiguous views of a larger buffer: 2 bytes off 16-byte alignment, and
+    # aligned but at a storage offset (a TMA map describes a tensor from its base)
+    for off in (1, 8):
+        buf = torch.zeros(x.numel() + off, device=cuda, dtype=torch.bfloat16)
+        view = buf[off:].view(x.shape)
+        assert view.is_contiguous() and view.storage_offset() == off
+        with pytest.raises(ValueError):
+            k1.conv3d_3x3x3_im2col(view, w, b)
+    wbuf = torch.zeros(w.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        k1.conv3d_3x3x3_im2col(x, wbuf[8:].view(w.shape), b)
+    assert k1.conv3d_3x3x3_im2col(x, w, b).shape == (1, 1, 4, 4, 128)  # the same tensors, owned, are taken
