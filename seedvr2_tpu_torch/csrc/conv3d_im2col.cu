@@ -28,9 +28,9 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_fn(cudaError_t* err) {
 }
 
 // The patch (ph, pw), ph * pw == 256, with the fewest tiles over H x W;
-// ties go to the first, the squarest.
+// ties go to the first, the squarest (the smallest slab).
 void pick_patch(int H, int W, int* ph, int* pw) {
-  static const int kPatches[4][2] = {{16, 16}, {8, 32}, {32, 8}, {4, 64}};
+  static const int kPatches[3][2] = {{16, 16}, {8, 32}, {4, 64}};
   long best = -1;
   for (const auto& p : kPatches) {
     const long n = (long)((H + p[0] - 1) / p[0]) * ((W + p[1] - 1) / p[1]);
@@ -72,7 +72,7 @@ int seedvr2_conv3d_im2col(const void* x, const void* wf, const void* bias, void*
   const cuuint64_t xdim[5] = {(cuuint64_t)cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)T + 2, (cuuint64_t)B};
   const cuuint64_t xstride[4] = {cin * e, (cuuint64_t)W * cin * e, (cuuint64_t)H * W * cin * e,
                                  (cuuint64_t)(T + 2) * H * W * cin * e};
-  const cuuint32_t xbox[5] = {(cuuint32_t)kBK, (cuuint32_t)a.pw, (cuuint32_t)a.ph, 1, 1};
+  const cuuint32_t xbox[5] = {(cuuint32_t)kBK, (cuuint32_t)a.pw + 8, (cuuint32_t)a.ph + 2, 1, 1};  // the slab
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   CUresult r = encode(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), xdim, xstride, xbox, ones,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

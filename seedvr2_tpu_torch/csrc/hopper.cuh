@@ -94,7 +94,11 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
 }
 
 // Descriptor of a 128-byte-swizzled operand at shared address `addr`
-// (layout type 1 in bits 62-63; offsets in 16-byte units).
+// (layout type 1 in bits 62-63; offsets in 16-byte units). The swizzle is a
+// function of the address bits, for TMA's writes and wgmma's reads alike,
+// so an operand may start at any 128-byte row of a 1024-byte atom with the
+// base offset (bits 49-51) left 0: setting it to the row's phase in the
+// atom, (addr >> 7) & 7, gave wrong products on the H100 (PERF.md).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
          (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (1ull << 62);

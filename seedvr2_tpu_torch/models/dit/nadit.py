@@ -69,6 +69,8 @@ def _rope_angles_for_plan(cfg: DiTConfig, plan: WindowPlan, txt_len: int):
         for i, (t, h, w) in enumerate(plan.shapes):
             vid[i, : t * h * w] = axial_freqs_pixel((t, h, w), per).reshape(-1, rot3)
         return pad_angles(vid, cfg.head_dim), None  # 7B does not rope text
+    if cfg.rope_type in (None, "none"):
+        return None, None  # no RoPE: DevicePlan's zero angles rotate by the identity
     raise NotImplementedError(cfg.rope_type)
 
 

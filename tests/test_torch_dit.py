@@ -66,9 +66,12 @@ def test_nadit_forward_matches_jax(thw, txt_len, B):
 
 
 @pytest.mark.parametrize("backend", ["fused", "fused_int8", "pallas", "xla"])
-@pytest.mark.parametrize("rope_type", ["mmrope3d", "window_pixel"])
+@pytest.mark.parametrize("rope_type", ["mmrope3d", "window_pixel", None, "none"])
 def test_nadit_forward_every_backend_matches_jax(rope_type, backend):
-    """B = 2, a latent whose windows are ragged in both plans, 3 text tokens."""
+    """B = 2, a latent whose windows are ragged in both plans, 3 text tokens.
+    rope_type None / "none": no RoPE, which the JAX package runs under every
+    backend (zero angles in the fused kernels, no rotation on the unfused
+    path)."""
     cfg = dit_tiny(rope_type)
     thw, txt_len, B = (2, 6, 8), 3, 2
     params = _perturbed(jnadit.init_params(cfg, jax.random.PRNGKey(3)), 4)

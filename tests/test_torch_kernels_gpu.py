@@ -117,7 +117,7 @@ def test_conv3d_im2col_kernel_matches_plain(cuda, cin, cout, H, W):
     _check_im2col(cuda, 2, 2, cin, cout, H, W)
 
 
-# K6's tiling edges: the patch it picks (16 x 16, 8 x 32, 32 x 8 or 4 x 64:
+# K6's tiling edges: the patch it picks (16 x 16, 8 x 32 or 4 x 64:
 # the fewest tiles) against H, W that are not multiples of it, W below the
 # patch width (9 x 13, 20 x 7), B = 2 at T = 1 and T = 3, Cin != Cout, Cout
 # 128 / 256 / 512 (one to four column tiles), Cin 64 (one stage a tap) and
