@@ -19,7 +19,10 @@ Phases (any failure raises and the script exits non-zero without a result):
      single PyTorch call (library_ms, a yardstick the port never calls);
      bound_ms from the shapes and the card's published peaks; K4 and K6
      rows also carry K1's time at the same shape (``k1_ms``), their rival,
-     and K4 rows cuDNN's bf16 conv alone (``cudnn_conv_ms``);
+     and K4 rows cuDNN's bf16 conv alone (``cudnn_conv_ms``); K6 runs at
+     K1's three 720p decode shapes (c512 3x180x320, c256 5x360x640, c128
+     5x720x1280), and its rows carry ptxas's register and spill lines and
+     the runtime's registers, spill and dynamic shared memory for it;
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
@@ -339,6 +342,7 @@ def kernel_phase(dev):
 
     from seedvr2_tpu_torch.config import dit_3b, dit_7b
     from seedvr2_tpu_torch.ops import conv3d_kernel as k1
+    from seedvr2_tpu_torch.ops import cuda_lib
     from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -351,13 +355,16 @@ def kernel_phase(dev):
     # K4: the same convs with the resnet's GroupNorm + SiLU folded into the
     # load (tables from GroupNorm weights of the input), and again at the long
     # clip's decode-tile shapes (phase 7's path, no K1 there); K6: the folded
-    # product at the shapes of the JAX package's c128 A/B and c256
+    # product at K1's shapes
     k1_ms = {}
     for c, T, H, W in ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280)):
         rows += _conv_rows(dev, g, c, T, H, W, k1_ms)
     for c, T, H, W in long_clip_conv_shapes():
         rows += _conv_rows(dev, g, c, T, H, W, k1_ms, path="long_clip")
-    for c, T, H, W in ((128, 5, 720, 1280), (256, 5, 360, 640)):
+    k6_build = {**k1.im2col_kernel_attributes(),
+                "ptxas": [line for _, line in cuda_lib.ptxas_lines(cuda_lib.build().log, "im2col")]}
+    print(f"  K6 kernel: {k6_build}", flush=True)
+    for c, T, H, W in ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280)):
         x = randn(1, T + 2, H, W, c)
         w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
         b = torch.randn(c, generator=g, device=dev)
@@ -370,7 +377,7 @@ def kernel_phase(dev):
             lambda: k1.conv3d_3x3x3_im2col(x, w, b), lambda: k1.conv3d_3x3x3_im2col_plain(x, w, b),
             nbytes(x, w, b) + T * H * W * c * 2, {"bf16": 2 * T * H * W * 27 * c * c},
             lambda: F.conv3d(xc, w_oidhw, b.bfloat16(), padding=(0, 1, 1)), "F.conv3d in bf16 (cuDNN), NCDHW view",
-            extra_row={"k1_ms": k1_ms[shape][0]},
+            extra_row={"k1_ms": k1_ms[shape][0], **k6_build},
         ))
         del x, xc
     # K2: the decoder's three upsamples at 720p (the phase-pure call of each)

@@ -11,7 +11,11 @@ Its ``conv3d.cu``, ``conv3d_im2col.cu`` and ``fold_upsample.cu`` are
 compiled with this tree's ``nvcc`` flags into a library of their own and
 called through the same C entry points (``ops/cuda_lib.py:_SIGNATURES``),
 so DIR must keep them. ``--kernels`` picks a subset (K1 and K4 run
-together).
+together). ``--ablate`` adds, for every tree whose K6 is the TMA + wgmma
+pipeline, three copies of its K6 with one part taken out (ABLATIONS): the
+products (what the loads alone take), the TMA loads (the products alone,
+on whatever shared memory holds) and the epilogue; their outputs are
+garbage, their times say which part sets the pace.
 Prints ptxas's register and spill report of every build, then per shape
 each build's rel L2 against the plain version and, for ``--rounds`` rounds,
 ms per call (CUDA events over 10 calls after a warm-up) of cuDNN's bf16
@@ -25,6 +29,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
+import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -40,6 +46,37 @@ CONV_SHAPES = ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280), (128
 K6_SHAPES = CONV_SHAPES[:3]
 ENTRIES = ("seedvr2_conv3d_3x3x3", "seedvr2_conv3d_im2col", "seedvr2_fold_upsample")
 FOLD_SHAPES = ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7, 360, 640))  # C, kt, A, frames, H, W
+
+
+# name -> (pattern, replacement) substitutions on conv3d_im2col.cuh, each of
+# which must match at least once
+ABLATIONS = {
+    "-products": ((r"sm90::wgmma_m64n128k16_bf16\(.*?\);", ""),),
+    "-loads": ((r"sm90::mbar_arrive_expect_tx\((\w+) \+ (\w+), [^;]*\);", r"sm90::mbar_arrive(\1 + \2);"),
+               (r"sm90::tma_load_\dd\(.*?\);", "")),
+    "-epilogue": ((r"epilogue\(a, c, acc, \w+\);", ""),),
+}
+
+
+def ablated(csrc: Path, out: Path) -> dict:
+    """{suffix: csrc copy} with each of ABLATIONS applied to K6, or {} when
+    csrc's K6 is not the TMA + wgmma pipeline."""
+    src = (csrc / "conv3d_im2col.cuh").read_text()
+    if "sm90::wgmma" not in src:
+        return {}
+    trees = {}
+    for name, subs in ABLATIONS.items():
+        text = src
+        for pat, rep in subs:
+            text, n = re.subn(pat, rep, text, flags=re.S)
+            if n == 0:
+                raise RuntimeError(f"ablation {name}: {pat!r} matches nothing in {csrc}")
+        tree = out / name.lstrip("-")
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(csrc, tree)
+        (tree / "conv3d_im2col.cuh").write_text(text)
+        trees[name] = tree
+    return trees
 
 
 def build_other(csrc: Path, out: Path):
@@ -60,13 +97,8 @@ def build_other(csrc: Path, out: Path):
 
 def ptxas_report(log: str) -> str:
     """ptxas's spill and register lines of the conv kernels, each after its kernel's name."""
-    out, name = [], ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif ("spill" in line or "registers" in line) and ("conv" in name or "fold" in name):
-            out.append(f"\n  {name}: {line.replace('ptxas info    :', '').strip()}")
-    return "".join(out)
+    return "".join(f"\n  {name}: {line}" for name, line in cuda_lib.ptxas_lines(log)
+                   if "conv" in name or "fold" in name)
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -98,6 +130,7 @@ def main():
     ap.add_argument("--against", action="append", default=[], help="a csrc/ directory to build and time beside this tree")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--kernels", default="K1,K4,K6,K2", help="comma-separated subset of K1,K4,K6,K2")
+    ap.add_argument("--ablate", action="store_true", help="also time K6 with its products, loads or epilogue taken out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_ab: no CUDA device")
@@ -108,9 +141,14 @@ def main():
     here = cuda_lib.library()
     print("this tree:", ptxas_report(cuda_lib.build().log), flush=True)
     libs = {"this": here}
-    with ThreadPoolExecutor(len(args.against) or 1) as pool:
-        outs = [cuda_lib.BUILD_ROOT.parent / "conv_ab" / str(i) for i in range(len(args.against))]
-        for d, (lib, report) in zip(args.against, pool.map(build_other, map(Path, args.against), outs)):
+    work = cuda_lib.BUILD_ROOT.parent / "conv_ab"
+    others = {d: Path(d) for d in args.against}
+    if args.ablate:
+        for i, (name, csrc) in enumerate([("this", cuda_lib.CSRC), *others.items()]):
+            others.update({name + k: t for k, t in ablated(csrc, work / f"ablate{i}").items()})
+    with ThreadPoolExecutor(len(others) or 1) as pool:
+        outs = [work / str(i) for i in range(len(others))]
+        for d, (lib, report) in zip(others, pool.map(build_other, others.values(), outs)):
             libs[d] = lib
             print(f"{d}:", report, flush=True)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731

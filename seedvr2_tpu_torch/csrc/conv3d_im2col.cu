@@ -103,4 +103,16 @@ int seedvr2_conv3d_im2col(const void* x, const void* wf, const void* bias, void*
   return (int)cudaGetLastError();
 }
 
+// What the runtime holds for the kernel: registers a thread, local memory
+// (spills) a thread, and the dynamic shared memory it launches with.
+int seedvr2_conv3d_im2col_attributes(int* regs, int* local_bytes, int* smem_bytes) {
+  cudaFuncAttributes f;
+  const cudaError_t err = cudaFuncGetAttributes(&f, im2col::conv3d_im2col_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = f.numRegs;
+  *local_bytes = (int)f.localSizeBytes;
+  *smem_bytes = im2col::kSmemBytes;
+  return 0;
+}
+
 }  // extern "C"

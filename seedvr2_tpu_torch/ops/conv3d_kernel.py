@@ -17,6 +17,7 @@ kernel does not take raises. Each kernel has its own launch counter:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -172,3 +173,13 @@ def conv3d_3x3x3_im2col(x_ext: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
 
 
 conv3d_3x3x3_im2col.launches = 0
+
+
+def im2col_kernel_attributes() -> dict:
+    """K6's kernel as the CUDA runtime holds it: registers a thread, local
+    memory (spills) a thread, and the dynamic shared memory it launches with."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = cuda_lib.library().seedvr2_conv3d_im2col_attributes(ctypes.byref(regs), ctypes.byref(local),
+                                                                ctypes.byref(smem))
+    cuda_lib.check(code, "conv3d_3x3x3_im2col attributes")
+    return {"registers": regs.value, "local_bytes": local.value, "smem_bytes": smem.value}

@@ -47,6 +47,7 @@ _f = ctypes.c_float
 _SIGNATURES = {
     "seedvr2_conv3d_3x3x3": [_vp] * 6 + [_i] * 6 + [_vp],
     "seedvr2_conv3d_im2col": [_vp] * 4 + [_i] * 6 + [_vp],
+    "seedvr2_conv3d_im2col_attributes": [ctypes.POINTER(_i)] * 3,
     "seedvr2_fold_upsample": [_vp] * 5 + [_i] * 7 + [_vp],
     "seedvr2_window_attention": [_vp] * 10 + [_i] * 8 + [_f] * 2 + [_vp],
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
@@ -114,6 +115,19 @@ def build() -> Build:
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
     return Build(lib, seconds, log, tuple(sec for _, sec, _ in results))
+
+
+def ptxas_lines(log: str, kernel: str = "") -> list:
+    """(kernel, line) for ptxas's register and spill lines in a build log
+    (nvcc runs with -Xptxas -v), for the kernels whose mangled name
+    contains ``kernel``."""
+    out, name = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif kernel in name and ("registers" in line or "spill" in line):
+            out.append((name, line.replace("ptxas info    :", "").strip()))
+    return out
 
 
 def library() -> ctypes.CDLL:

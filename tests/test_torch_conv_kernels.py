@@ -105,9 +105,18 @@ def test_k4_wrapper_needs_both_tables():
         conv3d_kernel.conv3d_3x3x3(x, torch.zeros(3, 3, 3, 128, 128), torch.zeros(128), scale=torch.zeros(1, 3, 128))
 
 
-@pytest.mark.parametrize("shape", [(1, 2, 16, 256, 128, 128), (1, 1, 6, 130, 256, 128)])
+# The shapes of the JAX package's im2col test, then the CUDA kernel's tiling
+# edges (tests/test_torch_kernels_gpu.py IM2COL_CASES): H, W not multiples
+# of its patch and W below its width, B = 2 at T = 1 and T = 3, Cin != Cout,
+# Cout 128 / 256 / 512, Cin 64 and 512, more tiles than the card has SMs.
+IM2COL_SHAPES = [(1, 2, 16, 256, 128, 128), (1, 1, 6, 130, 256, 128), (2, 1, 9, 13, 64, 128), (2, 3, 20, 7, 128, 256),
+                 (1, 2, 17, 33, 512, 128), (1, 1, 10, 70, 256, 512), (2, 1, 8, 64, 128, 128), (1, 1, 4, 130, 128, 128),
+                 (1, 3, 160, 160, 128, 256), (2, 2, 36, 40, 512, 256), (1, 1, 24, 24, 64, 512)]
+
+
+@pytest.mark.parametrize("shape", IM2COL_SHAPES)
 def test_k6_plain_matches_pallas_im2col(shape):
-    """The shapes of the JAX package's im2col test."""
+    """IM2COL_SHAPES (B, T, H, W, Cin, Cout)."""
     B, T, H, W, cin, cout = shape
     x, w, b = _rand((B, T + 2, H, W, cin), 20, 0.5), _rand((3, 3, 3, cin, cout), 21, 0.05), _rand((cout,), 22, 0.1)
     ref = np.asarray(jck.conv3d_3x3x3_im2col(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True))

@@ -133,6 +133,17 @@ def test_conv3d_im2col_kernel_edges(cuda, B, T, cin, cout, H, W):
     _check_im2col(cuda, B, T, cin, cout, H, W)
 
 
+def test_conv3d_im2col_kernel_resources(cuda):
+    """K6 launches 384 threads with every register the launch bound allows:
+    setmaxnreg then moves them from the producer warpgroup (40) to the two
+    consumers (232), which waits forever if the pool is short. No spills,
+    and its shared memory within the 227 KB a block may take."""
+    a = k1.im2col_kernel_attributes()
+    assert a["registers"] * 384 >= 40 * 128 + 232 * 256, a
+    assert a["local_bytes"] == 0, a
+    assert 48 * 1024 < a["smem_bytes"] <= 232448, a
+
+
 @pytest.mark.parametrize("C", [128, 256, 512])
 @pytest.mark.parametrize("kt,A", [(1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2)])
 def test_fold_upsample_kernel_matches_plain(cuda, kt, A, C):
