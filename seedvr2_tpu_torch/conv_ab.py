@@ -12,10 +12,12 @@ compiled with this tree's ``nvcc`` flags into a library of their own and
 called through the same C entry points (``ops/cuda_lib.py:_SIGNATURES``),
 so DIR must keep them. ``--kernels`` picks a subset (K1 and K4 run
 together). ``--ablate`` adds, for every tree whose K6 is the TMA + wgmma
-pipeline, three copies of its K6 with one part taken out (ABLATIONS): the
-products (what the loads alone take), the TMA loads (the products alone,
-on whatever shared memory holds) and the epilogue; their outputs are
-garbage, their times say which part sets the pace.
+pipeline, two copies of its K6 with one part taken out (ABLATIONS): the
+products (what the loads alone take) and the TMA loads (the products and
+the epilogue alone, on whatever shared memory holds); their outputs are
+garbage, their times say which part sets the pace. (Taking out the
+epilogue is no such measure: ptxas then drops the products whose
+accumulators nothing reads.)
 Prints ptxas's register and spill report of every build, then per shape
 each build's rel L2 against the plain version and, for ``--rounds`` rounds,
 ms per call (CUDA events over 10 calls after a warm-up) of cuDNN's bf16
@@ -51,10 +53,9 @@ FOLD_SHAPES = ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7,
 # name -> (pattern, replacement) substitutions on conv3d_im2col.cuh, each of
 # which must match at least once
 ABLATIONS = {
-    "-products": ((r"sm90::wgmma_m64n128k16_bf16\(.*?\);", ""),),
+    "-products": ((r"sm90::wgmma_m64n128k16_bf16\(.*?\);", ";"),),
     "-loads": ((r"sm90::mbar_arrive_expect_tx\((\w+) \+ (\w+), [^;]*\);", r"sm90::mbar_arrive(\1 + \2);"),
-               (r"sm90::tma_load_\dd\(.*?\);", "")),
-    "-epilogue": ((r"epilogue\(a, c, acc, \w+\);", ""),),
+               (r"sm90::tma_load_\dd\(.*?\);", ";")),
 }
 
 
@@ -130,7 +131,7 @@ def main():
     ap.add_argument("--against", action="append", default=[], help="a csrc/ directory to build and time beside this tree")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--kernels", default="K1,K4,K6,K2", help="comma-separated subset of K1,K4,K6,K2")
-    ap.add_argument("--ablate", action="store_true", help="also time K6 with its products, loads or epilogue taken out")
+    ap.add_argument("--ablate", action="store_true", help="also time K6 with its products or its loads taken out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_ab: no CUDA device")
