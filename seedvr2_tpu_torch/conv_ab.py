@@ -152,6 +152,7 @@ def main():
         for d, (lib, report) in zip(others, pool.map(build_other, others.values(), outs)):
             libs[d] = lib
             print(f"{d}:", report, flush=True)
+    trees = {n: L for n, L in libs.items() if n == "this" or n in args.against}  # the ablations differ in K6 only
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -187,9 +188,9 @@ def main():
         if k14:
             ref4 = k1.conv3d_3x3x3_plain(x, w, b, sc, sf)
             errs = " ".join(f"{n} K1 {rel_l2(run(L, False), ref1):.2e} K4 {rel_l2(run(L, True), ref4):.2e}"
-                            for n, L in libs.items())
+                            for n, L in trees.items())
             print(f"K1/K4 c{c} {T}x{H}x{W}: rel L2 {errs}", flush=True)
-            for n, L in libs.items():
+            for n, L in trees.items():
                 calls[f"{n} K1"], calls[f"{n} K4"] = (lambda L=L: run(L, False)), (lambda L=L: run(L, True))
             del ref4
         if k6:
@@ -212,10 +213,10 @@ def main():
                                                       y.data_ptr(), 1, Tp, kt, A, H, W, c, stream()), "fold_upsample")
             return y
 
-        errs = " ".join(f"{n} {rel_l2(run2(L), ref):.2e}" for n, L in libs.items())
+        errs = " ".join(f"{n} {rel_l2(run2(L), ref):.2e}" for n, L in trees.items())
         print(f"K2 c{c} kt{kt} A{A} {frames}x{H}x{W}: rel L2 {errs}", flush=True)
         calls = {"cudnn": lambda: F.conv3d(xc, Ko, padding=(0, 1, 1))}
-        calls.update({n: (lambda L=L: run2(L)) for n, L in libs.items()})
+        calls.update({n: (lambda L=L: run2(L)) for n, L in trees.items()})
         timed_rounds(calls, args.rounds)
         del x, K, y, ref, xc, Ko
 
