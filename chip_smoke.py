@@ -42,18 +42,38 @@ Phases (any failure raises and the script exits non-zero without a result):
      960x540 clip upscaled to 1920x1080 through the 4-phase pipeline:
      batch_size 9 with temporal_overlap 3 (two batches, Hann blend), the
      tiled VAE at its default tiles (2x2 in encode and decode), GroupNorm
-     fusion on (K4 in every resnet conv), wavelet colour.
+     fusion on (K4 in every resnet conv), wavelet colour;
+  8. the multi-rank path, two ranks on the one card (parallel/launch.py,
+     gloo: NCCL refuses two ranks on one device, so tensors between ranks
+     go through host memory; the kernels run on the card). First, in this
+     process, K3s rank by rank at full width: 3B 720p plain (nW 18) and
+     shifted (nW 32) and 3B 1080p plain (nW 75, a padded tail window) on
+     seq=2, 3B 720p H20 and 7B 720p K3q H24 on tensor=2; each rank's range
+     against the matching slice of the unsharded K3 / K3q launch (rel L2 <=
+     1e-2) and the ranks' outputs assembled against the plain version (rel
+     L2 <= 1e-2; K3q's step share as in phase 3), with its time, its
+     plain version's and SDPA's on the same shard, and its bound. Then, in
+     the two ranks: the 3B DiT step at the 720p latent under (1,2,1) and
+     (1,1,2), and at the 1080p latent under (1,2,1), and the 7B step under
+     sageattn_2 on (1,1,2) (K3q per rank), each against the unsharded step
+     on the same rank (rel L2 <= 5e-2, the bound of the card checks); and
+     generate_multichip with data=2 on 10 x 640x360 -> 1280x720 frames
+     (one 5-frame segment a rank, seam overlap 0, untiled VAE) against
+     rank 0's single-rank phases.generate of the same frames (mean |diff|
+     <= 1e-2, rel L2 <= 5e-2 as phase 4).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
 of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4:
 phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run; the 1080p K3
 rows and the long-clip K4 rows: phase 7); phase 7's counts also stand under
-``e2e.long_clip.launches``. K6 is on no path (the JAX package reaches it
+``e2e.long_clip.launches``; a K3s row's is its rank's count in the phase-8
+run of its path (K3s over K3 or over K3q, per rank). K6 is on no path (the JAX package reaches it
 only from its benchmark scripts): its row's count is its sum over every
 driven run, which must be 0.
 Then: the kernels JSON line, the card line, and the final JSON line.
 """
 
+import gc
 import json
 import shutil
 import subprocess
@@ -115,6 +135,8 @@ def kernel_counters():
         "K5": (k5.flash_attention, "launches"),
         "K4": (k1.conv3d_3x3x3, "launches_gn"),
         "K6": (k1.conv3d_3x3x3_im2col, "launches"),
+        "K3s": (k3.fused_window_attention_sharded, "launches"),
+        "K3s_int8": (k3.fused_window_attention_sharded, "launches_int8"),
     }
 
 
@@ -566,6 +588,258 @@ def path_7b_phase(dev, text, frames):
     return launches, launches_f, out
 
 
+# --------------------------------------------------------------------------- #
+# Phase 8: the multi-rank path
+# --------------------------------------------------------------------------- #
+
+# (label, cfg factory, patched latent, plan, seq, tensor, quant_qk, phase-8 run whose count the rows carry)
+K3S_CASES = [
+    ("3B 720p plain", "dit_3b", (2, 45, 80), 0, 2, 1, False, "seq_720p"),
+    ("3B 720p shifted", "dit_3b", (2, 45, 80), 1, 2, 1, False, "seq_720p"),
+    ("3B 1080p plain", "dit_3b", (3, 68, 120), 0, 2, 1, False, "seq_1080p"),
+    ("3B 720p plain", "dit_3b", (2, 45, 80), 0, 1, 2, False, "tensor_720p"),
+    ("7B 720p plain", "dit_7b", (2, 45, 80), 0, 1, 2, True, "7b_tensor"),
+]
+
+
+def _k3s_rows(dev, g):
+    """K3s per rank (no collective inside, so each rank's call is made here,
+    one after another, with the card to itself while it is timed)."""
+    import torch.nn.functional as F
+
+    from seedvr2_tpu_torch import config
+    from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
+    from seedvr2_tpu_torch.ops import fused_window_attention as k3
+
+    rows = []
+    for label, factory, thw, which, seq, tensor, quant, path in K3S_CASES:
+        cfg = getattr(config, factory)()
+        H, D, Lt = cfg.heads, cfg.head_dim, 58
+        dp = device_plans(build_attn_plans(cfg, thw, Lt), D, dev)[which]
+        nW, S = dp.valid.shape
+        vqkv = torch.randn((1, 3, H, nW, S, D), generator=g, device=dev).bfloat16()
+        tqkv = torch.randn((1, 3, H, Lt, D), generator=g, device=dev).bfloat16()
+        norms = 1 + 0.1 * torch.randn(4, D, generator=g, device=dev)
+        tables = (dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.valid, dp.rope_txt, norms, True, cfg.norm_eps)
+        full_k = k3.fused_window_attention(vqkv, tqkv, *tables, quant_qk=quant)
+        full_p = k3.fused_window_attention_plain(vqkv, tqkv, *tables, quant_qk=quant)
+        rival = k3.fused_window_attention_plain(vqkv, tqkv, *tables, quant_qk=False) if quant else None
+        hl = H // tensor
+        parts = {}
+        for r in range(seq * tensor):
+            s_rank, t_rank = r // tensor, r % tensor
+            hs = slice(t_rank * hl, (t_rank + 1) * hl)
+            v_r, t_r = vqkv[:, :, hs].contiguous(), tqkv[:, :, hs].contiguous()
+            first, end, per = k3.window_range(nW, seq, s_rank)
+            cos, sin, valid = k3.shard_window_tables(dp.vid_cos, dp.vid_sin, dp.valid, s_rank, seq)
+            loc = (cos, sin, dp.txt_cos, dp.txt_sin, valid, dp.rope_txt, norms, True, cfg.norm_eps)
+            v_loc = k3.pad_windows(v_r[:, :, :, first:end], 3, per, 0.0)
+
+            def kernel():  # the rank's windows already gathered, as the DiT hands them over
+                return k3.fused_window_attention_sharded(v_loc, t_r, *tables, quant_qk=quant, seq_rank=s_rank,
+                                                         seq_size=seq)
+
+            ov, ot = kernel()
+            torch.cuda.synchronize()
+            n = end - first
+            vs_unsharded = max(_rel((ov[:, :, :n].float(),), (full_k[0][:, hs, first:end].float(),)),
+                               _rel((ot[:, :, :n].float(),), (full_k[1][:, hs, first:end].float(),)))
+            if not vs_unsharded <= REL_BOUND:
+                raise RuntimeError(f"K3s {label} rank {r}: differs from the unsharded launch (rel L2 {vs_unsharded:.3e})")
+            parts[(s_rank, t_rank)] = (ov[:, :, :n], ot[:, :, :n])
+            keys = int(valid.sum()) + per * Lt  # the rank's valid video keys and every window's text keys
+            qk = 2 * hl * (S + Lt) * keys * D
+            ops = {"int8": qk, "bf16": qk} if quant else {"bf16": 2 * qk}
+            moved = nbytes(v_loc, t_r, valid, norms, cos, sin) + (nbytes(dp.txt_cos, dp.txt_sin) if dp.rope_txt else 0)
+            moved += 2 * hl * per * (S + Lt) * D  # bf16 outputs
+            q, k, v = (torch.cat([v_loc[0, i].permute(1, 0, 2, 3), t_r[0, i][None].expand(per, hl, Lt, D)], dim=2)
+                       for i in range(3))
+            mask = torch.cat([valid, torch.ones(per, Lt, dtype=torch.bool, device=dev)], dim=1)[:, None, None]
+            bound_ms, bound_by = bound(moved, ops)
+            row = {
+                "name": f"K3s {label} H{H} nW{nW} S{S} Lt{Lt} seq {s_rank}/{seq} tensor {t_rank}/{tensor} "
+                        f"(windows {first}-{end - 1}{' + pad' if per > n else ''}, heads {hs.start}-{hs.stop - 1})"
+                        + (" K3q" if quant else ""),
+                "kernel": "K3s", "route": "cuda",
+                "source": "seedvr2_tpu_torch/ops/fused_window_attention.py (K3s) on "
+                          "seedvr2_tpu_torch/csrc/window_attention.cuh",
+                "replaces": "seedvr2_tpu/ops/fused_window_attention.py:214",
+                "launches": None, "max_abs_err": None, "rel_l2_vs_unsharded_kernel": vs_unsharded,
+                "ms": cuda_ms(kernel, 20),
+                "plain_ms": cuda_ms(lambda: k3.fused_window_attention_plain(v_loc, t_r, *loc, quant_qk=quant), 3),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20),
+                "library_call": "F.scaled_dot_product_attention on the rank's shard: pre-normed, pre-roped q/k/v "
+                                "[per_rank, H/t, S+Lt, D] with the key mask",
+                "path": path, "rank": r, "quant_qk": quant,
+            }
+            rows.append(row)
+            del q, k, v, mask, v_loc
+        # the ranks' outputs assembled (real windows, every head) against the plain version
+        got = tuple(torch.cat([torch.cat([parts[(s, t)][i] for t in range(tensor)], 1) for s in range(seq)], 2).float()
+                    for i in range(2))
+        ref = tuple(x.float() for x in full_p)
+        rel = _rel(got, ref)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        note = ""
+        if quant:
+            riv = tuple(x.float() for x in rival)
+            step = sum(float(((a - b) * (a - b)).sum()) for a, b in zip(ref, riv))
+            share = sum(float(((a - v) * (b - v)).sum()) for a, b, v in zip(got, ref, riv)) / step
+            note = f", step share {share:.4f}"
+            if not abs(share - 1.0) <= 0.1:
+                raise RuntimeError(f"K3s {label}: the ranks do not reproduce K3q's int8 step (share {share:.4f})")
+            for row in rows[-seq * tensor:]:
+                row["step_share"] = share
+        if not (rel <= REL_BOUND and all(bool(torch.isfinite(x).all()) for x in got)):
+            raise RuntimeError(f"K3s {label}: assembled ranks disagree with the plain version (rel L2 {rel:.3e})")
+        for row in rows[-seq * tensor:]:
+            row.update(max_abs_err=err, rel_l2=rel)
+            print(f"  {row['name']}: vs unsharded kernel rel L2 {row['rel_l2_vs_unsharded_kernel']:.3e}, assembled "
+                  f"vs plain rel L2 {rel:.3e} max|err| {err:.3e}{note}  kernel {row['ms']:.3f} ms  plain "
+                  f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  SDPA "
+                  f"{row['library_ms']:.3f} ms", flush=True)
+        del vqkv, tqkv, full_k, full_p, rival, parts, got, ref
+    return rows
+
+
+def _phase8_step(runner, latent, seed):
+    """One counted DiT step (counters reset right before, read right after)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = runner.upscale(latent, seed)
+    torch.cuda.synchronize()
+    return out.float(), read_counts(), time.perf_counter() - t0
+
+
+def _check_step(label, got, ref):
+    rel = float((got - ref).norm() / ref.norm())
+    if not (torch.isfinite(got).all() and rel <= 5e-2):
+        raise RuntimeError(f"{label}: sharded step differs from the unsharded one (rel L2 {rel:.3e})")
+    return rel
+
+
+def _phase8_rank(rank, text, frames, device="cuda:0"):
+    """One of the two ranks of phase 8 (started by parallel/launch.py); both
+    on ``device``, the one card."""
+    import torch.distributed as dist
+
+    from seedvr2_tpu_torch.config import PipelineConfig, pipeline_7b
+    from seedvr2_tpu_torch.io.weights import random_dit, random_vae
+    from seedvr2_tpu_torch.parallel.mesh import make_mesh
+    from seedvr2_tpu_torch.parallel.sharding import shard_dit
+    from seedvr2_tpu_torch.pipeline import phases
+    from seedvr2_tpu_torch.pipeline.multichip import generate_multichip
+    from seedvr2_tpu_torch.pipeline.runner import Runner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    meshes = {shape: make_mesh(*shape, device=dev) for shape in ((1, 2, 1), (1, 1, 2), (2, 1, 1))}
+    report = {"rank": rank, "runs": {}}
+
+    def latent(shape, seed):
+        return torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(seed), device=dev).bfloat16()
+
+    def run(key, runner, lat, ref, want):
+        out, counts, wall = _phase8_step(runner, lat, 5)
+        rel = _check_step(key, out, ref)
+        expect(f"rank {rank} {key}", counts, want)
+        report["runs"][key] = {"launches": counts, "rel_l2": rel, "wall_s": wall}
+        print(f"  rank {rank} {key}: rel L2 to the unsharded step {rel:.3e}, {wall:.2f} s, launches {counts}",
+              flush=True)
+
+    # 3B: (1,2,1) at 720p and 1080p, then (1,1,2) at 720p
+    cfg = PipelineConfig(resolution=720)
+    n3 = cfg.dit.num_layers
+    dit = random_dit(cfg.dit, torch.Generator(device=dev).manual_seed(42))
+    lat720, lat1080 = latent((1, 2, 90, 160, 16), 1), latent((1, 3, 136, 240, 16), 2)
+    single = Runner(cfg, dit, None, text, device=dev)
+    ref720 = _phase8_step(single, lat720, 5)[0]
+    ref1080 = _phase8_step(single, lat1080, 5)[0]
+    seq_runner = Runner(cfg, dit, None, text, device=dev, mesh=meshes[(1, 2, 1)])
+    run("seq_720p", seq_runner, lat720, ref720, {"K3s": n3, "K3": n3, "K3q": 0, "K3s_int8": 0})
+    run("seq_1080p", seq_runner, lat1080, ref1080, {"K3s": n3, "K3": n3})
+    local = shard_dit(dit, meshes[(1, 1, 2)])
+    del dit, single, seq_runner, ref1080, lat1080
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("tensor_720p", Runner(cfg, local, None, text, device=dev, mesh=meshes[(1, 1, 2)]), lat720, ref720,
+        {"K3s": n3, "K3": n3, "K3q": 0})
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7B under sageattn_2 on (1,1,2): K3q in every layer of every rank
+    cfg7 = pipeline_7b(resolution=720)
+    n7 = cfg7.dit.num_layers
+    dit7 = random_dit(cfg7.dit, torch.Generator(device=dev).manual_seed(43)).set_attention_mode("sageattn_2")
+    ref7 = _phase8_step(Runner(cfg7, dit7, None, text, device=dev), lat720, 5)[0]
+    local7 = shard_dit(dit7, meshes[(1, 1, 2)])
+    del dit7
+    gc.collect()
+    torch.cuda.empty_cache()
+    run("7b_tensor", Runner(cfg7, local7, None, text, device=dev, mesh=meshes[(1, 1, 2)]), lat720, ref7,
+        {"K3s_int8": n7, "K3q": n7, "K3s": 0, "K3": 0})
+    del local7, ref7
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # generate_multichip, data=2: one 5-frame segment a rank, against rank 0's single-rank run
+    g = torch.Generator(device=dev).manual_seed(44)
+    dit, vae = random_dit(cfg.dit, g), random_vae(cfg.vae, g)
+    if rank == 0:
+        single_out = phases.generate(Runner(cfg, dit, vae, text, device=dev), frames)
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate_multichip(Runner(cfg, dit, vae, text, device=dev, mesh=meshes[(2, 1, 1)]), frames,
+                             meshes[(2, 1, 1)], seam_overlap=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect(f"rank {rank} multichip", counts, {"K1": 48, "K2": 6, "K3": n3, "K3s": 0})
+    entry = {"launches": counts, "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank == 0:
+        mean_err = float(np.abs(out - single_out).mean())
+        rel = float(np.linalg.norm(out - single_out) / np.linalg.norm(single_out - 0.5))
+        entry.update(mean_abs_diff=mean_err, rel_l2=rel, max_abs_diff=float(np.abs(out - single_out).max()))
+        entry["shape"] = list(out.shape)
+        if not (out.shape == single_out.shape and len(out) == len(frames) and np.isfinite(out).all()
+                and mean_err <= 1e-2 and rel <= 5e-2):
+            raise RuntimeError(f"multichip data=2 differs from one rank (mean {mean_err:.3e}, rel {rel:.3e})")
+    elif out is not None:
+        raise RuntimeError("multichip: a rank other than 0 returned frames")
+    report["runs"]["multichip"] = entry
+    print(f"  rank {rank} generate_multichip data=2: {wall:.2f} s, peak {entry['peak_gib']:.2f} GiB, "
+          f"launches {counts}" + (f", vs one rank mean |diff| {entry['mean_abs_diff']:.3e} rel L2 "
+                                  f"{entry['rel_l2']:.3e} max {entry['max_abs_diff']:.3e}" if rank == 0 else ""),
+          flush=True)
+    return report
+
+
+def multi_rank_phase(dev, text):
+    from seedvr2_tpu_torch.parallel.launch import launch
+
+    print("  backend gloo: NCCL refuses two ranks on one device, so the ranks' tensors travel through host "
+          "memory; every kernel runs on the card", flush=True)
+    rows = _k3s_rows(dev, torch.Generator(device=dev).manual_seed(8))
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory to the two ranks
+    frames = np.random.RandomState(9).randint(0, 256, (10, 360, 640, 3)).astype(np.uint8)
+    t0 = time.perf_counter()
+    reports = launch(_phase8_rank, 2, (text, frames, str(dev)), backend="gloo", timeout=300.0, deadline=900.0)
+    wall = time.perf_counter() - t0
+    for row in rows:
+        counts = reports[row.pop("rank")]["runs"][row["path"]]["launches"]
+        row["launches"] = counts["K3s_int8" if row.pop("quant_qk") else "K3s"]
+    return rows, {"wall_s": wall, "ranks": reports}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -612,10 +886,17 @@ def main():
     k6 = sum(n["K6"] for n in (launches, launches_gn, launches_q, launches_f, launches_long))
     if k6 != 0:
         raise RuntimeError(f"K6 is on no path but launched {k6} times")
+    torch.cuda.empty_cache()
+
+    print("[8] multi-rank: two ranks on the one card (gloo), K3s, sharded DiT steps, generate_multichip data=2",
+          flush=True)
+    k3s_rows, e2e_multi = multi_rank_phase(dev, text)
     launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
     for row in rows:
         row["launches"] = (launches_long if row.get("path") == "long_clip" else launches)[row["kernel"]]
-    e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long))
+    rows += k3s_rows
+    e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long),
+               multi_rank=e2e_multi)
     print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,
                       "build_nvcc_s": b.compile_seconds}))
     print(card)

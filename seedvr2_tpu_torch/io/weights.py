@@ -22,8 +22,10 @@ from .checkpoint import convert_state_dict, dit_key_map, flatten_tree, load_safe
 from .checkpoint import load_text_embeddings  # noqa: F401  (bundled pos/neg embeddings)
 
 
-def dit_from_flat(flat: Dict, cfg: DiTConfig, device, dtype=torch.bfloat16) -> NaDiT:
-    return load_flat(NaDiT(cfg, device, dtype), flat).eval()
+def dit_from_flat(flat: Dict, cfg: DiTConfig, device, dtype=torch.bfloat16, tensor: int = 1) -> NaDiT:
+    """``tensor`` > 1: ``flat`` holds one tensor rank's part
+    (parallel/sharding.py:shard_flat)."""
+    return load_flat(NaDiT(cfg, device, dtype, tensor=tensor), flat).eval()
 
 
 def vae_from_flat(flat: Dict, cfg: VAEConfig, device, dtype=torch.bfloat16) -> VAE:
@@ -39,8 +41,16 @@ def vae_from_jax(params, cfg: VAEConfig, device, dtype=torch.bfloat16) -> VAE:
     return vae_from_flat(flatten_tree(params), cfg, device, dtype)
 
 
-def dit_from_safetensors(path: str, cfg: DiTConfig, device, dtype=torch.bfloat16) -> NaDiT:
-    return dit_from_flat(convert_state_dict(load_safetensors(path), dit_key_map(cfg), dtype=None), cfg, device, dtype)
+def dit_from_safetensors(path: str, cfg: DiTConfig, device, dtype=torch.bfloat16, tensor_rank: int = 0,
+                         tensor_size: int = 1) -> NaDiT:
+    """``tensor_size`` > 1: only tensor rank ``tensor_rank``'s part, sliced
+    in host memory before anything moves to ``device``."""
+    from ..parallel.sharding import shard_flat
+
+    flat = convert_state_dict(load_safetensors(path), dit_key_map(cfg), dtype=None)
+    if tensor_size > 1:
+        flat = shard_flat(flat, cfg, tensor_rank, tensor_size)
+    return dit_from_flat(flat, cfg, device, dtype, tensor=tensor_size)
 
 
 def vae_from_safetensors(path: str, cfg: VAEConfig, device, dtype=torch.bfloat16) -> VAE:

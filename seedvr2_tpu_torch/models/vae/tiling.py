@@ -13,17 +13,26 @@ group with zero-weight duplicates so that every step has one shape; here
 the groups are a Python loop and the last group is simply shorter. The
 column-chunk streaming decode (ColumnChunkPlan, tiled_decode_staged) is
 not ported yet (ROADMAP.md queue 1).
+
+Tile parallelism (``shard=TileShard(...)``, the counterpart of the JAX
+package's ``tile_sharding``): rank r of n runs the tiles whose index is r
+mod n, blends them into its own fp32 accumulator, and the accumulators are
+summed over the group; the blend weights (host math) are summed on every
+rank. A rank left without a tile runs tile 0 at weight 0, as the JAX
+package pads a short tile group with zero-weight duplicates, so that every
+rank's accumulator has the output's shape.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...config import VAEConfig
+from ...parallel.comm import all_reduce_sum
 from .causal_conv import StreamCtx
 from .model import VAE, posterior_mode
 
@@ -147,6 +156,14 @@ def _grid_weights(tile_h: int, tile_w: int, rows: list, cols: list, r_h: int, r_
     return out
 
 
+class TileShard(NamedTuple):
+    """Rank ``rank`` of the ``size`` ranks of ``group`` that share the tiles."""
+
+    rank: int
+    size: int
+    group: object
+
+
 def _blend_tiles(
     run: Callable[[torch.Tensor], torch.Tensor],  # [B*g, T, th_in, tw_in, Cin] -> [B*g, T2, th_out, tw_out, Cout]
     tile_in: List[torch.Tensor],  # per tile [B, T, th_in, tw_in, Cin] (views)
@@ -154,28 +171,41 @@ def _blend_tiles(
     out_starts: List[Tuple[int, int]],  # per tile output-space (y, x)
     out_hw: Tuple[int, int],
     tile_batch: int,
+    shard: Optional[TileShard] = None,
 ) -> torch.Tensor:
     """Run the tiles ``tile_batch`` at a time (B major within a group, as the
     JAX package's scan body) and blend each into fp32 acc/cnt on the device;
-    returns acc / max(cnt, 1e-6) in fp32."""
+    returns acc / max(cnt, 1e-6) in fp32. With ``shard``, this rank's tiles
+    only, then the sum of every rank's acc (module docstring)."""
     B, dev = tile_in[0].shape[0], tile_in[0].device
     H, W = out_hw
-    acc = cnt = None
-    for g0 in range(0, len(tile_in), tile_batch):
-        group = tile_in[g0 : g0 + tile_batch]
+    mine = list(range(len(tile_in)))
+    stand_in = False
+    if shard is not None:
+        mine = mine[shard.rank :: shard.size]
+        stand_in = not mine
+        mine = mine or [0]  # no tile of its own: tile 0 at weight 0
+    cnt = torch.zeros((1, 1, H, W, 1), dtype=torch.float32, device=dev)
+    for i, (y, x) in enumerate(out_starts):  # every tile's weight, on every rank
+        th, tw = weights[i].shape
+        cnt[:, :, y : y + th, x : x + tw] += torch.from_numpy(weights[i]).to(dev)[None, None, :, :, None]
+    acc = None
+    for g0 in range(0, len(mine), tile_batch):
+        ids = mine[g0 : g0 + tile_batch]
+        group = [tile_in[i] for i in ids]
         g = len(group)
         out = run(torch.stack(group, dim=1).reshape((B * g,) + tuple(group[0].shape[1:])))
         out = out.reshape((B, g) + tuple(out.shape[1:]))
         if acc is None:
             acc = torch.zeros((B, out.shape[2], H, W, out.shape[-1]), dtype=torch.float32, device=dev)
-            cnt = torch.zeros((1, 1, H, W, 1), dtype=torch.float32, device=dev)
         th, tw = out.shape[3], out.shape[4]
-        for gi in range(g):
-            w = torch.from_numpy(weights[g0 + gi]).to(dev)[None, None, :, :, None]
-            y, x = out_starts[g0 + gi]
+        for gi, i in enumerate(ids):
+            w = torch.from_numpy(weights[i] * (0.0 if stand_in else 1.0)).to(dev)[None, None, :, :, None]
+            y, x = out_starts[i]
             acc[:, :, y : y + th, x : x + tw] += out[:, gi].float() * w
-            cnt[:, :, y : y + th, x : x + tw] += w
         del out
+    if shard is not None:
+        acc = all_reduce_sum(acc, shard.group)
     return acc / cnt.clamp_min(1e-6)
 
 
@@ -185,6 +215,7 @@ def tiled_encode(
     tile_size: Tuple[int, int] = (512, 512),
     tile_overlap: Tuple[int, int] = (64, 64),
     tile_batch: int = 1,
+    shard: Optional[TileShard] = None,
 ) -> torch.Tensor:
     """Spatial tiling in latent coordinates; tile and overlap are pixel
     values. x [B, T, H, W, 3] -> moments [B, T', ceil(H/8), ceil(W/8), 2C]
@@ -211,7 +242,7 @@ def tiled_encode(
     if Wp != W:
         x = torch.cat([x, x[:, :, :, -1:].expand(-1, -1, -1, Wp - W, -1)], dim=3)
     tile_in = [x[:, :, y * sf : (y + lt_h) * sf, x0 * sf : (x0 + lt_w) * sf] for (y, x0) in tiles]
-    result = _blend_tiles(lambda b: slicing_encode(vae, b), tile_in, weights, tiles, (H_lat, W_lat), tile_batch)
+    result = _blend_tiles(lambda b: slicing_encode(vae, b), tile_in, weights, tiles, (H_lat, W_lat), tile_batch, shard)
     return result.to(x.dtype)
 
 
@@ -221,6 +252,7 @@ def tiled_decode(
     tile_size: Tuple[int, int] = (512, 512),
     tile_overlap: Tuple[int, int] = (64, 64),
     tile_batch: int = 1,
+    shard: Optional[TileShard] = None,
 ) -> torch.Tensor:
     """A uniform full-size latent tile grid (_axis_grid), each tile decoded
     and blended in pixel space with ramps clamped to the smallest actual
@@ -244,7 +276,8 @@ def tiled_decode(
     weights = _grid_weights(th, tw, rows, cols, r_h, r_w)
     tile_in = [z[:, :, y : y + lt_h, x : x + lt_w] for (y, x) in tiles]
     starts = [(y * sf, x * sf) for (y, x) in tiles]
-    result = _blend_tiles(lambda b: slicing_decode(vae, b), tile_in, weights, starts, (H * sf, W * sf), tile_batch)
+    result = _blend_tiles(lambda b: slicing_decode(vae, b), tile_in, weights, starts, (H * sf, W * sf), tile_batch,
+                          shard)
     return result.to(z.dtype)
 
 
@@ -260,10 +293,13 @@ def vae_encode(
     tile_size: Tuple[int, int] = (512, 512),
     tile_overlap: Tuple[int, int] = (64, 64),
     tile_batch: int = 1,
+    shard: Optional[TileShard] = None,
 ) -> torch.Tensor:
-    """[B, T, H, W, 3] in [-1, 1] -> scaled latent (mode(z) - shift) * scale."""
+    """[B, T, H, W, 3] in [-1, 1] -> scaled latent (mode(z) - shift) * scale.
+    ``shard`` splits the tiles of a tiled encode over ranks."""
     cfg: VAEConfig = vae.cfg
-    moments = tiled_encode(vae, video, tile_size, tile_overlap, tile_batch) if tiled else slicing_encode(vae, video)
+    moments = (tiled_encode(vae, video, tile_size, tile_overlap, tile_batch, shard) if tiled
+               else slicing_encode(vae, video))
     return (posterior_mode(moments) - cfg.shifting_factor) * cfg.scaling_factor
 
 
@@ -274,7 +310,8 @@ def vae_decode(
     tile_size: Tuple[int, int] = (512, 512),
     tile_overlap: Tuple[int, int] = (64, 64),
     tile_batch: int = 1,
+    shard: Optional[TileShard] = None,
 ) -> torch.Tensor:
     cfg: VAEConfig = vae.cfg
     z = latent / cfg.scaling_factor + cfg.shifting_factor
-    return tiled_decode(vae, z, tile_size, tile_overlap, tile_batch) if tiled else slicing_decode(vae, z)
+    return tiled_decode(vae, z, tile_size, tile_overlap, tile_batch, shard) if tiled else slicing_decode(vae, z)

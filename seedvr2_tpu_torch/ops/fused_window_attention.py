@@ -11,6 +11,12 @@ the hand-written kernel (the window policy of csrc/window_attention.cuh on
 the flash core csrc/attention_core.cuh, one template for both); on a CPU
 tensor it runs the plain version, which is the Pallas kernel's math op for
 op.
+
+K3s (``fused_window_attention_sharded``) is K3 or K3q on one rank's part of
+a sharded DiT: its windows of the seq axis (``window_range``) and whatever
+heads it is given (under tensor, its heads / tensor from the
+column-parallel qkv). Windows are independent, so it runs no collective;
+the gathers around it are the DiT's (models/dit/nadit.py).
 """
 
 from __future__ import annotations
@@ -140,3 +146,90 @@ def fused_window_attention(
 
 fused_window_attention.launches = 0  # K3
 fused_window_attention.launches_int8 = 0  # K3q
+
+
+# --------------------------------------------------------------------------- #
+# K3s: one rank's windows
+# --------------------------------------------------------------------------- #
+
+
+def window_range(n_win: int, seq_size: int, seq_rank: int) -> Tuple[int, int, int]:
+    """(first, end, per_rank): rank r of s attends windows [first, end) of
+    ``n_win`` and launches per_rank = ceil(n_win / s) of them, its tail
+    padded with all-invalid windows as in the JAX package, so that every
+    rank's launch and every all-gather has one size and no rank launches
+    zero windows."""
+    per = max(1, -(-n_win // seq_size))
+    first = min(seq_rank * per, n_win)
+    return first, min(first + per, n_win), per
+
+
+def pad_windows(t: torch.Tensor, dim: int, n: int, fill) -> torch.Tensor:
+    """A new tensor: ``t`` padded along ``dim`` to ``n`` with ``fill`` (a
+    copy even without padding: a slice of rows starts at an offset the
+    kernel's 16-byte alignment check may refuse)."""
+    extra = n - t.shape[dim]
+    if extra == 0:
+        return t.clone(memory_format=torch.contiguous_format)
+    shape = list(t.shape)
+    shape[dim] = extra
+    return torch.cat([t, torch.full(shape, fill, dtype=t.dtype, device=t.device)], dim=dim)
+
+
+def shard_window_tables(vid_cos, vid_sin, valid, seq_rank: int, seq_size: int):
+    """A rank's rows of the plan tables [nW, ...] -> [per_rank, ...]; padded
+    windows are all-invalid, with angle 0 (cos 1, sin 0) as JAX pads them.
+    One rank: the tables themselves."""
+    if seq_size == 1:
+        return vid_cos, vid_sin, valid
+    first, end, per = window_range(valid.shape[0], seq_size, seq_rank)
+    return (pad_windows(vid_cos[first:end], 0, per, 1.0), pad_windows(vid_sin[first:end], 0, per, 0.0),
+            pad_windows(valid[first:end], 0, per, False))
+
+
+def fused_window_attention_sharded(
+    vid_qkv: torch.Tensor,  # [B, 3, h, nW, S, D] every window, or [B, 3, h, per_rank, S, D] this rank's
+    txt_qkv: torch.Tensor,  # [B, 3, h, Lt, D]
+    vid_cos: torch.Tensor,  # [nW, S, D] fp32: the whole plan's tables
+    vid_sin: torch.Tensor,
+    txt_cos: torch.Tensor,  # [Lt, D]
+    txt_sin: torch.Tensor,
+    valid: torch.Tensor,  # [nW, S] bool
+    rope_txt: bool,
+    norms: torch.Tensor,  # [4, D]
+    qk_norm: bool = True,
+    eps: float = 1e-5,
+    quant_qk: bool = False,
+    seq_rank: int = 0,
+    seq_size: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3s, counterpart of seedvr2_tpu/ops/fused_window_attention.py:
+    fused_window_attention_sharded: K3 (K3q with ``quant_qk``, which the
+    JAX function drops) on rank ``seq_rank`` of ``seq_size``'s windows
+    (``window_range``) and the heads of ``vid_qkv``. ``vid_qkv`` holds every
+    window of the plan (sliced here, the tail zero-padded as JAX pads it) or
+    already this rank's per_rank windows (the DiT gathers only those). The
+    batch is whatever the rank holds: under frame data parallelism each
+    rank runs its own segment. Returns this rank's (vid [B, h, per_rank, S,
+    D], txt [B, h, per_rank, Lt, D]): windows first..end-1, then the
+    padding. Launches are counted as K3's: ``.launches`` for K3,
+    ``.launches_int8`` for K3q."""
+    n_win = valid.shape[0]
+    first, end, per = window_range(n_win, seq_size, seq_rank)
+    if vid_qkv.shape[3] == n_win and (first, end, per) != (0, n_win, n_win):  # not this rank's windows alone
+        vid_qkv = pad_windows(vid_qkv[:, :, :, first:end], 3, per, 0.0)
+    elif vid_qkv.shape[3] not in (n_win, per):
+        raise ValueError(f"fused_window_attention_sharded: {vid_qkv.shape[3]} windows, expected {n_win} or {per}")
+    cos, sin, vld = shard_window_tables(vid_cos, vid_sin, valid, seq_rank, seq_size)
+    out = fused_window_attention(vid_qkv, txt_qkv, cos, sin, txt_cos, txt_sin, vld, rope_txt, norms, qk_norm, eps,
+                                 quant_qk=quant_qk)
+    if vid_qkv.is_cuda:  # K3 / K3q launched
+        if quant_qk:
+            fused_window_attention_sharded.launches_int8 += 1
+        else:
+            fused_window_attention_sharded.launches += 1
+    return out
+
+
+fused_window_attention_sharded.launches = 0  # K3s over K3
+fused_window_attention_sharded.launches_int8 = 0  # K3s over K3q

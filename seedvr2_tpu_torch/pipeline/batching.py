@@ -76,9 +76,28 @@ def pad_to_4n1(video: np.ndarray) -> np.ndarray:
     return pad_temporal_reversed(video, target - t)
 
 
+def frames_to_4n1(t: int) -> int:
+    return t if t % 4 == 1 else ((t - 1) // 4 + 1) * 4 + 1
+
+
 def prepare_batch(images: np.ndarray, spec: BatchSpec) -> np.ndarray:
     """Slice one batch, add uniform padding, pad to 4n+1 frames."""
     video = images[spec.start : spec.end]
     if spec.uniform_padding > 0:
         video = pad_temporal_reversed(video, spec.uniform_padding)
     return pad_to_4n1(video)
+
+
+def split_frame_ranges(total_frames: int, num_shards: int, overlap: int) -> List[tuple]:
+    """Frame-parallel split across ranks with ``overlap`` extra frames on
+    every interior seam (reference: inference_cli.py:1160-1182)."""
+    base = total_frames // num_shards
+    extra = total_frames % num_shards
+    ranges = []
+    start = 0
+    for i in range(num_shards):
+        n = base + (1 if i < extra else 0)
+        end = min(start + n + (overlap if i < num_shards - 1 else 0), total_frames)
+        ranges.append((start, end))
+        start += n
+    return ranges

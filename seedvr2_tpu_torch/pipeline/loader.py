@@ -14,7 +14,20 @@ from ..io.checkpoint import load_text_embeddings
 from ..io.registry import model_variant
 from ..io.weights import dit_from_safetensors, vae_from_safetensors
 from ..ops.attention import resolve_attention_mode
+from ..parallel.mesh import AXIS_TENSOR, Mesh
+from ..parallel.sharding import check_tensor_split
 from .runner import _DTYPES, Runner, _not_ported, check_supported
+
+
+def dit_param_bytes(dit_cfg, quantize: Optional[str] = None) -> int:
+    """Resident bytes of the DiT's weights (bf16; 1 byte a weight for
+    int8), counted on a module built on the meta device (no allocation):
+    the weight term of the mesh policy (parallel/mesh.py:auto_mesh_shape).
+    The port's copy of seedvr2_tpu/pipeline/loader.py:dit_param_bytes."""
+    from ..models.dit.nadit import NaDiT
+
+    n = sum(b.numel() for b in NaDiT(dit_cfg, "meta", torch.bfloat16).buffers())
+    return n * (1 if quantize == "int8" else 2)
 
 
 def pick_config(dit_model: str, cfg: Optional[PipelineConfig] = None) -> PipelineConfig:
@@ -38,13 +51,28 @@ def load_runner(
     quantize: Optional[str] = None,
     emb_dir: Optional[str] = None,
     attention_mode: str = "fused",
+    mesh: Optional[Mesh] = None,
+    shard_dit: Optional[bool] = None,
 ) -> Runner:
     """The DiT config follows the file name (``pick_config``).
     ``attention_mode`` is a name of ops/attention.py's alias table (fused,
-    sdpa, flash_attn_2/3, sageattn_2/3, ...)."""
+    sdpa, flash_attn_2/3, sageattn_2/3, ...).
+
+    ``mesh``: this rank's mesh (parallel/mesh.py); the runner then runs on
+    ``mesh.device`` (``device`` is ignored). ``shard_dit`` (default: when
+    the mesh's tensor axis is above 1) loads only this rank's part of the
+    DiT (parallel/sharding.py), sliced in host memory before it moves to the
+    card. A tensor axis needs the split weights, so ``shard_dit=False``
+    there raises."""
     resolve_attention_mode(attention_mode)  # an unknown name raises before any weight is read
     cfg = pick_config(dit_model, cfg)
     check_supported(cfg)
+    tensor = mesh.shape[AXIS_TENSOR] if mesh is not None else 1
+    if shard_dit is None:
+        shard_dit = tensor > 1
+    if tensor > 1 and not shard_dit:
+        raise ValueError("a mesh with a tensor axis runs the DiT split over it: shard_dit=False is not supported")
+    check_tensor_split(cfg.dit, tensor)
     if quantize is not None:
         raise _not_ported(f"quantize={quantize!r}", "int8 DiT with a W8A16 kernel")
     if not dit_model.endswith(".safetensors") or not vae_model.endswith(".safetensors"):
@@ -53,9 +81,10 @@ def load_runner(
     for p in paths:
         if not os.path.exists(p):
             raise FileNotFoundError(p)
-    device = torch.device(device)
+    device = mesh.device if mesh is not None else torch.device(device)
     dtype = _DTYPES[cfg.compute_dtype]
-    dit = dit_from_safetensors(paths[0], cfg.dit, device, dtype).set_attention_mode(attention_mode)
+    t_rank = mesh.coord(AXIS_TENSOR) if tensor > 1 else 0
+    dit = dit_from_safetensors(paths[0], cfg.dit, device, dtype, t_rank, tensor).set_attention_mode(attention_mode)
     vae = vae_from_safetensors(paths[1], cfg.vae, device, dtype)
     pos, _neg = load_text_embeddings(emb_dir)
-    return Runner(cfg, dit, vae, pos[:, : cfg.dit.txt_in_dim], device=device)
+    return Runner(cfg, dit, vae, pos[:, : cfg.dit.txt_in_dim], device=device, mesh=mesh)

@@ -11,10 +11,18 @@ runner, which turns tiling on after RESOURCE_EXHAUSTED, is not ported: a
 torch.cuda.OutOfMemoryError propagates). Each stage of ``fused_batch`` is a
 ``torch.profiler.record_function`` range ("runner.<stage>"), read by
 profile_batch.py; without a running profiler a range is one small host call.
+
+With a ``mesh`` (parallel/mesh.py) the runner is one rank of a multi-rank
+job: the DiT step runs under ``sharded_dit`` when the mesh has a seq or
+tensor axis (the DiT must then be split over the same tensor axis:
+parallel/sharding.py), and a tiled VAE encode or decode of one clip splits
+its tiles over every rank of the mesh (``_tile_parallel``), except inside
+``fused_segment``, where each data rank holds its own segment.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -27,6 +35,8 @@ from ..models.vae import tiling
 from ..models.vae.model import VAE
 from ..ops import color as color_ops
 from ..ops.resize import pipeline_transform, to_f01
+from ..parallel.mesh import AXIS_SEQ, AXIS_TENSOR, Mesh
+from ..parallel.sp import sharded_dit
 from . import diffusion as dm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -62,11 +72,13 @@ class Runner:
         vae: VAE,
         text_pos,  # [Lt, txt_in_dim]
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         check_supported(cfg)
         self.cfg = cfg
         self.dit = dit
         self.vae = vae
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None else next(dit.buffers()).device
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.text_pos = torch.as_tensor(np.asarray(text_pos, np.float32), device=self.device)[None]
@@ -91,24 +103,45 @@ class Runner:
 
     # ------------------------------- VAE ----------------------------------- #
 
+    def _tile_parallel(self, batch_dim: int, tile_parallel: bool = True) -> Optional[tiling.TileShard]:
+        """The tiles of a one-clip (batch 1) encode or decode go to every
+        rank of the mesh, whatever its axes (a tensor-sharded DiT's ranks
+        still share the VAE work); None without a mesh of more than one
+        rank, or where the ranks hold different clips (``tile_parallel``
+        False: fused_segment)."""
+        if self.mesh is None or batch_dim != 1 or not tile_parallel or self.mesh.size == 1:
+            return None
+        return tiling.TileShard(self.mesh.rank, self.mesh.size, self.mesh.world)
+
     @torch.inference_mode()
-    def vae_encode(self, video: torch.Tensor) -> torch.Tensor:
+    def vae_encode(self, video: torch.Tensor, tile_parallel: bool = True) -> torch.Tensor:
         """[B, T, H, W, 3] in [-1, 1] -> scaled latent, tiled as cfg says."""
         c = self.cfg
         return tiling.vae_encode(
             self.vae, video, tiled=c.encode_tiled, tile_size=c.encode_tile_size,
             tile_overlap=c.encode_tile_overlap, tile_batch=c.encode_tile_batch,
+            shard=self._tile_parallel(video.shape[0], tile_parallel),
         )
 
     @torch.inference_mode()
-    def vae_decode(self, latent: torch.Tensor) -> torch.Tensor:
+    def vae_decode(self, latent: torch.Tensor, tile_parallel: bool = True) -> torch.Tensor:
         c = self.cfg
         return tiling.vae_decode(
             self.vae, latent, tiled=c.decode_tiled, tile_size=c.decode_tile_size,
             tile_overlap=c.decode_tile_overlap, tile_batch=c.decode_tile_batch,
+            shard=self._tile_parallel(latent.shape[0], tile_parallel),
         )
 
     # ------------------------------- DiT ----------------------------------- #
+
+    def _dit_sharding_ctx(self):
+        """The context of the DiT forward: ``sharded_dit`` over the mesh's
+        seq and tensor axes where either is above 1; nothing on one rank or
+        a pure data mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        s, t = self.mesh.shape[AXIS_SEQ] > 1, self.mesh.shape[AXIS_TENSOR] > 1
+        return sharded_dit(self.mesh, seq=s, tensor=t) if (s or t) else contextlib.nullcontext()
 
     @torch.inference_mode()
     def upscale(self, latent: torch.Tensor, seed: int, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -142,7 +175,8 @@ class Runner:
             )
 
         timesteps = dm.uniform_trailing_timesteps(cfg.diffusion.sampling_steps, T)
-        out = dm.euler_sample(base_noise, f, list(timesteps), T, cfg.diffusion.prediction_type)
+        with self._dit_sharding_ctx():
+            out = dm.euler_sample(base_noise, f, list(timesteps), T, cfg.diffusion.prediction_type)
         return out.to(dt)
 
     # --------------------------- the batch chain --------------------------- #
@@ -156,6 +190,7 @@ class Runner:
         seed: int,
         noise: Optional[torch.Tensor] = None,
         ori: Optional[int] = None,
+        tile_parallel: bool = True,
     ) -> torch.Tensor:
         """The whole per-batch pipeline. Returns packed codes [ori, true_h,
         true_w, 3] int32 (cfg.output_bits wide) on the device, the temporal
@@ -165,13 +200,31 @@ class Runner:
         with record_function("runner.transform"):
             tv = pipeline_transform(to_f01(frames), c.resolution, c.max_resolution)  # fp32 [-1, 1]
         with record_function("runner.vae_encode"):
-            latent = self.vae_encode(tv[None].to(self.compute_dtype))
+            latent = self.vae_encode(tv[None].to(self.compute_dtype), tile_parallel)
         with record_function("runner.dit_step"):
             up = self.upscale(latent, seed, noise)
         with record_function("runner.vae_decode"):
-            dec = self.vae_decode(up)
+            dec = self.vae_decode(up, tile_parallel)
         with record_function("runner.color_pack"):
             return self.finalize_batch(dec, tv, tv.shape[0] if ori is None else ori, true_h, true_w, True)
+
+    def fused_segment(
+        self,
+        frames: torch.Tensor,  # this data rank's batch of its own segment, as fused_batch takes it
+        true_h: int,
+        true_w: int,
+        seed: int,
+        noise: Optional[torch.Tensor] = None,
+        ori: Optional[int] = None,
+    ) -> torch.Tensor:
+        """One data rank's step of frame-parallel generation (the counterpart
+        of the JAX runner's fused_segments, whose segment batch this rank's
+        segment is one row of): fused_batch on this rank's segment, the DiT
+        sharded over the mesh's seq and tensor axes, the VAE not split over
+        ranks (they hold other segments). The DiT noise is the batch's one
+        draw from ``seed``, the same in every segment, as in the JAX
+        package. Returns packed codes on the device."""
+        return self.fused_batch(frames, true_h, true_w, seed, noise, ori, tile_parallel=False)
 
     @torch.inference_mode()
     def finalize_batch(

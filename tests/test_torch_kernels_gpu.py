@@ -237,6 +237,40 @@ def _check_window_attention(cuda, quant_qk, rope_txt=True, B=1, nW=3, S=100, Lt=
         assert _rel(got, ref) < _rel(got, unq)
 
 
+@pytest.mark.parametrize("quant_qk", [False, True])
+@pytest.mark.parametrize("nW,seq", [(5, 2), (3, 4), (4, 1)])
+def test_sharded_window_attention_ranks_equal_the_unsharded_kernel(cuda, nW, seq, quant_qk):
+    """K3s: every seq rank's launch (its windows, sliced from the whole
+    windowed qkv or handed over already gathered, the tail padded) gives
+    the unsharded K3 / K3q launch's rows for those windows; the slices of
+    the tables start at offsets the kernel's alignment check would refuse
+    uncopied (nW 5 on 2: rank 1 starts at window 3)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    H, S, Lt, D = 2, 100, 7, 128
+    vqkv = torch.randn(1, 3, H, nW, S, D, device=cuda, generator=g).bfloat16()
+    tqkv = torch.randn(1, 3, H, Lt, D, device=cuda, generator=g).bfloat16()
+    ang = torch.rand(nW, S, D, device=cuda, generator=g) * 6
+    valid = torch.ones(nW, S, dtype=torch.bool, device=cuda)
+    valid[nW // 2, 37:] = False
+    norms = 1 + 0.1 * torch.randn(4, D, device=cuda, generator=g)
+    tables = (ang.cos(), ang.sin(), ang[0, :Lt].cos(), ang[0, :Lt].sin(), valid, True, norms, True, 1e-5)
+    full_v, full_t = k3.fused_window_attention(vqkv, tqkv, *tables, quant_qk=quant_qk)
+    counter = "launches_int8" if quant_qk else "launches"
+    for rank in range(seq):
+        first, end, per = k3.window_range(nW, seq, rank)
+        local = k3.pad_windows(vqkv[:, :, :, first:end], 3, per, 0.0)
+        for given in (vqkv, local):
+            n0 = getattr(k3.fused_window_attention_sharded, counter)
+            ov, ot = k3.fused_window_attention_sharded(given, tqkv, *tables, quant_qk=quant_qk, seq_rank=rank,
+                                                       seq_size=seq)
+            torch.cuda.synchronize()
+            assert getattr(k3.fused_window_attention_sharded, counter) == n0 + 1
+            assert ov.shape == (1, H, per, S, D) and ot.shape == (1, H, per, Lt, D)
+            assert torch.equal(ov[:, :, : end - first], full_v[:, :, first:end])
+            assert torch.equal(ot[:, :, : end - first], full_t[:, :, first:end])
+            assert bool(torch.isfinite(ov).all()) and bool(torch.isfinite(ot).all())
+
+
 @pytest.mark.parametrize("S", [463, 64, 37, 128, 129])
 def test_flash_attention_kernel_matches_plain(cuda, S):
     """A masked key tail, one batch row with no valid key, q_valid as a tail

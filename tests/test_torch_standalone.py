@@ -124,6 +124,19 @@ def test_temporal_padding_equal(t):
         np.testing.assert_array_equal(batching.prepare_batch(video, spec), jbatching.prepare_batch(video, spec))
 
 
+def test_frames_to_4n1_equal():
+    for t in range(0, 40):
+        assert batching.frames_to_4n1(t) == jbatching.frames_to_4n1(t), t
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, 8])
+def test_split_frame_ranges_equal_over_a_grid(shards):
+    for total, overlap in itertools.product(range(1, 41), range(0, 6)):
+        assert batching.split_frame_ranges(total, shards, overlap) == [
+            tuple(r) for r in jbatching.split_frame_ranges(total, shards, overlap)
+        ], (total, shards, overlap)
+
+
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("thw", [(1, 4, 6), (2, 6, 8), (3, 10, 14), (2, 45, 80), (5, 68, 120), (1, 1, 1)])
 def test_window_plans_equal(thw, shifted):
