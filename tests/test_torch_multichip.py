@@ -165,6 +165,21 @@ def test_mesh_runner_tiled_vae_matches_jax(port):
     np.testing.assert_allclose(port["runner_vae/decoded"], np.asarray(runner.vae_decode(lat)), **VAE_TOL)
 
 
+@pytest.mark.parametrize("name,frames,factory", [("auto_3b_clip", 10, "dit_3b"), ("auto_7b_image", 1, "dit_7b")])
+def test_build_mesh_picks_the_jax_entry_points_mesh(port, name, frames, factory):
+    """build_mesh("auto") on 2 ranks: the JAX CLI's choice (auto_mesh_shape
+    with the heads and bf16 DiT bytes, 16 GiB of memory for a CPU device as
+    the JAX package assumes); "d,s,t" as given."""
+    from seedvr2_tpu import config as jconfig
+    from seedvr2_tpu.parallel.mesh import auto_mesh_shape
+    from seedvr2_tpu.pipeline.loader import dit_param_bytes
+
+    cfg = getattr(jconfig, factory)()
+    want = auto_mesh_shape(2, frames, cfg.heads, dit_param_bytes(cfg), 16 << 30)
+    assert tuple(port[f"build_mesh/{name}"]) == want
+    assert tuple(port["build_mesh/given"]) == (1, 1, 2)
+
+
 @pytest.mark.parametrize("kw,channels", [(dict(), 4), (dict(input_noise_scale=0.1), 3)])
 def test_generate_multichip_raises_off_the_ported_path(kw, channels):
     """RGBA and noise augmentation raise as in phases.generate, before any

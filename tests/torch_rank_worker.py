@@ -87,10 +87,18 @@ def task_multichip(rank, inputs, cases, directory):
     from seedvr2_tpu_torch.pipeline.multichip import generate_multichip
     from seedvr2_tpu_torch.pipeline.runner import Runner
 
+    from seedvr2_tpu_torch import config
+    from seedvr2_tpu_torch.parallel.mesh import build_mesh
+
     n = int(os.environ["WORLD_SIZE"])
     mesh = make_mesh(data=n, device="cpu")
     tensor_mesh = make_mesh(tensor=n, device="cpu")
     out = {}
+    for name, spec, frames, dit_cfg in (("auto_3b_clip", "auto", 10, config.dit_3b()),
+                                        ("auto_7b_image", "auto", 1, config.dit_7b()),
+                                        ("given", f"1,1,{n}", None, config.dit_3b())):
+        out[f"build_mesh/{name}"] = np.array([build_mesh(spec, frames, dit_cfg, device="cpu").shape[a]
+                                              for a in ("data", "seq", "tensor")])
     for case in cases:
         cfg = _pipeline_cfg(case)
         dit = dit_from_flat(_flat(inputs, "dit/"), cfg.dit, "cpu", torch.float32)
