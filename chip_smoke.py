@@ -52,22 +52,31 @@ Phases (any failure raises and the script exits non-zero without a result):
      against the matching slice of the unsharded K3 / K3q launch (rel L2 <=
      1e-2) and the ranks' outputs assembled against the plain version (rel
      L2 <= 1e-2; K3q's step share as in phase 3), with its time, its
-     plain version's and SDPA's on the same shard, and its bound. Then, in
-     the two ranks: the 3B DiT step at the 720p latent under (1,2,1) and
-     (1,1,2), and at the 1080p latent under (1,2,1), and the 7B step under
-     sageattn_2 on (1,1,2) (K3q per rank), each against the unsharded step
-     on the same rank (rel L2 <= 5e-2, the bound of the card checks); and
+     plain version's and SDPA's on the same shard, and its bound; K5 at
+     each rank's shapes of the 3B 720p plain plan under flash_attn_2 on
+     seq=2 (9 windows a rank) and tensor=2 (10 heads a rank) against its
+     plain version, the same way. Then, in the two ranks: the 3B DiT step
+     at the 720p latent under (1,2,1) and (1,1,2), under fused and under
+     flash_attn_2 (the unfused window path, K5 per rank), and at the 1080p
+     latent under (1,2,1), and the 7B step under sageattn_2 on (1,1,2)
+     (K3q per rank), each against the unsharded step on the same rank in
+     the same mode (rel L2 <= 5e-2, the bound of the card checks);
      generate_multichip with data=2 on 10 x 640x360 -> 1280x720 frames
      (one 5-frame segment a rank, seam overlap 0, untiled VAE) against
      rank 0's single-rank phases.generate of the same frames (mean |diff|
-     <= 1e-2, rel L2 <= 5e-2 as phase 4).
+     <= 1e-2, rel L2 <= 5e-2 as phase 4); and generate_multichip with 3 of
+     those frames, under 2 a rank, so both ranks run phases.generate with
+     the tile-parallel VAE (512 px tiles, a 2 x 3 grid, 3 tiles a rank,
+     fp32 accumulators summed through host memory), against rank 0's
+     single-rank tiled run (same bounds; the ranks' K1 and K2 launches
+     must add up to the single run's: every tile ran once).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
 of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4:
 phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run; the 1080p K3
 rows and the long-clip K4 rows: phase 7); phase 7's counts also stand under
-``e2e.long_clip.launches``; a K3s row's is its rank's count in the phase-8
-run of its path (K3s over K3 or over K3q, per rank). K6 is on no path (the JAX package reaches it
+``e2e.long_clip.launches``; a phase-8 row's is its rank's count in the
+phase-8 run of its path (K3s over K3 or over K3q, or K5, per rank). K6 is on no path (the JAX package reaches it
 only from its benchmark scripts): its row's count is its sum over every
 driven run, which must be 0.
 Then: the kernels JSON line, the card line, and the final JSON line.
@@ -600,6 +609,8 @@ K3S_CASES = [
     ("3B 720p plain", "dit_3b", (2, 45, 80), 0, 1, 2, False, "tensor_720p"),
     ("7B 720p plain", "dit_7b", (2, 45, 80), 0, 1, 2, True, "7b_tensor"),
 ]
+# (tile, overlap) in pixels of phase 8's tile-parallel encode and decode: a 2 x 3 grid at 1280x720
+PHASE8_TILE = ((512, 512), (64, 64))
 
 
 def _k3s_rows(dev, g):
@@ -703,6 +714,49 @@ def _k3s_rows(dev, g):
     return rows
 
 
+def _k5_rank_rows(dev, g):
+    """K5 at each rank's shapes under flash_attn_2, the 3B 720p plain plan:
+    seq=2 (the rank's windows, padded to ceil(nW/2), every head) and
+    tensor=2 (every window, half the heads), against its plain version."""
+    import torch.nn.functional as F
+
+    from seedvr2_tpu_torch.config import dit_3b
+    from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
+    from seedvr2_tpu_torch.ops import flash_attention as k5
+    from seedvr2_tpu_torch.ops import fused_window_attention as k3
+
+    cfg = dit_3b()
+    H, D, Lt = cfg.heads, cfg.head_dim, 58
+    dp = device_plans(build_attn_plans(cfg, (2, 45, 80), Lt), D, dev)[0]
+    nW, mL = dp.valid.shape
+    S = mL + Lt
+    rows = []
+    for seq, tensor, path in ((2, 1, "seq_720p_flash"), (1, 2, "tensor_720p_flash")):
+        hl = H // tensor
+        for r in range(seq * tensor):
+            s_rank, t_rank = r // tensor, r % tensor
+            first, end, per = k3.window_range(nW, seq, s_rank)
+            valid = k3.shard_window_tables(dp.vid_cos, dp.vid_sin, dp.valid, s_rank, seq)[2]
+            kv_valid = torch.cat([valid, torch.ones(per, Lt, dtype=torch.bool, device=dev)], dim=1).contiguous()
+            q, k, v = (torch.randn((per, S, hl, D), generator=g, device=dev).bfloat16() for _ in range(3))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = kv_valid[:, None, None]
+            qk = 2 * hl * S * int(kv_valid.sum()) * D
+            rows.append(compare(
+                "K5", f"3B 720p plain B{per} S{S} H{hl} seq {s_rank}/{seq} tensor {t_rank}/{tensor} (windows "
+                      f"{first}-{end - 1}{' + pad' if per > end - first else ''}, heads {t_rank * hl}-"
+                      f"{(t_rank + 1) * hl - 1})",
+                "seedvr2_tpu_torch/csrc/flash_attention.cuh", "seedvr2_tpu/ops/flash_attention.py:96",
+                lambda: k5.flash_attention(q, k, v, kv_valid), lambda: k5.flash_attention_plain(q, k, v, kv_valid),
+                nbytes(q, k, v, kv_valid) + nbytes(q), {"bf16": 2 * qk},
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                "F.scaled_dot_product_attention on the rank's [B, H, S, D] views with the key mask",
+                extra_row={"path": path, "rank": r, "quant_qk": False},
+            ))
+            del q, k, v, qt, kt, vt, mask
+    return rows
+
+
 def _phase8_step(runner, latent, seed):
     """One counted DiT step (counters reset right before, read right after)."""
     torch.cuda.synchronize()
@@ -762,13 +816,19 @@ def _phase8_rank(rank, text, frames, device="cuda:0"):
     seq_runner = Runner(cfg, dit, None, text, device=dev, mesh=meshes[(1, 2, 1)])
     run("seq_720p", seq_runner, lat720, ref720, {"K3s": n3, "K3": n3, "K3q": 0, "K3s_int8": 0})
     run("seq_1080p", seq_runner, lat1080, ref1080, {"K3s": n3, "K3": n3})
-    local = shard_dit(dit, meshes[(1, 1, 2)])
+    # flash_attn_2: the unfused window path, K5 on the rank's windows (seq) or heads (tensor)
+    dit.set_attention_mode("flash_attn_2")
+    ref720f = _phase8_step(single, lat720, 5)[0]
+    run("seq_720p_flash", seq_runner, lat720, ref720f, {"K5": n3, "K3s": 0, "K3": 0})
+    local = shard_dit(dit.set_attention_mode("fused"), meshes[(1, 1, 2)])
     del dit, single, seq_runner, ref1080, lat1080
     gc.collect()
     torch.cuda.empty_cache()
-    run("tensor_720p", Runner(cfg, local, None, text, device=dev, mesh=meshes[(1, 1, 2)]), lat720, ref720,
-        {"K3s": n3, "K3": n3, "K3q": 0})
-    del local
+    tensor_runner = Runner(cfg, local, None, text, device=dev, mesh=meshes[(1, 1, 2)])
+    run("tensor_720p", tensor_runner, lat720, ref720, {"K3s": n3, "K3": n3, "K3q": 0})
+    local.set_attention_mode("flash_attn_2")
+    run("tensor_720p_flash", tensor_runner, lat720, ref720f, {"K5": n3, "K3s": 0, "K3": 0})
+    del local, tensor_runner, ref720f
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -819,6 +879,47 @@ def _phase8_rank(rank, text, frames, device="cuda:0"):
           f"launches {counts}" + (f", vs one rank mean |diff| {entry['mean_abs_diff']:.3e} rel L2 "
                                   f"{entry['rel_l2']:.3e} max {entry['max_abs_diff']:.3e}" if rank == 0 else ""),
           flush=True)
+    del out
+    if rank == 0:
+        del single_out
+
+    # the tile-parallel VAE: 3 frames on data=2 are under 2 a rank, so both ranks run phases.generate on the
+    # whole clip, each encoding and decoding its own tiles (i = rank mod 2) of a 512 px grid (6 tiles)
+    tile, overlap = PHASE8_TILE
+    cfg_t = cfg.replace(encode_tiled=True, decode_tiled=True, encode_tile_size=tile, decode_tile_size=tile,
+                        encode_tile_overlap=overlap, decode_tile_overlap=overlap)
+    few = frames[:3]
+    entry = {}
+    if rank == 0:
+        reset_counts()
+        single_out = phases.generate(Runner(cfg_t, dit, vae, text, device=dev), few)
+        entry["single_launches"] = read_counts()
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate_multichip(Runner(cfg_t, dit, vae, text, device=dev, mesh=meshes[(2, 1, 1)]), few,
+                             meshes[(2, 1, 1)])
+    torch.cuda.synchronize()
+    entry.update(launches=read_counts(), wall_s=time.perf_counter() - t0)
+    expect(f"rank {rank} tiled fallback", entry["launches"], {"K3": n3, "K3s": 0})
+    if entry["launches"]["K1"] == 0:
+        raise RuntimeError(f"rank {rank} tiled fallback: no VAE tile ran on this rank")
+    if rank == 0:
+        mean_err = float(np.abs(out - single_out).mean())
+        rel = float(np.linalg.norm(out - single_out) / np.linalg.norm(single_out - 0.5))
+        entry.update(mean_abs_diff=mean_err, rel_l2=rel, max_abs_diff=float(np.abs(out - single_out).max()),
+                     shape=list(out.shape))
+        if not (out.shape == single_out.shape and len(out) == len(few) and np.isfinite(out).all()
+                and mean_err <= 1e-2 and rel <= 5e-2):
+            raise RuntimeError(f"tile-parallel fallback differs from one rank (mean {mean_err:.3e}, rel {rel:.3e})")
+    elif out is not None:
+        raise RuntimeError("tiled fallback: a rank other than 0 returned frames")
+    report["runs"]["tiled_fallback"] = entry
+    print(f"  rank {rank} tile-parallel VAE (3 frames on data=2, tiles {tile[0]} px): {entry['wall_s']:.2f} s, "
+          f"launches {entry['launches']}" + (f", vs one rank mean |diff| {entry['mean_abs_diff']:.3e} rel L2 "
+                                             f"{entry['rel_l2']:.3e} max {entry['max_abs_diff']:.3e}, one rank's "
+                                             f"launches {entry['single_launches']}" if rank == 0 else ""), flush=True)
     return report
 
 
@@ -828,6 +929,7 @@ def multi_rank_phase(dev, text):
     print("  backend gloo: NCCL refuses two ranks on one device, so the ranks' tensors travel through host "
           "memory; every kernel runs on the card", flush=True)
     rows = _k3s_rows(dev, torch.Generator(device=dev).manual_seed(8))
+    rows += _k5_rank_rows(dev, torch.Generator(device=dev).manual_seed(10))
     gc.collect()
     torch.cuda.empty_cache()  # the card's memory to the two ranks
     frames = np.random.RandomState(9).randint(0, 256, (10, 360, 640, 3)).astype(np.uint8)
@@ -836,7 +938,12 @@ def multi_rank_phase(dev, text):
     wall = time.perf_counter() - t0
     for row in rows:
         counts = reports[row.pop("rank")]["runs"][row["path"]]["launches"]
-        row["launches"] = counts["K3s_int8" if row.pop("quant_qk") else "K3s"]
+        row["launches"] = counts["K3s_int8" if row.pop("quant_qk") else row["kernel"]]
+    tiled = [r["runs"]["tiled_fallback"] for r in reports]
+    for kid in ("K1", "K2"):  # every tile ran on exactly one rank
+        if sum(t["launches"][kid] for t in tiled) != tiled[0]["single_launches"][kid]:
+            raise RuntimeError(f"tile-parallel VAE: {kid} launches {[t['launches'][kid] for t in tiled]} over the "
+                               f"ranks, {tiled[0]['single_launches'][kid]} on one rank")
     return rows, {"wall_s": wall, "ranks": reports}
 
 
@@ -888,13 +995,14 @@ def main():
         raise RuntimeError(f"K6 is on no path but launched {k6} times")
     torch.cuda.empty_cache()
 
-    print("[8] multi-rank: two ranks on the one card (gloo), K3s, sharded DiT steps, generate_multichip data=2",
+    print("[8] multi-rank: two ranks on the one card (gloo), K3s and K5 per rank, sharded DiT steps, "
+          "generate_multichip data=2, the tile-parallel VAE",
           flush=True)
-    k3s_rows, e2e_multi = multi_rank_phase(dev, text)
+    rank_rows, e2e_multi = multi_rank_phase(dev, text)
     launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
     for row in rows:
         row["launches"] = (launches_long if row.get("path") == "long_clip" else launches)[row["kernel"]]
-    rows += k3s_rows
+    rows += rank_rows
     e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long),
                multi_rank=e2e_multi)
     print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,

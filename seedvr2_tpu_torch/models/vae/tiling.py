@@ -18,9 +18,9 @@ Tile parallelism (``shard=TileShard(...)``, the counterpart of the JAX
 package's ``tile_sharding``): rank r of n runs the tiles whose index is r
 mod n, blends them into its own fp32 accumulator, and the accumulators are
 summed over the group; the blend weights (host math) are summed on every
-rank. A rank left without a tile runs tile 0 at weight 0, as the JAX
-package pads a short tile group with zero-weight duplicates, so that every
-rank's accumulator has the output's shape.
+rank. Where there are fewer tiles than ranks, a rank without a tile runs
+no VAE pass: it takes the output's frame and channel counts from rank 0
+(which always holds tile 0) and adds a zero accumulator to the sum.
 """
 
 from __future__ import annotations
@@ -180,11 +180,8 @@ def _blend_tiles(
     B, dev = tile_in[0].shape[0], tile_in[0].device
     H, W = out_hw
     mine = list(range(len(tile_in)))
-    stand_in = False
     if shard is not None:
         mine = mine[shard.rank :: shard.size]
-        stand_in = not mine
-        mine = mine or [0]  # no tile of its own: tile 0 at weight 0
     cnt = torch.zeros((1, 1, H, W, 1), dtype=torch.float32, device=dev)
     for i, (y, x) in enumerate(out_starts):  # every tile's weight, on every rank
         th, tw = weights[i].shape
@@ -200,11 +197,16 @@ def _blend_tiles(
             acc = torch.zeros((B, out.shape[2], H, W, out.shape[-1]), dtype=torch.float32, device=dev)
         th, tw = out.shape[3], out.shape[4]
         for gi, i in enumerate(ids):
-            w = torch.from_numpy(weights[i] * (0.0 if stand_in else 1.0)).to(dev)[None, None, :, :, None]
+            w = torch.from_numpy(weights[i]).to(dev)[None, None, :, :, None]
             y, x = out_starts[i]
             acc[:, :, y : y + th, x : x + tw] += out[:, gi].float() * w
         del out
     if shard is not None:
+        if len(tile_in) < shard.size:  # some rank holds no tile: rank 0 sends (frames, channels)
+            tc = torch.tensor([acc.shape[1], acc.shape[4]] if shard.rank == 0 else [0, 0], device=dev)
+            t_out, c_out = (int(v) for v in all_reduce_sum(tc, shard.group))
+            if acc is None:
+                acc = torch.zeros((B, t_out, H, W, c_out), dtype=torch.float32, device=dev)
         acc = all_reduce_sum(acc, shard.group)
     return acc / cnt.clamp_min(1e-6)
 

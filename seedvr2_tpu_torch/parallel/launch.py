@@ -79,13 +79,15 @@ def launch(
     fn: Callable[..., Any],
     nprocs: int,
     args: Sequence[Any] = (),
-    backend: str = "gloo",
+    *,
+    backend: str,
     timeout: float = 300.0,
     deadline: float = 900.0,
 ) -> List[Any]:
     """Run ``fn(rank, *args)`` on ``nprocs`` ranks; returns the results in
-    rank order. ``timeout`` (s): each collective's limit inside the ranks;
-    ``deadline`` (s): the wall-clock limit of the whole launch."""
+    rank order. ``backend`` ("gloo" or "nccl") has no default: the caller
+    chooses the transport. ``timeout`` (s): each collective's limit inside
+    the ranks; ``deadline`` (s): the wall-clock limit of the whole launch."""
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
     ctx = mp.get_context("spawn")

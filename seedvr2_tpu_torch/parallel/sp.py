@@ -31,15 +31,15 @@ _STATE = threading.local()
 
 class ShardingHints:
     """The groups one sharded DiT forward uses, and its seq coordinate (the
-    tensor coordinate is in the weights it holds). An axis that is off has
-    no group and size 1."""
+    tensor coordinate is in the weights it holds). An axis of size 1 is a
+    group of one rank: no collective runs over it."""
 
-    def __init__(self, mesh: Mesh, seq: bool = True, tensor: bool = True):
-        self.seq_group = mesh.group(AXIS_SEQ) if seq else None
-        self.tensor_group = mesh.group(AXIS_TENSOR) if tensor else None
+    def __init__(self, mesh: Mesh):
+        self.seq_group = mesh.group(AXIS_SEQ)
+        self.tensor_group = mesh.group(AXIS_TENSOR)
         self.seq_size = group_size(self.seq_group)
         self.tensor_size = group_size(self.tensor_group)
-        self.seq_rank = mesh.coord(AXIS_SEQ) if self.seq_size > 1 else 0
+        self.seq_rank = mesh.coord(AXIS_SEQ)
 
     def token_range(self, n_tokens: int) -> Tuple[int, int, int]:
         """(start, end, chunk) of this rank's tokens: chunk = ceil(L / seq)."""
@@ -53,12 +53,13 @@ def current_hints() -> Optional[ShardingHints]:
 
 
 @contextlib.contextmanager
-def sharded_dit(mesh: Mesh, seq: bool = True, tensor: bool = True):
-    """Shard the DiT forwards inside the block over the mesh's seq and/or
-    tensor axes. The DiT's weights must be split over the same tensor axis
-    (parallel/sharding.py:shard_dit), or held whole when tensor is off."""
+def sharded_dit(mesh: Mesh):
+    """Shard the DiT forwards inside the block over the mesh's seq and
+    tensor axes (a forward on a mesh whose both are 1 runs unsharded). The
+    DiT's weights must be split over the same tensor axis
+    (parallel/sharding.py:shard_dit, or load_runner with the mesh)."""
     prev = current_hints()
-    _STATE.hints = ShardingHints(mesh, seq, tensor)
+    _STATE.hints = ShardingHints(mesh)
     try:
         yield _STATE.hints
     finally:

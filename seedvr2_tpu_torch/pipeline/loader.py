@@ -52,26 +52,20 @@ def load_runner(
     emb_dir: Optional[str] = None,
     attention_mode: str = "fused",
     mesh: Optional[Mesh] = None,
-    shard_dit: Optional[bool] = None,
 ) -> Runner:
     """The DiT config follows the file name (``pick_config``).
     ``attention_mode`` is a name of ops/attention.py's alias table (fused,
     sdpa, flash_attn_2/3, sageattn_2/3, ...).
 
     ``mesh``: this rank's mesh (parallel/mesh.py); the runner then runs on
-    ``mesh.device`` (``device`` is ignored). ``shard_dit`` (default: when
-    the mesh's tensor axis is above 1) loads only this rank's part of the
-    DiT (parallel/sharding.py), sliced in host memory before it moves to the
-    card. A tensor axis needs the split weights, so ``shard_dit=False``
-    there raises."""
+    ``mesh.device`` (``device`` is ignored). On a mesh whose tensor axis is
+    above 1 only this rank's part of the DiT is loaded
+    (parallel/sharding.py), sliced in host memory before it moves to the
+    card."""
     resolve_attention_mode(attention_mode)  # an unknown name raises before any weight is read
     cfg = pick_config(dit_model, cfg)
     check_supported(cfg)
     tensor = mesh.shape[AXIS_TENSOR] if mesh is not None else 1
-    if shard_dit is None:
-        shard_dit = tensor > 1
-    if tensor > 1 and not shard_dit:
-        raise ValueError("a mesh with a tensor axis runs the DiT split over it: shard_dit=False is not supported")
     check_tensor_split(cfg.dit, tensor)
     if quantize is not None:
         raise _not_ported(f"quantize={quantize!r}", "int8 DiT with a W8A16 kernel")
@@ -83,7 +77,7 @@ def load_runner(
             raise FileNotFoundError(p)
     device = mesh.device if mesh is not None else torch.device(device)
     dtype = _DTYPES[cfg.compute_dtype]
-    t_rank = mesh.coord(AXIS_TENSOR) if tensor > 1 else 0
+    t_rank = mesh.coord(AXIS_TENSOR) if mesh is not None else 0
     dit = dit_from_safetensors(paths[0], cfg.dit, device, dtype, t_rank, tensor).set_attention_mode(attention_mode)
     vae = vae_from_safetensors(paths[1], cfg.vae, device, dtype)
     pos, _neg = load_text_embeddings(emb_dir)

@@ -24,6 +24,7 @@ from ..ops.blending import blend_overlapping_frames
 from ..ops.resize import true_target_dims
 from ..parallel.comm import all_gather_cat
 from ..parallel.mesh import AXIS_DATA, Mesh
+from ..parallel.multihost import local_data_coords
 from . import batching, phases
 from .runner import Runner, _not_ported, check_supported
 
@@ -60,7 +61,7 @@ def generate_multichip(
     ranges = batching.split_frame_ranges(total, n, seam_overlap)
     seg_lens = [e - s for s, e in ranges]
     target_len = batching.frames_to_4n1(max(seg_lens))  # one length: every rank runs the same batches
-    s0, e0 = ranges[mesh.coord(AXIS_DATA)]
+    s0, e0 = ranges[local_data_coords(mesh)[0]]  # this rank's own segment
     segment = batching.pad_temporal_reversed(images[s0:e0], target_len - (e0 - s0))
     specs = batching.compute_batches(target_len, cfg.batch_size, 0, uniform_batch_size=True)
     true_h, true_w = true_target_dims(images.shape[1], images.shape[2], cfg.resolution, cfg.max_resolution)

@@ -13,8 +13,8 @@ torch.cuda.OutOfMemoryError propagates). Each stage of ``fused_batch`` is a
 profile_batch.py; without a running profiler a range is one small host call.
 
 With a ``mesh`` (parallel/mesh.py) the runner is one rank of a multi-rank
-job: the DiT step runs under ``sharded_dit`` when the mesh has a seq or
-tensor axis (the DiT must then be split over the same tensor axis:
+job: the DiT step runs under ``sharded_dit`` over the mesh's seq and
+tensor axes (the DiT must be split over the same tensor axis:
 parallel/sharding.py), and a tiled VAE encode or decode of one clip splits
 its tiles over every rank of the mesh (``_tile_parallel``), except inside
 ``fused_segment``, where each data rank holds its own segment.
@@ -35,7 +35,7 @@ from ..models.vae import tiling
 from ..models.vae.model import VAE
 from ..ops import color as color_ops
 from ..ops.resize import pipeline_transform, to_f01
-from ..parallel.mesh import AXIS_SEQ, AXIS_TENSOR, Mesh
+from ..parallel.mesh import Mesh
 from ..parallel.sp import sharded_dit
 from . import diffusion as dm
 
@@ -135,13 +135,9 @@ class Runner:
     # ------------------------------- DiT ----------------------------------- #
 
     def _dit_sharding_ctx(self):
-        """The context of the DiT forward: ``sharded_dit`` over the mesh's
-        seq and tensor axes where either is above 1; nothing on one rank or
-        a pure data mesh."""
-        if self.mesh is None:
-            return contextlib.nullcontext()
-        s, t = self.mesh.shape[AXIS_SEQ] > 1, self.mesh.shape[AXIS_TENSOR] > 1
-        return sharded_dit(self.mesh, seq=s, tensor=t) if (s or t) else contextlib.nullcontext()
+        """The context of the DiT forward: ``sharded_dit`` over the mesh (a
+        pure data mesh leaves the forward unsharded); nothing on one rank."""
+        return contextlib.nullcontext() if self.mesh is None else sharded_dit(self.mesh)
 
     @torch.inference_mode()
     def upscale(self, latent: torch.Tensor, seed: int, noise: Optional[torch.Tensor] = None) -> torch.Tensor:

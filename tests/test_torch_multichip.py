@@ -9,7 +9,8 @@ JAX draw, handed to the port), fp32, dit_tiny + vae_tiny:
   rank: phases.generate on every rank, the tiles of a tiled VAE split over
   the ranks); phases.generate on a tensor=2 mesh (no data axis);
 - the tile-parallel tiled decode against JAX's tile-sharded decode
-  (tests/test_tile_sharding.py), and a mesh Runner's tiled encode and
+  (tests/test_tile_sharding.py), on 3 ranks with 2 tiles against JAX's
+  unsharded tiled decode, and a mesh Runner's tiled encode and
   decode against JAX's mesh Runner.
 
 Bounds: pipeline outputs atol=1e-4 of [0, 1], as tests/test_torch_pipeline.py
@@ -82,6 +83,7 @@ DIT = _perturbed(init_dit(_cfg().dit, jax.random.PRNGKey(0)), 1)
 VAE = _perturbed(init_vae_params(_cfg().vae, jax.random.PRNGKey(1)), 2)
 TEXT = (np.random.RandomState(3).randn(4, _cfg().dit.txt_in_dim) * 0.1).astype(np.float32)
 Z = (np.random.RandomState(4).randn(1, 2, 8, 8, vae_tiny().latent_channels) * 0.5).astype(np.float32)
+Z_IDLE = (np.random.RandomState(10).randn(1, 2, 4, 7, vae_tiny().latent_channels) * 0.5).astype(np.float32)
 VIDEO = (np.random.RandomState(5).randn(1, 5, 64, 48, 3) * 0.4).astype(np.float32)
 
 # name -> (pipeline settings, frames, seam overlap)
@@ -115,13 +117,22 @@ def port(tmp_path_factory):
                       pipeline=dict(resolution=32, compute_dtype="float32", **TILED)))
     np.savez(d / "inputs.npz", **inputs)
     (d / "cases.json").write_text(json.dumps(cases))
-    proc = ranks.start("multichip", d, 2)
+    # 3 ranks, 2 tiles: rank 2 holds none
+    d3 = tmp_path_factory.mktemp("multichip3")
+    np.savez(d3 / "inputs.npz", z_idle=Z_IDLE, **{k: v for k, v in inputs.items() if k.split("/")[0] in
+                                                  ("text", "dit", "vae")})
+    (d3 / "cases.json").write_text(json.dumps([dict(name="tiled_decode_idle", kind="tiled_decode", z="z_idle",
+                                                    tile_size=[32, 32], tile_overlap=[8, 8], tile_batch=1)]))
+    procs = [(ranks.start("multichip", d, 2), d, 2), (ranks.start("multichip", d3, 3), d3, 3)]
     try:
-        yield ranks.finish(proc, d, 2)
+        out = ranks.finish(*procs[0])
+        out["tiled_decode_idle"] = ranks.finish(*procs[1])["tiled_decode_idle"]
+        yield out
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
 def _jax_runner(cfg, mesh=None):
@@ -156,6 +167,15 @@ def test_tile_parallel_decode_matches_jax_tile_sharded(port):
     ref = jtiling.tiled_decode(jax.tree.map(jnp.asarray, VAE), cfg, jnp.asarray(Z), tile_size=(32, 32),
                                tile_overlap=(8, 8), tile_batch=2, tile_sharding=shard)
     np.testing.assert_allclose(port["tiled_decode"], np.asarray(ref), **VAE_TOL)
+
+
+def test_tile_parallel_decode_with_an_idle_rank_matches_jax(port):
+    """2 tiles on 3 ranks: the rank without a tile adds a zero accumulator
+    (no VAE pass), the sum equals JAX's unsharded tiled decode."""
+    ref = jtiling.tiled_decode(jax.tree.map(jnp.asarray, VAE), vae_tiny(), jnp.asarray(Z_IDLE), tile_size=(32, 32),
+                               tile_overlap=(8, 8), tile_batch=1)
+    assert port["tiled_decode_idle"].shape == ref.shape
+    np.testing.assert_allclose(port["tiled_decode_idle"], np.asarray(ref), **VAE_TOL)
 
 
 def test_mesh_runner_tiled_vae_matches_jax(port):

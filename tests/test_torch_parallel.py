@@ -366,15 +366,24 @@ def test_heads_that_do_not_split_raise(factory, tensor, ok):
 
 
 def test_load_runner_needs_split_weights_on_a_tensor_mesh(tmp_path):
-    """A tensor axis runs the DiT split over it (raised before any file is
-    read); an unsplittable one raises like NaDiT."""
+    """The split follows the mesh: on a tensor axis of 2, rank 1 loads the
+    second half of every column-parallel weight (sliced on the host); an
+    unsplittable axis raises like NaDiT, before any file is read."""
     from seedvr2_tpu_torch.pipeline.loader import load_runner
 
+    _save_checkpoints(tmp_path)
     cfg = config.PipelineConfig(dit=config.dit_tiny(), vae=config.vae_tiny(), compute_dtype="float32")
-    for t, kw, match in ((2, dict(shard_dit=False), "shard_dit"), (3, {}, "heads")):
-        m = mesh.Mesh({"data": 1, "seq": 1, "tensor": t}, 0, {}, None, torch.device("cpu"))
-        with pytest.raises(ValueError, match=match):
-            load_runner("tiny_dit.safetensors", "tiny_vae.safetensors", str(tmp_path), cfg, mesh=m, **kw)
+    whole = dit_from_jax(PARAMS["mmrope3d"], cfg.dit, "cpu", torch.float32)
+    for t, r in ((1, 0), (2, 1)):
+        m = mesh.Mesh({"data": 1, "seq": 1, "tensor": t}, r, {}, None, torch.device("cpu"))
+        dit = load_runner("tiny_dit.safetensors", "tiny_vae.safetensors", str(tmp_path), cfg, mesh=m).dit
+        assert dit.tensor == t and dit.heads_local == cfg.dit.heads // t
+        w, part = whole.blocks[0].attn.qkv["vid"].w, dit.blocks[0].attn.qkv["vid"].w
+        n = w.shape[2] // t
+        torch.testing.assert_close(part, w[:, :, r * n : (r + 1) * n], rtol=0, atol=0)
+    m = mesh.Mesh({"data": 1, "seq": 1, "tensor": 3}, 0, {}, None, torch.device("cpu"))
+    with pytest.raises(ValueError, match="heads"):
+        load_runner("tiny_dit.safetensors", "tiny_vae.safetensors", str(tmp_path), cfg, mesh=m)
 
 
 def test_split_weights_need_the_matching_tensor_axis():

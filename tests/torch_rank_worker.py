@@ -72,7 +72,7 @@ def task_dit(rank, inputs, cases, directory):
         vid, txt, ts = (torch.from_numpy(inputs[f"{case['inputs']}/{k}"]) for k in ("vid", "txt", "t"))
         thw = (vid.shape[1], vid.shape[2] // 2, vid.shape[3] // 2)
         dplans = device_plans(build_attn_plans(cfg, thw, txt.shape[1]), cfg.head_dim, "cpu")
-        with torch.inference_mode(), sharded_dit(mesh, seq=s > 1, tensor=t > 1):
+        with torch.inference_mode(), sharded_dit(mesh):
             out[case["name"]] = model(vid, txt, ts, dplans).numpy()
     return out
 
