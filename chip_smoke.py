@@ -70,6 +70,17 @@ Phases (any failure raises and the script exits non-zero without a result):
      fp32 accumulators summed through host memory), against rank 0's
      single-rank tiled run (same bounds; the ranks' K1 and K2 launches
      must add up to the single run's: every tile ran once).
+  9. the CLI: seedvr2_tpu_torch/cli.py's argv in this process at full
+     width (3B + VAE, bf16) through safetensors that the port wrote,
+     640x360 -> 1280x720: an image, an RGBA image, 12 frames in chunks of
+     5 overlapping by 3, --resume, the noise flags, yuv420 planes and
+     planar input, cfg_scale 2. Each output against phases.generate on the
+     same decoded frames (with the same host seam blend), max |diff| 0
+     codes; K1, K2 and K3 against phase 5's counts a batch times the
+     batches (an image's against phases.generate's on it); planar input
+     against the planes converted on the card first (0 codes); the
+     cfg_scale 2 step against neg + 2 (pos - neg) of two unguided steps
+     (rel L2 <= 1e-2).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
 of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4:
@@ -82,6 +93,7 @@ driven run, which must be 0.
 Then: the kernels JSON line, the card line, and the final JSON line.
 """
 
+import dataclasses
 import gc
 import json
 import shutil
@@ -947,6 +959,422 @@ def multi_rank_phase(dev, text):
     return rows, {"wall_s": wall, "ranks": reports}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 9: the CLI
+
+# phase 9's inputs (height, width) and --resolution
+PHASE9_HW = (360, 640)
+PHASE9_RESOLUTION = 720
+
+
+class _Interrupted(Exception):
+    """Phase 9's stand-in for a run cut off after two chunks (the resume case)."""
+
+
+def _mem_available_gib() -> float:
+    with open("/proc/meminfo") as fh:
+        return next(int(line.split()[1]) for line in fh if line.startswith("MemAvailable:")) / 2**20
+
+
+class _Recording:
+    """Wraps the CLI's video writer factory: every writer still writes its
+    file, and the frames it was handed are kept for the comparison."""
+
+    def __init__(self, make):
+        self.make, self.frames = make, {}
+
+    def __call__(self, path, *a, **kw):
+        inner = self.make(path, *a, **kw)
+        kept = self.frames.setdefault(path, [])
+        write = inner.write
+
+        def recorded(frames):
+            kept.append(frames)
+            write(frames)
+
+        inner.write = recorded
+        return inner
+
+
+class _MemoryVideos:
+    """Phase 9's video files on a machine with neither cv2 nor ffmpeg: the
+    clips kept in memory by path behind make_video_reader's and
+    make_video_writer's interface (each path also left as an empty file, for
+    the resume manifest's checks). A written clip reads back as its 8-bit
+    codes, as the cv2 mp4 sink keeps them."""
+
+    def __init__(self):
+        self.clips = {}
+
+    def reader(self, path, dtype=np.float32, backend="auto", planar=False):
+        from seedvr2_tpu_torch.io import video
+
+        clip = self.clips[path] if dtype == np.uint8 else self.clips[path].astype(np.float32) / 255.0
+
+        class Reader:
+            fps, total_frames, dtype, planar, pos = 24.0, len(clip), clip.dtype, False, 0
+
+            def seek(self, frame):
+                self.pos = frame
+
+            def read(self, n=None):
+                out = clip[self.pos : len(clip) if n is None else self.pos + n]
+                self.pos += len(out)
+                return out
+
+            def chunks(self, chunk_size, overlap=0):
+                return video._chunks(self, chunk_size, overlap)
+
+            def close(self):
+                pass
+
+        return Reader()
+
+    def writer(self, path, width, height, fps, backend="auto", **kw):
+        from seedvr2_tpu_torch.io.frameops import to_u8
+
+        clips, parts = self.clips, []
+
+        class Writer:
+            def write(self, frames):
+                parts.append(to_u8(np.asarray(frames)))
+
+            def close(self):
+                clips[path] = np.concatenate(parts)
+                open(path, "wb").close()
+
+        return Writer()
+
+
+def _chunk_reference(runner, frames, chunk, ov):
+    """The CLI's chunk loop by hand (the reference CLI's semantics): each
+    chunk through phases.generate on the card, the first ``ov`` outputs of
+    a chunk Hann-blended on the host with the tail held back before it."""
+    from seedvr2_tpu_torch.ops.blending import overlap_weights
+    from seedvr2_tpu_torch.pipeline import phases
+
+    out, tail, start = [], None, 0
+    while True:
+        part_in = frames[start : start + chunk]
+        if len(part_in) == 0 or (tail is not None and len(part_in) <= ov):
+            break
+        part = phases.generate(runner, part_in, packed=True)
+        if tail is not None:
+            k = min(ov, len(part), len(tail))
+            w = overlap_weights(k).reshape(k, 1, 1, 1).astype(np.float32)
+            blend = tail[-k:].astype(np.float32) * w + part[:k].astype(np.float32) * (1.0 - w)
+            if part.dtype != np.float32:
+                blend = blend + 0.5
+            part = np.concatenate([blend.astype(part.dtype), part[k:]])
+        if ov > 0 and len(part_in) == chunk:
+            tail, part = part[-ov:], part[:-ov]
+        else:
+            tail = None
+        out.append(part)
+        if len(part_in) < chunk:
+            break
+        start += chunk - ov
+    if tail is not None:
+        out.append(tail)
+    return np.concatenate(out)
+
+
+def _fused_on_converted(runner, planes, out_h, out_w):
+    """phases.generate's fused loop over planar frames with each batch's
+    planes converted to RGB by ops/yuv.py on the card before
+    Runner.fused_batch (which the planar route converts inside): packed
+    codes."""
+    from seedvr2_tpu_torch.ops.yuv import yuv420_to_rgb01
+    from seedvr2_tpu_torch.pipeline import batching
+
+    outs = []
+    for spec in batching.compute_batches(len(planes), runner.cfg.batch_size):
+        rgb = yuv420_to_rgb01(batching.prepare_batch(planes, spec).to_device(runner.device))
+        outs.append(runner.fused_batch(rgb, out_h, out_w, runner.cfg.seed, ori=spec.ori_length).cpu().numpy())
+    return np.concatenate(outs).astype(np.uint16)
+
+
+def _same_codes(label, got, ref):
+    """Output codes of a CLI run against phases.generate's: max |diff| 0."""
+    from seedvr2_tpu_torch.io.frameops import to_u8
+
+    a, b = to_u8(np.asarray(got)).astype(np.int64), to_u8(np.asarray(ref)).astype(np.int64)
+    if a.shape != b.shape:
+        raise RuntimeError(f"CLI {label}: output {a.shape}, phases.generate {b.shape}")
+    diff = int(np.abs(a - b).max())
+    if diff != 0:
+        raise RuntimeError(f"CLI {label}: max |diff| {diff} codes from phases.generate on the same frames")
+    return diff
+
+
+def cli_phase(dev, per_batch):
+    """Phase 9: seedvr2_tpu_torch/cli.py at full width (3B + VAE, bf16) on
+    640x360 inputs to 720p, through safetensors that the port wrote, in
+    this process so that the launch counters can be read. The first run
+    reads the weights (cli.run); the later flag sets pass its runner back
+    to cli.run, so the 6.6 GB are read once. Each run's output codes are
+    held against phases.generate on the same decoded frames on the card
+    (with the same host seam blend), max |diff| 0; K1, K2 and K3 against
+    phase 5's per-batch counts (``per_batch``) times the batches."""
+    import tempfile
+    from pathlib import Path
+
+    from seedvr2_tpu_torch import cli
+    from seedvr2_tpu_torch.config import dit_3b, vae_config
+    from seedvr2_tpu_torch.io import video
+    from seedvr2_tpu_torch.io.weights import save_random_checkpoint
+    from seedvr2_tpu_torch.ops.resize import true_target_dims
+    from seedvr2_tpu_torch.ops.yuv import (PlanarYUV420, is_planar, rgb01_to_yuv420_np, yuv420_to_rgb01,
+                                           yuv420_to_rgb01_np)
+    from seedvr2_tpu_torch.pipeline import phases
+
+    h, w = PHASE9_HW
+    out_h, out_w = true_target_dims(h, w, PHASE9_RESOLUTION)
+    try:
+        import cv2  # noqa: F401  (the PNG and mp4 I/O without ffmpeg)
+        have_cv2 = True
+    except ImportError:
+        have_cv2 = False
+    have_ffmpeg = video.have_ffmpeg() and video.have_ffprobe()
+    roots = [tempfile.gettempdir(), str(Path(__file__).resolve().parent / "build")]
+    Path(roots[1]).mkdir(exist_ok=True)
+    root = max(roots, key=lambda r: shutil.disk_usage(r).free)
+    free = shutil.disk_usage(root).free / 2**30
+    print(f"  video backends: cv2 {'yes' if have_cv2 else 'no'}, ffmpeg+ffprobe {'yes' if have_ffmpeg else 'no'}; "
+          f"scratch {root}: {free:.1f} GiB free, host memory {_mem_available_gib():.1f} GiB available", flush=True)
+    if not have_cv2:
+        print("  no cv2: no PNG can be read or written here, so the image runs are left out", flush=True)
+    memory = None if have_cv2 or have_ffmpeg else _MemoryVideos()
+    if memory is not None:
+        print("  neither cv2 nor ffmpeg: no video file can be read or written here, so the CLI's video runs read "
+              "and write clips held in memory, behind the video module's reader and writer interface", flush=True)
+    if free < 16:
+        raise RuntimeError(f"phase 9 writes 6.6 GB of weights; {free:.1f} GiB free under {root}")
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(91)
+        save_random_checkpoint(f"{d}/seedvr2_ema_3b_fp16.safetensors", "dit", dit_3b(), g)
+        save_random_checkpoint(f"{d}/ema_vae_fp16.safetensors", "vae", vae_config(), g)
+        torch.cuda.empty_cache()
+        size = sum(p.stat().st_size for p in Path(d).glob("*.safetensors")) / 2**30
+        write_s = time.perf_counter() - t0
+        print(f"  checkpoints written: {size:.2f} GiB in {write_s:.1f} s", flush=True)
+        rs = np.random.RandomState(23)
+        img = rs.randint(0, 256, (h, w, 3)).astype(np.float32) / 255.0
+        if have_cv2:
+            video.write_image(f"{d}/still.png", img)
+            yy, xx = np.mgrid[0:h, 0:w]
+            disc = ((yy - h // 2) ** 2 + (xx - w // 2) ** 2 < (h * 5 // 12) ** 2).astype(np.float32)[..., None]
+            video.write_image(f"{d}/rgba.png", np.concatenate([img, disc], -1))
+        files = (video.make_video_reader, video.make_video_writer)
+        if memory is not None:
+            video.make_video_reader, video.make_video_writer = memory.reader, memory.writer
+        writer = video.make_video_writer(f"{d}/clip.mp4", w, h, 24.0)
+        writer.write(rs.randint(0, 256, (12, h, w, 3)).astype(np.float32) / 255.0)
+        writer.close()
+        reader = video.make_video_reader(f"{d}/clip.mp4", np.uint8)
+        decoded = reader.read()  # the frames the CLI will see
+        reader.close()
+        base = ["--model_dir", d, "--resolution", str(PHASE9_RESOLUTION), "--cuda_device", str(dev.index or 0)]
+        recording = _Recording(video.make_video_writer)
+        video.make_video_writer = recording
+        runner = None
+
+        def drive(label, argv, batches=None, processed=None):
+            """One CLI run; ``batches``: its 5-frame batches, whose K1, K2
+            and K3 counts it must launch (else the caller holds the counts
+            against its reference run's); ``processed``: the frames it
+            upscales, where it writes more (a resumed run counts the chunks
+            done before)."""
+            nonlocal runner
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t = time.perf_counter()
+            n, runner = cli.run(argv + base, runner)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if batches is not None:
+                expect(f"CLI {label}", counts, {k: per_batch[k] * batches for k in ("K1", "K2", "K3")})
+            n = n if processed is None else processed
+            runs[label] = {"frames": n, "wall_s": wall, "fps": n / wall, "peak_gib": peak,
+                           "launches": {k: counts[k] for k in ("K1", "K2", "K3", "K3q", "K4", "K5")}}
+            print(f"  CLI {label}: {n} frames upscaled in {wall:.2f} s ({n / wall:.2f} fps), peak {peak:.2f} GiB, "
+                  f"launches {runs[label]['launches']}", flush=True)
+            return cli.build_config(cli.parse_arguments(argv + base))
+
+        def image_reference(label, cfg, path):
+            """phases.generate on the image at ``path`` (its launches counted
+            alone): the CLI run ``label`` must have launched as many K1, K2
+            and K3 (an image is one batch: phase 5's K1 and K3 a batch; K2
+            3, one latent frame)."""
+            reset_counts()
+            ref = phases.generate(runner.with_config(cfg), video.read_image(path)[None], packed=True)
+            counts = read_counts()
+            want = {k: counts[k] for k in ("K1", "K2", "K3")}
+            if want["K1"] != per_batch["K1"] or want["K3"] != per_batch["K3"] or want["K2"] == 0:
+                raise RuntimeError(f"{label}: phases.generate on the image launched {want}")
+            expect(f"CLI {label}", runs[label]["launches"], want)
+            return ref
+
+        if have_cv2:
+            # an image: the run that reads the weights (its wall includes the load)
+            cfg = drive("image (weights read)", [f"{d}/still.png", "--output", f"{d}/still_up.png", "--debug"])
+            ref = image_reference("image (weights read)", cfg, f"{d}/still.png")
+            runs["image (weights read)"]["max_abs_diff_codes"] = _same_codes(
+                "image", video.read_image(f"{d}/still_up.png"), ref[0])
+            # an RGBA image: the alpha route (4 phases, alpha upscaled against the RGB)
+            cfg = drive("rgba image", [f"{d}/rgba.png", "--output", f"{d}/rgba_up.png"])
+            out = video.read_image(f"{d}/rgba_up.png")
+            ref = image_reference("rgba image", cfg, f"{d}/rgba.png")
+            if out.shape != (out_h, out_w, 4):
+                raise RuntimeError(f"CLI rgba: output {out.shape}")
+            runs["rgba image"]["max_abs_diff_codes"] = _same_codes("rgba", out, ref[0])
+        # 12 frames in chunks of 5 overlapping by 3: frames 0-4, 2-6, 4-8, 6-10 and 8-11, one batch each (the
+        # 4-phase path: the overlap applies inside a chunk too), 4 seams of 3 frames weighed 1, 0.5 and 0
+        argv = [f"{d}/clip.mp4", "--output", f"{d}/chunks.mp4", "--chunk_size", "5", "--temporal_overlap", "3"]
+        cfg = drive("video chunks 5 overlap 3", argv, batches=5)
+        got = np.concatenate(recording.frames[f"{d}/chunks.mp4"])
+        ref = _chunk_reference(runner.with_config(cfg), decoded, 5, 3)
+        runs["video chunks 5 overlap 3"]["max_abs_diff_codes"] = _same_codes("chunks", got, ref)
+        # --resume: a chunked run cut off in its third chunk, then resumed: only the third chunk runs
+        argv = [f"{d}/clip.mp4", "--output", f"{d}/resume.mp4", "--chunk_size", "5"]
+        real, calls = cli.process_frames, []
+
+        def cut_at_third(*a, **kw):
+            calls.append(len(a[2]))
+            if len(calls) == 3:
+                raise _Interrupted
+            return real(*a, **kw)
+
+        cli.process_frames = cut_at_third
+        try:
+            cli.run(argv + base, runner)
+        except _Interrupted:
+            pass
+        finally:
+            cli.process_frames = real
+        manifest = json.load(open(f"{d}/resume.mp4.resume.json"))
+        if manifest["chunks_done"] != 2:
+            raise RuntimeError(f"CLI resume: the manifest of the cut run says {manifest['chunks_done']} chunks done")
+        cfg = drive("video resume (third chunk)", argv + ["--resume"], batches=1, processed=2)
+        got = np.concatenate(recording.frames[f"{d}/resume.part0002.mp4"][-1:])
+        ref = phases.generate(runner.with_config(cfg), decoded[10:], packed=True)
+        runs["video resume (third chunk)"]["max_abs_diff_codes"] = _same_codes("resume", got, ref)
+        parts = sorted(Path(d).glob("resume.part*.mp4"))
+        finals = parts if parts else [Path(f"{d}/resume.mp4")]
+        total = sum(video.make_video_reader(str(p)).total_frames for p in finals)
+        if total != 12:
+            raise RuntimeError(f"CLI resume: {total} frames written in {[p.name for p in finals]}")
+        # the noise flags: the 12 frames in 5-frame batches (5, 5, 2 + 3 padding)
+        argv = [f"{d}/clip.mp4", "--output", f"{d}/noise.mp4", "--input_noise_scale", "0.1",
+                "--latent_noise_scale", "0.1"]
+        cfg = drive("video noise 0.1 / 0.1", argv, batches=3)
+        got = np.concatenate(recording.frames[f"{d}/noise.mp4"])
+        ref = phases.generate(runner.with_config(cfg), decoded, packed=True)
+        runs["video noise 0.1 / 0.1"]["max_abs_diff_codes"] = _same_codes("noise", got, ref)
+        plain = phases.generate(runner.with_config(cfg.replace(input_noise_scale=0.0, latent_noise_scale=0.0)),
+                                decoded, packed=True)
+        if np.array_equal(plain, ref):
+            raise RuntimeError("CLI noise: the noise flags left the output unchanged")
+        # yuv420: the CLI's --pixfmt yuv420 where ffmpeg can sink planes, else the pipeline API on the card
+        rgb_cfg = cfg.replace(input_noise_scale=0.0, latent_noise_scale=0.0, output_pixfmt="rgb", output_bits=16)
+        rgb = phases.generate(runner.with_config(rgb_cfg), decoded)
+        if have_ffmpeg:
+            drive("video --pixfmt yuv420", [f"{d}/clip.mp4", "--output", f"{d}/yuv.mp4", "--pixfmt", "yuv420"],
+                  batches=3)
+            parts = recording.frames[f"{d}/yuv.mp4"]
+            planes = PlanarYUV420(*(np.concatenate([getattr(p, a) for p in parts]) for a in "yuv"), depth=parts[0].depth)
+        else:
+            print("  yuv420: no ffmpeg on this machine, so no planar mp4 sink: the fused path's planes are "
+                  "packed on the card through phases.generate (output_pixfmt yuv420), and planar input "
+                  "(the decoded frames' BT.601 planes) is converted there", flush=True)
+            reset_counts()
+            planes = phases.generate(runner.with_config(rgb_cfg.replace(output_pixfmt="yuv420")), decoded,
+                                     packed=True)
+            expect("yuv420 planes", read_counts(), {k: per_batch[k] * 3 for k in ("K1", "K2", "K3")})
+        if not (is_planar(planes) and planes.depth == 10 and planes.shape == (12, out_h, out_w, 3)):
+            raise RuntimeError(f"yuv420: got {type(planes).__name__} {getattr(planes, 'shape', None)}")
+        want = rgb01_to_yuv420_np(rgb, 10)
+        plane_diff = max(int(np.abs(getattr(planes, a).astype(np.int64) - getattr(want, a).astype(np.int64)).max())
+                         for a in "yuv")
+        if plane_diff > 1:
+            raise RuntimeError(f"yuv420: planes {plane_diff} codes from rgb01_to_yuv420_np of the RGB result")
+        # planar input: the decoded frames' 4:2:0 planes, uploaded as planes and converted inside
+        # Runner.fused_batch; held against the same loop with each batch's planes converted by ops/yuv.py
+        # before fused_batch (max |diff| 0 codes), and that conversion on the card against the host's
+        # yuv420_to_rgb01_np (fp32: max |diff| <= 1e-6). phases.generate on host-converted frames is no exact
+        # reference: float frames go to the card as float16.
+        planar_in = rgb01_to_yuv420_np(decoded.astype(np.float32) / 255.0, 8)
+        rgb_runner = runner.with_config(rgb_cfg)
+        from_planes = phases.generate(rgb_runner, planar_in, packed=True)
+        converted = _fused_on_converted(rgb_runner, planar_in, out_h, out_w)
+        if not (from_planes.shape == converted.shape == rgb.shape and from_planes.dtype == np.uint16):
+            raise RuntimeError(f"planar input: shapes {from_planes.shape} {converted.shape}")
+        exact = int(np.abs(from_planes.astype(np.int64) - converted.astype(np.int64)).max())
+        on_card = yuv420_to_rgb01(planar_in.to_device(dev)).cpu().numpy().astype(np.float64)
+        conversion = float(np.abs(on_card - yuv420_to_rgb01_np(planar_in)).max())
+        if exact != 0 or conversion > 1e-6:
+            raise RuntimeError(f"planar input: max |diff| {exact} codes from the planes converted on the card; "
+                               f"the card's conversion {conversion:.3e} from the host's")
+        runs["yuv420"] = {"max_plane_diff_codes": plane_diff, "ffmpeg_sink": have_ffmpeg,
+                          "planar_input_max_abs_diff_vs_card_converted_codes": exact,
+                          "card_vs_host_conversion_max_abs_diff": conversion,
+                          "planar_input_mean_abs_diff_vs_rgb_input": float(
+                              np.abs(from_planes.astype(np.float64) / 65535.0 - rgb).mean())}
+        print(f"  yuv420 planes vs rgb01_to_yuv420_np of the RGB result: max |diff| {plane_diff} code; planar "
+              f"input vs the planes converted on the card: max |diff| {exact} codes, the card's conversion vs "
+              f"the host's {conversion:.3e}; vs the RGB input: mean "
+              f"{runs['yuv420']['planar_input_mean_abs_diff_vs_rgb_input']:.3e} (chroma subsampling)", flush=True)
+        # cfg_scale 2 through the same runner (a Python API setting): the DiT runs on both prompts
+        cfg2 = rgb_cfg.replace(diffusion=dataclasses.replace(rgb_cfg.diffusion, cfg_scale=2.0))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        out2 = phases.generate(runner.with_config(cfg2), decoded[:5])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        expect("cfg_scale 2", counts, {"K1": per_batch["K1"], "K2": per_batch["K2"], "K3": 2 * per_batch["K3"]})
+        if not (out2.shape == (5, out_h, out_w, 3) and np.isfinite(out2).all()
+                and np.abs(out2 - rgb[:5]).max() > 1e-3):
+            raise RuntimeError("cfg_scale 2: bad output, or the same as cfg_scale 1")
+        runs["cfg_scale 2 (5 frames, phases.generate)"] = {
+            "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {k: counts[k] for k in ("K1", "K2", "K3")}}
+        print(f"  cfg_scale 2: 5 frames in {wall:.2f} s, K3 {counts['K3']} (two DiT passes)", flush=True)
+        # the guided step against two unguided ones: one Euler step is affine in the DiT's prediction, so with
+        # cfg_rescale 0 it is neg + 2 (pos - neg) of two cfg_scale 1 steps, the second with the negative prompt
+        # as its positive (bf16 steps: rel L2 <= 1e-2, as phase 8's steps)
+        vc = rgb_cfg.vae
+        g2 = torch.Generator(device=dev).manual_seed(92)
+        lat = torch.randn((1, 2, out_h // vc.spatial_downsample_factor, out_w // vc.spatial_downsample_factor,
+                           vc.latent_channels), generator=g2, device=dev)
+        negative = runner.with_config(rgb_cfg)
+        negative.text_pos = runner.text_neg
+        steps = {key: r.upscale(lat, rgb_cfg.seed).float() for key, r in (
+            ("guided", runner.with_config(cfg2)), ("pos", runner.with_config(rgb_cfg)), ("neg", negative))}
+        combined = steps["neg"] + 2.0 * (steps["pos"] - steps["neg"])
+        step_rel = _rel((steps["guided"],), (combined,))
+        apart = _rel((steps["pos"],), (combined,))
+        if not step_rel <= 1e-2:
+            raise RuntimeError(f"cfg_scale 2: the guided step is {step_rel:.3e} rel L2 from neg + 2 (pos - neg)")
+        runs["cfg_scale 2 (5 frames, phases.generate)"].update(step_rel_l2_vs_combined=step_rel,
+                                                              unguided_rel_l2_vs_combined=apart)
+        print(f"  cfg_scale 2 step vs neg + 2 (pos - neg) of two unguided steps: rel L2 {step_rel:.3e} (the "
+              f"positive step alone: {apart:.3e})", flush=True)
+        video.make_video_reader, video.make_video_writer = files
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"checkpoint_gib": size, "checkpoint_write_s": write_s, "video_backends": {
+        "cv2": have_cv2, "ffmpeg": have_ffmpeg, "in_memory": memory is not None}, "runs": runs}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -999,12 +1427,20 @@ def main():
           "generate_multichip data=2, the tile-parallel VAE",
           flush=True)
     rank_rows, e2e_multi = multi_rank_phase(dev, text)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[9] the CLI: python -m seedvr2_tpu_torch.cli's argv in this process, 3B + VAE through safetensors, "
+          "640x360 -> 1280x720", flush=True)
+    t0 = time.perf_counter()
+    e2e_cli = cli_phase(dev, launches)
+    e2e_cli["wall_s"] = time.perf_counter() - t0
     launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
     for row in rows:
         row["launches"] = (launches_long if row.get("path") == "long_clip" else launches)[row["kernel"]]
     rows += rank_rows
     e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long),
-               multi_rank=e2e_multi)
+               multi_rank=e2e_multi, cli=e2e_cli)
     print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,
                       "build_nvcc_s": b.compile_seconds}))
     print(card)

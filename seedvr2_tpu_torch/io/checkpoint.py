@@ -1,7 +1,7 @@
-"""Reference checkpoints -> flat parameter dicts in the JAX package's layout
+"""Reference checkpoints <-> flat parameter dicts in the JAX package's layout
 (the port's copy of seedvr2_tpu/io/weights.py: the safetensors read, the
-DiT and VAE key maps, convert_state_dict, flatten_tree and
-load_text_embeddings; same keys, same transforms).
+DiT and VAE key maps, convert_state_dict and its inverse export_state_dict,
+flatten_tree and load_text_embeddings; same keys, same transforms).
 
 A flat dict maps a '/'-joined path of the JAX parameter tree
 (``blocks/3/attn/qkv/vid/w``) to an array; io/weights.py fills the port's
@@ -221,6 +221,31 @@ def convert_state_dict(
     if missing:
         raise KeyError(f"Checkpoint missing {len(missing)} keys, e.g. {missing[:5]}")
     return out
+
+
+def _permuted(x, axes):
+    """numpy arrays and torch tensors alike (the export of weights drawn
+    on the card stays in torch)."""
+    if hasattr(x, "permute"):
+        return x.permute(*axes).contiguous()
+    return np.ascontiguousarray(np.transpose(np.asarray(x), axes))
+
+
+_INVERSE = {
+    "none": lambda x: x,
+    "linear": lambda x: _permuted(x, (1, 0)),
+    "conv3d": lambda x: _permuted(x, (4, 3, 0, 1, 2)),
+    "qkv_w": lambda x: _permuted(x.reshape(x.shape[0], -1), (1, 0)),
+    "qkv_b": lambda x: x.reshape(-1),
+}
+
+
+def export_state_dict(params, key_map: Dict[str, Tuple[str, str]]) -> Dict[str, object]:
+    """A parameter tree or flat dict in the JAX layout -> a state dict in the
+    reference's torch layout (the inverse of convert_state_dict), numpy or
+    torch leaves as given."""
+    flat = flatten_tree(params)
+    return {theirs: _INVERSE[kind](flat[ours]) for ours, (theirs, kind) in key_map.items()}
 
 
 def load_text_embeddings(directory: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray]:

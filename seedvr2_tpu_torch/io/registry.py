@@ -11,3 +11,6 @@ def model_variant(model_name: str) -> str:
     if "tiny" in low:
         return "tiny"
     return "7b" if "7b" in low else "3b"
+
+
+DEFAULT_DIT = "seedvr2_ema_3b_fp16.safetensors"  # the CLI's DiT without --dit_model

@@ -64,3 +64,21 @@ def random_dit(cfg: DiTConfig, generator: torch.Generator, dtype=torch.bfloat16)
 
 def random_vae(cfg: VAEConfig, generator: torch.Generator, dtype=torch.bfloat16) -> VAE:
     return init_random(VAE(cfg, generator.device, dtype), generator).eval()
+
+
+def save_random_checkpoint(path: str, kind: str, cfg, generator: torch.Generator, dtype=torch.bfloat16) -> None:
+    """Write seeded random weights (``kind`` "dit" or "vae"; the draws of
+    random_dit / random_vae, on the generator's device) to ``path`` as a
+    safetensors file in the reference's layout, each tensor in ``dtype``:
+    a checkpoint that load_runner reads like a released one."""
+    from safetensors.torch import save_file
+
+    from ..models.params import random_leaves
+    from .checkpoint import export_state_dict
+
+    module, key_map = (NaDiT(cfg, "meta", dtype), dit_key_map(cfg)) if kind == "dit" else (VAE(cfg, "meta", dtype),
+                                                                                           vae_key_map(cfg))
+    flat = {path_: t.to(dtype) for path_, _, _, t in random_leaves(module, generator)}
+    state = {k: v.to("cpu", copy=True).contiguous() for k, v in export_state_dict(flat, key_map).items()}
+    del flat
+    save_file(state, path)

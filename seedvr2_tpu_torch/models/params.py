@@ -116,11 +116,12 @@ def load_flat(root: nn.Module, flat: Mapping[str, object]) -> nn.Module:
     return root
 
 
-def init_random(root: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights drawn on the generator's device, with the JAX package's
-    init distributions (normal * scale, zero biases, unit norms, ...)."""
+def random_leaves(root: nn.Module, generator: torch.Generator):
+    """(path, module, leaf, fp32 tensor in the JAX layout) for every leaf of
+    ``root``, drawn on the generator's device with the JAX package's init
+    distributions (normal * scale, zero biases, unit norms, ...)."""
     dev = generator.device
-    for _, m, leaf in leaf_paths(root):
+    for path, m, leaf in leaf_paths(root):
         shape, (kind, scale) = m.spec[leaf]
         if kind in (NORMAL, ONES_PLUS_NORMAL):
             t = torch.randn(shape, generator=generator, device=dev) * scale
@@ -134,6 +135,12 @@ def init_random(root: nn.Module, generator: torch.Generator) -> nn.Module:
             t = torch.eye(c, device=dev).repeat(1, shape[4] // c).reshape(shape)
         else:
             raise ValueError(kind)
+        yield path, m, leaf, t
+
+
+def init_random(root: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights drawn on the generator's device (random_leaves)."""
+    for _, m, leaf, t in random_leaves(root, generator):
         m.set_jax(leaf, t)
     prepare(root)
     return root

@@ -73,9 +73,14 @@ def resize_video(video: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return torch.einsum("wW,thWc->thwc", mw, y).to(video.dtype)
 
 
-def to_f01(v: torch.Tensor) -> torch.Tensor:
+def to_f01(v) -> torch.Tensor:
     """Device frames -> fp32 [0, 1]: uint8 / 255, 16-bit codes / 65535
-    (uint16 frames travel as int32), floats as they are."""
+    (uint16 frames travel as int32), floats as they are; planar yuv420
+    codes (ops/yuv.py) are converted to RGB."""
+    from .yuv import is_planar, yuv420_to_rgb01
+
+    if is_planar(v):
+        return yuv420_to_rgb01(v)
     f = v.float()
     if v.dtype == torch.uint8:
         return f / 255.0

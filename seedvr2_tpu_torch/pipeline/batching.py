@@ -1,6 +1,6 @@
 """Host-side batch index math: temporal overlap, 4n+1 padding, uniform
-batches (the port's copy of seedvr2_tpu/pipeline/batching.py, RGB frames
-only). Pure numpy: this shapes the frames before they reach the card.
+batches (the port's copy of seedvr2_tpu/pipeline/batching.py). Pure numpy:
+this shapes the frames before they reach the card.
 """
 
 from __future__ import annotations
@@ -81,7 +81,13 @@ def frames_to_4n1(t: int) -> int:
 
 
 def prepare_batch(images: np.ndarray, spec: BatchSpec) -> np.ndarray:
-    """Slice one batch, add uniform padding, pad to 4n+1 frames."""
+    """Slice one batch, add uniform padding, pad to 4n+1 frames. Planar
+    yuv420 frames (ops/yuv.py) get the same treatment on every plane."""
+    from ..ops.yuv import is_planar
+
+    if is_planar(images):
+        return images[spec.start : spec.end].tmap(
+            lambda p: pad_to_4n1(pad_temporal_reversed(p, spec.uniform_padding)))
     video = images[spec.start : spec.end]
     if spec.uniform_padding > 0:
         video = pad_temporal_reversed(video, spec.uniform_padding)

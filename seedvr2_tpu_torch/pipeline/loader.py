@@ -80,5 +80,6 @@ def load_runner(
     t_rank = mesh.coord(AXIS_TENSOR) if mesh is not None else 0
     dit = dit_from_safetensors(paths[0], cfg.dit, device, dtype, t_rank, tensor).set_attention_mode(attention_mode)
     vae = vae_from_safetensors(paths[1], cfg.vae, device, dtype)
-    pos, _neg = load_text_embeddings(emb_dir)
-    return Runner(cfg, dit, vae, pos[:, : cfg.dit.txt_in_dim], device=device, mesh=mesh)
+    pos, neg = load_text_embeddings(emb_dir)
+    width = cfg.dit.txt_in_dim
+    return Runner(cfg, dit, vae, pos[:, :width], device=device, mesh=mesh, text_neg=neg[:, :width])

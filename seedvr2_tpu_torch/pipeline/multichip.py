@@ -26,30 +26,30 @@ from ..parallel.comm import all_gather_cat
 from ..parallel.mesh import AXIS_DATA, Mesh
 from ..parallel.multihost import local_data_coords
 from . import batching, phases
-from .runner import Runner, _not_ported, check_supported
+from .runner import InputNoise, Runner, as_draws, check_supported
 
 
 def generate_multichip(
     runner: Runner,
-    images: np.ndarray,  # [T, H, W, 3]: float in [0, 1], uint8 or uint16
+    images: np.ndarray,  # [T, H, W, 3|4]: float in [0, 1], uint8 or uint16
     mesh: Mesh,
     seam_overlap: int = 4,
-    noise: Optional[torch.Tensor] = None,
+    noise=None,
 ) -> Optional[np.ndarray]:
     """Upscale ``images`` with every data rank of ``mesh``; every rank of
     the mesh calls this with the same arguments. Rank 0 returns the clip
-    (float32 [T, H', W', 3] in [0, 1]); every other rank returns None.
+    (float32 [T, H', W', 3|4] in [0, 1]); every other rank returns None.
 
     With one data rank, or fewer than 2 frames per data rank, every rank
     runs phases.generate on the whole clip (the DiT sharded over seq and
-    tensor, the tiles of a tiled VAE over every rank). ``noise`` [t, h, w,
-    C] replaces every batch's DiT noise draw, as in phases.generate.
-    RGBA input and noise augmentation raise NotImplementedError, as they do
-    in phases.generate."""
+    tensor, the tiles of a tiled VAE over every rank). ``noise`` replaces
+    the generators' draws, as in phases.generate; the input noise is one
+    draw a batch of the clip, the same in every segment (Draws.inputs: one
+    [T', H', W', 3] a batch). An RGBA input's alpha skips the models: rank
+    0 upscales it against the blended RGB, batch_size frames at a time
+    (pipeline/alpha.py)."""
     cfg = runner.cfg
     check_supported(cfg)
-    if images.shape[-1] != 3:
-        raise _not_ported("RGBA input", "RGBA")
     n = mesh.shape[AXIS_DATA]
     if n == 1 or len(images) < 2 * n:
         out = phases.generate(runner, images, cfg, noise=noise)
@@ -58,6 +58,8 @@ def generate_multichip(
     if cfg.prepend_frames > 0:
         images = batching.pad_temporal_reversed(images, cfg.prepend_frames, prepend=True)
     total = len(images)
+    alpha_in = images[..., 3:] if images.shape[-1] == 4 else None
+    images = images[..., :3]
     ranges = batching.split_frame_ranges(total, n, seam_overlap)
     seg_lens = [e - s for s, e in ranges]
     target_len = batching.frames_to_4n1(max(seg_lens))  # one length: every rank runs the same batches
@@ -66,12 +68,14 @@ def generate_multichip(
     specs = batching.compute_batches(target_len, cfg.batch_size, 0, uniform_batch_size=True)
     true_h, true_w = true_target_dims(images.shape[1], images.shape[2], cfg.resolution, cfg.max_resolution)
 
+    input_noise = InputNoise(cfg, runner.device, as_draws(noise).inputs)
     lead = mesh.rank == 0
     out_segs = np.zeros((n, target_len, true_h, true_w, 3), np.float32) if lead else None
     write = 0
     for spec in specs:
         frames = phases.upload_frames(batching.prepare_batch(segment, spec), runner.device)
-        codes = runner.fused_segment(frames, true_h, true_w, cfg.seed, noise=noise, ori=spec.ori_length)
+        codes = runner.fused_segment(frames, true_h, true_w, cfg.seed, noise=noise, ori=spec.ori_length,
+                                     input_noise=input_noise)
         every = all_gather_cat(codes[None], mesh.group(AXIS_DATA), dim=0)  # [n, ori, h, w, 3] codes
         if lead:
             out_segs[:, write : write + spec.ori_length] = phases._unpack(every.cpu().numpy(), cfg)
@@ -95,6 +99,14 @@ def generate_multichip(
             ).numpy()
         final[s + ov : e] = seg[ov:]
         pos = e
+    if alpha_in is not None:
+        from .alpha import upscale_alpha_batch
+
+        alpha = np.zeros((total, true_h, true_w, 1), np.float32)
+        for s0 in range(0, total, cfg.batch_size):
+            e0 = min(s0 + cfg.batch_size, total)
+            alpha[s0:e0, ..., 0] = upscale_alpha_batch(alpha_in[s0:e0], final[s0:e0], runner.device)
+        final = np.concatenate([final, alpha], axis=-1)
     if cfg.prepend_frames > 0:
         final = final[cfg.prepend_frames :]
     return final

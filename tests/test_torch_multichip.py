@@ -25,7 +25,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import torch_rank_worker as ranks
 from seedvr2_tpu.config import PipelineConfig, dit_tiny, vae_tiny
@@ -39,11 +38,6 @@ from seedvr2_tpu.pipeline import phases as jphases
 from seedvr2_tpu.pipeline.multichip import generate_multichip as j_generate_multichip
 from seedvr2_tpu.pipeline.runner import Runner as JRunner
 from seedvr2_tpu.utils.seed import batch_key
-from seedvr2_tpu_torch import config
-from seedvr2_tpu_torch.io.weights import dit_from_jax, vae_from_jax
-from seedvr2_tpu_torch.parallel.mesh import Mesh
-from seedvr2_tpu_torch.pipeline.multichip import generate_multichip
-from seedvr2_tpu_torch.pipeline.runner import Runner
 
 ATOL = 1e-4
 VAE_TOL = dict(atol=5e-4, rtol=5e-4)
@@ -198,18 +192,3 @@ def test_build_mesh_picks_the_jax_entry_points_mesh(port, name, frames, factory)
     want = auto_mesh_shape(2, frames, cfg.heads, dit_param_bytes(cfg), 16 << 30)
     assert tuple(port[f"build_mesh/{name}"]) == want
     assert tuple(port["build_mesh/given"]) == (1, 1, 2)
-
-
-@pytest.mark.parametrize("kw,channels", [(dict(), 4), (dict(input_noise_scale=0.1), 3)])
-def test_generate_multichip_raises_off_the_ported_path(kw, channels):
-    """RGBA and noise augmentation raise as in phases.generate, before any
-    collective (so one process and a mesh object suffice)."""
-    pc = config.PipelineConfig(**{k: getattr(_cfg(), k) for k in ("resolution", "batch_size", "compute_dtype")},
-                               dit=config.DiTConfig(**dataclasses.asdict(_cfg().dit)),
-                               vae=config.VAEConfig(**dataclasses.asdict(_cfg().vae)))
-    runner = Runner(pc, dit_from_jax(DIT, pc.dit, "meta", torch.float32), vae_from_jax(VAE, pc.vae, "meta", torch.float32),
-                    TEXT, device="cpu")
-    runner.cfg = pc.replace(**kw)
-    mesh = Mesh({"data": 2, "seq": 1, "tensor": 1}, 0, {}, None, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate_multichip(runner, np.zeros((6, 8, 8, channels), np.float32), mesh)

@@ -201,41 +201,22 @@ def test_load_runner_variant_rule(tmp_path, name, variant):
         load_runner(name, "ema_vae_fp16.safetensors", str(tmp_path), device="cpu", attention_mode="flash")
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(input_noise_scale=0.1),
-        dict(latent_noise_scale=0.1),
-        dict(diffusion=config.DiffusionConfig(cfg_scale=2.0)),
-        dict(output_pixfmt="yuv420", temporal_overlap=2),
-        dict(output_pixfmt="yuv420"),
-    ],
-)
-def test_settings_off_the_ported_path_raise(setup, kw):
-    """The settings still to port (overlap, tiling, prepend frames and the
-    colour methods are ported; tests/test_torch_phases.py)."""
-    _, dit_p, vae_p, text = setup
-    cfg = _port_cfg()
-    runner = Runner(cfg, dit_from_jax(dit_p, cfg.dit, "meta", torch.float32), vae_from_jax(vae_p, cfg.vae, "meta", torch.float32), text, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        phases.generate(runner, _frames(5), cfg.replace(**kw))
-
-
 def test_settings_off_the_ported_path_raise_rgba_and_quantize(setup, tmp_path):
-    _, dit_p, vae_p, text = setup
+    """The settings still to port: int8 weights and GGUF checkpoints (RGBA,
+    noise augmentation, cfg_scale and yuv420 are ported:
+    tests/test_torch_augment.py, tests/test_torch_yuv.py)."""
     cfg = _port_cfg()
-    runner = Runner(cfg, dit_from_jax(dit_p, cfg.dit, "meta", torch.float32), vae_from_jax(vae_p, cfg.vae, "meta", torch.float32), text, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        phases.generate(runner, np.zeros((5, 8, 8, 4), np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_runner("a.safetensors", "b.safetensors", str(tmp_path), cfg, device="cpu", quantize="int8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_runner("a.gguf", "b.safetensors", str(tmp_path), cfg, device="cpu")
 
 
 def test_port_runs_without_jax():
     """A fresh interpreter (no sitecustomize, no conftest) imports only the
     port, runs tiny random-weight upscales (3B-style and 7B-style, every
-    attention mode, the bundled text embedding), and never imports jax or
-    any module of the JAX package."""
+    attention mode, the bundled text embedding) and the CLI on an RGBA
+    image, and never imports jax or any module of the JAX package."""
     code = """
 import dataclasses, sys, numpy as np, torch
 from seedvr2_tpu_torch.config import PipelineConfig, dit_tiny, vae_tiny
@@ -251,6 +232,18 @@ for rope, mode in (("mmrope3d", "fused"), ("window_pixel", "sageattn_2"), ("wind
     r = Runner(cfg, random_dit(dc, g, torch.float32).set_attention_mode(mode), random_vae(vc, g, torch.float32), text, device="cpu")
     out = phases.generate(r, np.random.RandomState(0).rand(5, 12, 12, 3).astype(np.float32))
     assert out.shape == (5, 16, 16, 3) and np.isfinite(out).all()
+import tempfile
+from seedvr2_tpu_torch import cli
+from seedvr2_tpu_torch.io import video
+from seedvr2_tpu_torch.io.weights import save_random_checkpoint
+with tempfile.TemporaryDirectory() as d:
+    dc = dataclasses.replace(dit_tiny(), vid_in_channels=2 * vc.latent_channels + 1, vid_out_channels=vc.latent_channels)
+    save_random_checkpoint(d + "/tiny_dit.safetensors", "dit", dc, torch.Generator().manual_seed(0), torch.float32)
+    save_random_checkpoint(d + "/tiny_vae.safetensors", "vae", vc, torch.Generator().manual_seed(1), torch.float32)
+    video.write_image(d + "/in.png", np.random.RandomState(1).rand(12, 12, 4).astype(np.float32))
+    assert cli.main([d + "/in.png", "--model_dir", d, "--dit_model", "tiny_dit.safetensors", "--vae_model",
+                     "tiny_vae.safetensors", "--resolution", "16", "--cuda_device", "cpu", "--debug"]) == 0
+    assert video.read_image(d + "/in_upscaled.png").shape == (16, 16, 4)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "seedvr2_tpu"))
 assert not bad, bad
 print("ok")

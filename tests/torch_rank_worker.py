@@ -85,7 +85,7 @@ def task_multichip(rank, inputs, cases, directory):
     from seedvr2_tpu_torch.parallel.sharding import shard_dit
     from seedvr2_tpu_torch.pipeline import phases
     from seedvr2_tpu_torch.pipeline.multichip import generate_multichip
-    from seedvr2_tpu_torch.pipeline.runner import Runner
+    from seedvr2_tpu_torch.pipeline.runner import Draws, Runner
 
     from seedvr2_tpu_torch import config
     from seedvr2_tpu_torch.parallel.mesh import build_mesh
@@ -107,6 +107,9 @@ def task_multichip(rank, inputs, cases, directory):
         name, kind = case["name"], case["kind"]
         if kind == "generate":
             noise = torch.from_numpy(inputs[case["noise"]]) if "noise" in case else None
+            if "latent_noise" in case or "input_noise" in case:  # every draw of the run handed in
+                noise = Draws(dit=noise, latent=torch.from_numpy(inputs[case["latent_noise"]]),
+                              inputs=[torch.from_numpy(inputs[k]) for k in case["input_noise"]])
             got = generate_multichip(runner, inputs[case["frames"]], mesh, seam_overlap=case["seam_overlap"],
                                      noise=noise)
             assert (got is None) == (rank != 0)
