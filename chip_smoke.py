@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero without a result):
   1. card: name, power limit, versions;
   2. build: compile csrc/ with nvcc for sm_90a (build time, -Xptxas -v);
-  3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K4 (K1 with the GroupNorm +
+  3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K7 (3B, 7B), K4 (K1 with the GroupNorm +
      SiLU prologue, tables from GroupNorm weights, at K1's shapes) and K6
      (the tap-folded conv) against their plain PyTorch
      versions at the shapes of the 720p paths, and K3 and K4 again at the
@@ -81,6 +81,25 @@ Phases (any failure raises and the script exits non-zero without a result):
      against the planes converted on the card first (0 codes); the
      cfg_scale 2 step against neg + 2 (pos - neg) of two unguided steps
      (rel L2 <= 1e-2).
+ 10. int8 weights (K7, the W8A16 linear): NaDiT-7B with quantize="int8"
+     (weights drawn and quantized on the card) under sageattn_2 and the
+     VAE, 5 x 640x360 -> 1280x720 through phases.generate, two runs, K7 =
+     int8_linear_calls (288) and K3q = 36 launches; its DiT step against a
+     bf16 7B with the same int8 leaves dequantized (rel L2 <= 5e-2) and,
+     for information, against the unquantized bf16 step on the same draws;
+     then NaDiT-3B through the CLI's argv in this process, --quantize int8
+     from phase 9's safetensors and a .gguf (Q8_0 block linears) that
+     io/gguf.py writes from the same weights: each output against
+     phases.generate on the runner the CLI loaded (max |diff| 0 codes),
+     K7 = int8_linear_calls (317) and phase 5's K1, K2, K3 a batch, block 0's
+     qkv bit-equal to the file's weight quantized; the GGUF's write and
+     read + dequantize seconds. Phase 3 holds K7 against its plain version
+     at the 3B and 7B linears' shapes (video rows M 7200 and 24,480, text
+     rows M 58).
+Budgets (H100 80GB HBM3, 700 W; PERF.md): phases 1-8 ~180 s, phase 9
+~100 s, phase 10 ~190 s (the whole script ~460 s); it must end within
+1200 s. K7 may
+launch only in phases 3 and 10 (read_counts raises elsewhere).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
 of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4:
@@ -96,6 +115,7 @@ Then: the kernels JSON line, the card line, and the final JSON line.
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -147,6 +167,7 @@ def kernel_counters():
     from seedvr2_tpu_torch.ops import flash_attention as k5
     from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
     from seedvr2_tpu_torch.ops import fused_window_attention as k3
+    from seedvr2_tpu_torch.ops import quant
 
     return {
         "K1": (k1.conv3d_3x3x3, "launches"),
@@ -158,6 +179,7 @@ def kernel_counters():
         "K6": (k1.conv3d_3x3x3_im2col, "launches"),
         "K3s": (k3.fused_window_attention_sharded, "launches"),
         "K3s_int8": (k3.fused_window_attention_sharded, "launches_int8"),
+        "K7": (quant.linear_apply, "launches"),
     }
 
 
@@ -166,8 +188,15 @@ def reset_counts():
         setattr(fn, attr, 0)
 
 
+# K7 runs int8 weights only: a driven run outside phase 10 that launches it leaks int8 into a bf16 path
+INT8_RUNS = {"allowed": False}
+
+
 def read_counts():
-    return {kid: getattr(fn, attr) for kid, (fn, attr) in kernel_counters().items()}
+    counts = {kid: getattr(fn, attr) for kid, (fn, attr) in kernel_counters().items()}
+    if counts["K7"] and not INT8_RUNS["allowed"]:
+        raise RuntimeError(f"K7 launched {counts['K7']} times in a run of bf16 weights")
+    return counts
 
 
 def _tuple(x):
@@ -219,7 +248,8 @@ def compare(kid, name, source, replaces, kernel, plain, bytes_moved, ops, librar
         "library_ms": None if library is None else cuda_ms(library, 20), "library_call": library_call,
         **(extra_row or {}),
     }
-    lib = "" if library is None else f"  library {row['library_ms']:.3f} ms"
+    row["factor"] = None if library is None else row["ms"] / row["library_ms"]
+    lib = "" if library is None else f"  library {row['library_ms']:.3f} ms (factor {row['factor']:.2f})"
     print(f"  {row['name']}: rel L2 {rel:.3e}  max|err| {err:.3e}{note}  kernel {row['ms']:.3f} ms"
           f"  plain {row['plain_ms']:.3f} ms  bound {bound_ms:.4f} ms ({bound_by}){lib}", flush=True)
     return row
@@ -380,6 +410,70 @@ def _conv_rows(dev, g, c, T, H, W, k1_ms, path="main"):
     return rows
 
 
+def int8_linear_shapes(cfg):
+    """(name, K, N, bias) of the four kinds of int8 block linear of a DiT
+    config (qkv, attention out, MLP in (and gate), MLP out)."""
+    from seedvr2_tpu_torch.models.dit.nadit import mlp_hidden
+
+    D, inner, hidden, mlp_bias = cfg.vid_dim, cfg.inner_dim, mlp_hidden(cfg), cfg.mlp_type != "swiglu"
+    return [("qkv", D, 3 * inner, cfg.qk_bias), ("out", inner, D, True),
+            ("proj_in" + ("/proj_in_gate" if not mlp_bias else ""), D, hidden, mlp_bias),
+            ("proj_out", hidden, D, mlp_bias)]
+
+
+def int8_linear_calls(dit) -> int:
+    """K7 launches in one forward of an int8 NaDiT: each layer's qkv and
+    out projections run for the video and the text stream (a shared layer's
+    'all' weights twice), its MLP's 2 (GELU) or 3 (SwiGLU) linears for the
+    video stream and, unless the layer is video-only, the text stream; only
+    the int8 ones count."""
+    from seedvr2_tpu_torch.ops import quant
+
+    n = 0
+    for blk in dit.blocks:
+        n += sum(2 * quant.is_quantized(next(iter(group.values())).spec) for group in (blk.attn.qkv, blk.attn.out))
+        mlp = next(iter(blk.mlp.values()))
+        lin = [mlp.proj_in, mlp.proj_out] + ([mlp.proj_in_gate] if mlp.swiglu else [])
+        n += (1 if blk.vid_only else 2) * sum(quant.is_quantized(m.spec) for m in lin)
+    return n
+
+
+def _k7_rows(dev, g):
+    """K7 at the int8 DiT's linears: NaDiT-3B and 7B at the 720p video rows
+    (M = 2 x 45 x 80 = 7200 tokens) and the text rows (M = 58), and 3B qkv
+    at the 1080p long clip's video rows (M = 3 x 68 x 120 = 24,480); the
+    weights quantized from normal draws, bf16 inputs. The library call is
+    cuBLAS's bf16 x @ w on the weight dequantized beforehand (not timed);
+    the plain version is the whole chain (widen, product, scale, bias).
+    No int8 run at 1080p is driven, so the 24,480-row row is timed alone and
+    its launches stay null."""
+    from seedvr2_tpu_torch.config import dit_3b, dit_7b
+    from seedvr2_tpu_torch.ops import quant
+
+    rows = []
+    cases = [(cfg, M, shape) for cfg in (dit_3b(), dit_7b()) for M in (7200, 58) for shape in int8_linear_shapes(cfg)]
+    cases.append((dit_3b(), 24480, int8_linear_shapes(dit_3b())[0]))
+    for cfg, M, (name, K, N, has_bias) in cases:
+        q = quant.quantize_linear(torch.randn(K, N, generator=g, device=dev) * K**-0.5)
+        w_q, w_s = q["w_q"].t().contiguous(), q["w_s"]
+        b = torch.randn(N, generator=g, device=dev).bfloat16() if has_bias else None
+        x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+        w_deq = quant.dequantize_weight(q, torch.bfloat16)
+        stream = "video" if M != 58 else "text"
+        rows.append(compare(
+            "K7", f"{cfg.variant} {name} {stream} M{M} K{K} N{N}" + (" +bias" if has_bias else ""),
+            "seedvr2_tpu_torch/csrc/w8a16_linear.cuh", "seedvr2_tpu/models/dit/nadit.py:277",
+            lambda: quant.linear_apply(x, w_q, w_s, b), lambda: quant.linear_apply_plain(x, w_q, w_s, b),
+            nbytes(x, w_q, w_s, *((b,) if has_bias else ())) + M * N * 2, {"bf16": 2 * M * N * K},
+            lambda: x @ w_deq, "cuBLAS bf16 x @ w on the weight dequantized beforehand (its bias and dequantization "
+                               "not timed)",
+            extra_row={"path": f"int8_{cfg.variant}" if M != 24480 else None,
+                       "not_a_tpu_kernel": "XLA's fused convert+dot"},
+        ))
+        del x, w_q, w_deq
+    return rows
+
+
 def kernel_phase(dev):
     import torch.nn.functional as F
 
@@ -445,6 +539,7 @@ def kernel_phase(dev):
     rows += _window_attention_rows(dev, g, dit_3b(), quant_qk=False, thw=(3, 68, 120), res="1080p ", path="long_clip")
     rows += _window_attention_rows(dev, g, dit_7b(), quant_qk=True)
     rows += _flash_attention_rows(dev, g, dit_7b())
+    rows += _k7_rows(dev, g)
     return rows
 
 
@@ -1107,16 +1202,32 @@ def _same_codes(label, got, ref):
     return diff
 
 
-def cli_phase(dev, per_batch):
+def scratch_dir():
+    """A temporary directory for phases 9 and 10's checkpoints (6.6 GB of
+    safetensors, 3.5 GB of GGUF), in whichever of the system's temp
+    directory and the repository's build/ has the most free space."""
+    import tempfile
+    from pathlib import Path
+
+    roots = [tempfile.gettempdir(), str(Path(__file__).resolve().parent / "build")]
+    Path(roots[1]).mkdir(exist_ok=True)
+    root = max(roots, key=lambda r: shutil.disk_usage(r).free)
+    free = shutil.disk_usage(root).free / 2**30
+    if free < 24:
+        raise RuntimeError(f"phases 9 and 10 write 10 GB of weights; {free:.1f} GiB free under {root}")
+    return tempfile.TemporaryDirectory(dir=root)
+
+
+def cli_phase(dev, per_batch, d):
     """Phase 9: seedvr2_tpu_torch/cli.py at full width (3B + VAE, bf16) on
-    640x360 inputs to 720p, through safetensors that the port wrote, in
-    this process so that the launch counters can be read. The first run
+    640x360 inputs to 720p, through safetensors that the port wrote into
+    ``d`` (kept for phase 10), in this process so that the launch counters
+    can be read. The first run
     reads the weights (cli.run); the later flag sets pass its runner back
     to cli.run, so the 6.6 GB are read once. Each run's output codes are
     held against phases.generate on the same decoded frames on the card
     (with the same host seam blend), max |diff| 0; K1, K2 and K3 against
     phase 5's per-batch counts (``per_batch``) times the batches."""
-    import tempfile
     from pathlib import Path
 
     from seedvr2_tpu_torch import cli
@@ -1136,9 +1247,7 @@ def cli_phase(dev, per_batch):
     except ImportError:
         have_cv2 = False
     have_ffmpeg = video.have_ffmpeg() and video.have_ffprobe()
-    roots = [tempfile.gettempdir(), str(Path(__file__).resolve().parent / "build")]
-    Path(roots[1]).mkdir(exist_ok=True)
-    root = max(roots, key=lambda r: shutil.disk_usage(r).free)
+    root = str(Path(d).parent)
     free = shutil.disk_usage(root).free / 2**30
     print(f"  video backends: cv2 {'yes' if have_cv2 else 'no'}, ffmpeg+ffprobe {'yes' if have_ffmpeg else 'no'}; "
           f"scratch {root}: {free:.1f} GiB free, host memory {_mem_available_gib():.1f} GiB available", flush=True)
@@ -1148,231 +1257,395 @@ def cli_phase(dev, per_batch):
     if memory is not None:
         print("  neither cv2 nor ffmpeg: no video file can be read or written here, so the CLI's video runs read "
               "and write clips held in memory, behind the video module's reader and writer interface", flush=True)
-    if free < 16:
-        raise RuntimeError(f"phase 9 writes 6.6 GB of weights; {free:.1f} GiB free under {root}")
     runs = {}
-    with tempfile.TemporaryDirectory(dir=root) as d:
-        t0 = time.perf_counter()
-        g = torch.Generator(device=dev).manual_seed(91)
-        save_random_checkpoint(f"{d}/seedvr2_ema_3b_fp16.safetensors", "dit", dit_3b(), g)
-        save_random_checkpoint(f"{d}/ema_vae_fp16.safetensors", "vae", vae_config(), g)
-        torch.cuda.empty_cache()
-        size = sum(p.stat().st_size for p in Path(d).glob("*.safetensors")) / 2**30
-        write_s = time.perf_counter() - t0
-        print(f"  checkpoints written: {size:.2f} GiB in {write_s:.1f} s", flush=True)
-        rs = np.random.RandomState(23)
-        img = rs.randint(0, 256, (h, w, 3)).astype(np.float32) / 255.0
-        if have_cv2:
-            video.write_image(f"{d}/still.png", img)
-            yy, xx = np.mgrid[0:h, 0:w]
-            disc = ((yy - h // 2) ** 2 + (xx - w // 2) ** 2 < (h * 5 // 12) ** 2).astype(np.float32)[..., None]
-            video.write_image(f"{d}/rgba.png", np.concatenate([img, disc], -1))
-        files = (video.make_video_reader, video.make_video_writer)
-        if memory is not None:
-            video.make_video_reader, video.make_video_writer = memory.reader, memory.writer
-        writer = video.make_video_writer(f"{d}/clip.mp4", w, h, 24.0)
-        writer.write(rs.randint(0, 256, (12, h, w, 3)).astype(np.float32) / 255.0)
-        writer.close()
-        reader = video.make_video_reader(f"{d}/clip.mp4", np.uint8)
-        decoded = reader.read()  # the frames the CLI will see
-        reader.close()
-        base = ["--model_dir", d, "--resolution", str(PHASE9_RESOLUTION), "--cuda_device", str(dev.index or 0)]
-        recording = _Recording(video.make_video_writer)
-        video.make_video_writer = recording
-        runner = None
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(91)
+    save_random_checkpoint(f"{d}/seedvr2_ema_3b_fp16.safetensors", "dit", dit_3b(), g)
+    save_random_checkpoint(f"{d}/ema_vae_fp16.safetensors", "vae", vae_config(), g)
+    torch.cuda.empty_cache()
+    size = sum(p.stat().st_size for p in Path(d).glob("*.safetensors")) / 2**30
+    write_s = time.perf_counter() - t0
+    print(f"  checkpoints written: {size:.2f} GiB in {write_s:.1f} s", flush=True)
+    rs = np.random.RandomState(23)
+    img = rs.randint(0, 256, (h, w, 3)).astype(np.float32) / 255.0
+    if have_cv2:
+        video.write_image(f"{d}/still.png", img)
+        yy, xx = np.mgrid[0:h, 0:w]
+        disc = ((yy - h // 2) ** 2 + (xx - w // 2) ** 2 < (h * 5 // 12) ** 2).astype(np.float32)[..., None]
+        video.write_image(f"{d}/rgba.png", np.concatenate([img, disc], -1))
+    files = (video.make_video_reader, video.make_video_writer)
+    if memory is not None:
+        video.make_video_reader, video.make_video_writer = memory.reader, memory.writer
+    writer = video.make_video_writer(f"{d}/clip.mp4", w, h, 24.0)
+    writer.write(rs.randint(0, 256, (12, h, w, 3)).astype(np.float32) / 255.0)
+    writer.close()
+    reader = video.make_video_reader(f"{d}/clip.mp4", np.uint8)
+    decoded = reader.read()  # the frames the CLI will see
+    reader.close()
+    base = ["--model_dir", d, "--resolution", str(PHASE9_RESOLUTION), "--cuda_device", str(dev.index or 0)]
+    recording = _Recording(video.make_video_writer)
+    video.make_video_writer = recording
+    runner = None
 
-        def drive(label, argv, batches=None, processed=None):
-            """One CLI run; ``batches``: its 5-frame batches, whose K1, K2
-            and K3 counts it must launch (else the caller holds the counts
-            against its reference run's); ``processed``: the frames it
-            upscales, where it writes more (a resumed run counts the chunks
-            done before)."""
-            nonlocal runner
-            gc.collect()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts()
-            t = time.perf_counter()
-            n, runner = cli.run(argv + base, runner)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            counts = read_counts()
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            if batches is not None:
-                expect(f"CLI {label}", counts, {k: per_batch[k] * batches for k in ("K1", "K2", "K3")})
-            n = n if processed is None else processed
-            runs[label] = {"frames": n, "wall_s": wall, "fps": n / wall, "peak_gib": peak,
-                           "launches": {k: counts[k] for k in ("K1", "K2", "K3", "K3q", "K4", "K5")}}
-            print(f"  CLI {label}: {n} frames upscaled in {wall:.2f} s ({n / wall:.2f} fps), peak {peak:.2f} GiB, "
-                  f"launches {runs[label]['launches']}", flush=True)
-            return cli.build_config(cli.parse_arguments(argv + base))
-
-        def image_reference(label, cfg, path):
-            """phases.generate on the image at ``path`` (its launches counted
-            alone): the CLI run ``label`` must have launched as many K1, K2
-            and K3 (an image is one batch: phase 5's K1 and K3 a batch; K2
-            3, one latent frame)."""
-            reset_counts()
-            ref = phases.generate(runner.with_config(cfg), video.read_image(path)[None], packed=True)
-            counts = read_counts()
-            want = {k: counts[k] for k in ("K1", "K2", "K3")}
-            if want["K1"] != per_batch["K1"] or want["K3"] != per_batch["K3"] or want["K2"] == 0:
-                raise RuntimeError(f"{label}: phases.generate on the image launched {want}")
-            expect(f"CLI {label}", runs[label]["launches"], want)
-            return ref
-
-        if have_cv2:
-            # an image: the run that reads the weights (its wall includes the load)
-            cfg = drive("image (weights read)", [f"{d}/still.png", "--output", f"{d}/still_up.png", "--debug"])
-            ref = image_reference("image (weights read)", cfg, f"{d}/still.png")
-            runs["image (weights read)"]["max_abs_diff_codes"] = _same_codes(
-                "image", video.read_image(f"{d}/still_up.png"), ref[0])
-            # an RGBA image: the alpha route (4 phases, alpha upscaled against the RGB)
-            cfg = drive("rgba image", [f"{d}/rgba.png", "--output", f"{d}/rgba_up.png"])
-            out = video.read_image(f"{d}/rgba_up.png")
-            ref = image_reference("rgba image", cfg, f"{d}/rgba.png")
-            if out.shape != (out_h, out_w, 4):
-                raise RuntimeError(f"CLI rgba: output {out.shape}")
-            runs["rgba image"]["max_abs_diff_codes"] = _same_codes("rgba", out, ref[0])
-        # 12 frames in chunks of 5 overlapping by 3: frames 0-4, 2-6, 4-8, 6-10 and 8-11, one batch each (the
-        # 4-phase path: the overlap applies inside a chunk too), 4 seams of 3 frames weighed 1, 0.5 and 0
-        argv = [f"{d}/clip.mp4", "--output", f"{d}/chunks.mp4", "--chunk_size", "5", "--temporal_overlap", "3"]
-        cfg = drive("video chunks 5 overlap 3", argv, batches=5)
-        got = np.concatenate(recording.frames[f"{d}/chunks.mp4"])
-        ref = _chunk_reference(runner.with_config(cfg), decoded, 5, 3)
-        runs["video chunks 5 overlap 3"]["max_abs_diff_codes"] = _same_codes("chunks", got, ref)
-        # --resume: a chunked run cut off in its third chunk, then resumed: only the third chunk runs
-        argv = [f"{d}/clip.mp4", "--output", f"{d}/resume.mp4", "--chunk_size", "5"]
-        real, calls = cli.process_frames, []
-
-        def cut_at_third(*a, **kw):
-            calls.append(len(a[2]))
-            if len(calls) == 3:
-                raise _Interrupted
-            return real(*a, **kw)
-
-        cli.process_frames = cut_at_third
-        try:
-            cli.run(argv + base, runner)
-        except _Interrupted:
-            pass
-        finally:
-            cli.process_frames = real
-        manifest = json.load(open(f"{d}/resume.mp4.resume.json"))
-        if manifest["chunks_done"] != 2:
-            raise RuntimeError(f"CLI resume: the manifest of the cut run says {manifest['chunks_done']} chunks done")
-        cfg = drive("video resume (third chunk)", argv + ["--resume"], batches=1, processed=2)
-        got = np.concatenate(recording.frames[f"{d}/resume.part0002.mp4"][-1:])
-        ref = phases.generate(runner.with_config(cfg), decoded[10:], packed=True)
-        runs["video resume (third chunk)"]["max_abs_diff_codes"] = _same_codes("resume", got, ref)
-        parts = sorted(Path(d).glob("resume.part*.mp4"))
-        finals = parts if parts else [Path(f"{d}/resume.mp4")]
-        total = sum(video.make_video_reader(str(p)).total_frames for p in finals)
-        if total != 12:
-            raise RuntimeError(f"CLI resume: {total} frames written in {[p.name for p in finals]}")
-        # the noise flags: the 12 frames in 5-frame batches (5, 5, 2 + 3 padding)
-        argv = [f"{d}/clip.mp4", "--output", f"{d}/noise.mp4", "--input_noise_scale", "0.1",
-                "--latent_noise_scale", "0.1"]
-        cfg = drive("video noise 0.1 / 0.1", argv, batches=3)
-        got = np.concatenate(recording.frames[f"{d}/noise.mp4"])
-        ref = phases.generate(runner.with_config(cfg), decoded, packed=True)
-        runs["video noise 0.1 / 0.1"]["max_abs_diff_codes"] = _same_codes("noise", got, ref)
-        plain = phases.generate(runner.with_config(cfg.replace(input_noise_scale=0.0, latent_noise_scale=0.0)),
-                                decoded, packed=True)
-        if np.array_equal(plain, ref):
-            raise RuntimeError("CLI noise: the noise flags left the output unchanged")
-        # yuv420: the CLI's --pixfmt yuv420 where ffmpeg can sink planes, else the pipeline API on the card
-        rgb_cfg = cfg.replace(input_noise_scale=0.0, latent_noise_scale=0.0, output_pixfmt="rgb", output_bits=16)
-        rgb = phases.generate(runner.with_config(rgb_cfg), decoded)
-        if have_ffmpeg:
-            drive("video --pixfmt yuv420", [f"{d}/clip.mp4", "--output", f"{d}/yuv.mp4", "--pixfmt", "yuv420"],
-                  batches=3)
-            parts = recording.frames[f"{d}/yuv.mp4"]
-            planes = PlanarYUV420(*(np.concatenate([getattr(p, a) for p in parts]) for a in "yuv"), depth=parts[0].depth)
-        else:
-            print("  yuv420: no ffmpeg on this machine, so no planar mp4 sink: the fused path's planes are "
-                  "packed on the card through phases.generate (output_pixfmt yuv420), and planar input "
-                  "(the decoded frames' BT.601 planes) is converted there", flush=True)
-            reset_counts()
-            planes = phases.generate(runner.with_config(rgb_cfg.replace(output_pixfmt="yuv420")), decoded,
-                                     packed=True)
-            expect("yuv420 planes", read_counts(), {k: per_batch[k] * 3 for k in ("K1", "K2", "K3")})
-        if not (is_planar(planes) and planes.depth == 10 and planes.shape == (12, out_h, out_w, 3)):
-            raise RuntimeError(f"yuv420: got {type(planes).__name__} {getattr(planes, 'shape', None)}")
-        want = rgb01_to_yuv420_np(rgb, 10)
-        plane_diff = max(int(np.abs(getattr(planes, a).astype(np.int64) - getattr(want, a).astype(np.int64)).max())
-                         for a in "yuv")
-        if plane_diff > 1:
-            raise RuntimeError(f"yuv420: planes {plane_diff} codes from rgb01_to_yuv420_np of the RGB result")
-        # planar input: the decoded frames' 4:2:0 planes, uploaded as planes and converted inside
-        # Runner.fused_batch; held against the same loop with each batch's planes converted by ops/yuv.py
-        # before fused_batch (max |diff| 0 codes), and that conversion on the card against the host's
-        # yuv420_to_rgb01_np (fp32: max |diff| <= 1e-6). phases.generate on host-converted frames is no exact
-        # reference: float frames go to the card as float16.
-        planar_in = rgb01_to_yuv420_np(decoded.astype(np.float32) / 255.0, 8)
-        rgb_runner = runner.with_config(rgb_cfg)
-        from_planes = phases.generate(rgb_runner, planar_in, packed=True)
-        converted = _fused_on_converted(rgb_runner, planar_in, out_h, out_w)
-        if not (from_planes.shape == converted.shape == rgb.shape and from_planes.dtype == np.uint16):
-            raise RuntimeError(f"planar input: shapes {from_planes.shape} {converted.shape}")
-        exact = int(np.abs(from_planes.astype(np.int64) - converted.astype(np.int64)).max())
-        on_card = yuv420_to_rgb01(planar_in.to_device(dev)).cpu().numpy().astype(np.float64)
-        conversion = float(np.abs(on_card - yuv420_to_rgb01_np(planar_in)).max())
-        if exact != 0 or conversion > 1e-6:
-            raise RuntimeError(f"planar input: max |diff| {exact} codes from the planes converted on the card; "
-                               f"the card's conversion {conversion:.3e} from the host's")
-        runs["yuv420"] = {"max_plane_diff_codes": plane_diff, "ffmpeg_sink": have_ffmpeg,
-                          "planar_input_max_abs_diff_vs_card_converted_codes": exact,
-                          "card_vs_host_conversion_max_abs_diff": conversion,
-                          "planar_input_mean_abs_diff_vs_rgb_input": float(
-                              np.abs(from_planes.astype(np.float64) / 65535.0 - rgb).mean())}
-        print(f"  yuv420 planes vs rgb01_to_yuv420_np of the RGB result: max |diff| {plane_diff} code; planar "
-              f"input vs the planes converted on the card: max |diff| {exact} codes, the card's conversion vs "
-              f"the host's {conversion:.3e}; vs the RGB input: mean "
-              f"{runs['yuv420']['planar_input_mean_abs_diff_vs_rgb_input']:.3e} (chroma subsampling)", flush=True)
-        # cfg_scale 2 through the same runner (a Python API setting): the DiT runs on both prompts
-        cfg2 = rgb_cfg.replace(diffusion=dataclasses.replace(rgb_cfg.diffusion, cfg_scale=2.0))
+    def drive(label, argv, batches=None, processed=None):
+        """One CLI run; ``batches``: its 5-frame batches, whose K1, K2
+        and K3 counts it must launch (else the caller holds the counts
+        against its reference run's); ``processed``: the frames it
+        upscales, where it writes more (a resumed run counts the chunks
+        done before)."""
+        nonlocal runner
+        gc.collect()
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t = time.perf_counter()
-        out2 = phases.generate(runner.with_config(cfg2), decoded[:5])
+        n, runner = cli.run(argv + base, runner)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         counts = read_counts()
-        expect("cfg_scale 2", counts, {"K1": per_batch["K1"], "K2": per_batch["K2"], "K3": 2 * per_batch["K3"]})
-        if not (out2.shape == (5, out_h, out_w, 3) and np.isfinite(out2).all()
-                and np.abs(out2 - rgb[:5]).max() > 1e-3):
-            raise RuntimeError("cfg_scale 2: bad output, or the same as cfg_scale 1")
-        runs["cfg_scale 2 (5 frames, phases.generate)"] = {
-            "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": {k: counts[k] for k in ("K1", "K2", "K3")}}
-        print(f"  cfg_scale 2: 5 frames in {wall:.2f} s, K3 {counts['K3']} (two DiT passes)", flush=True)
-        # the guided step against two unguided ones: one Euler step is affine in the DiT's prediction, so with
-        # cfg_rescale 0 it is neg + 2 (pos - neg) of two cfg_scale 1 steps, the second with the negative prompt
-        # as its positive (bf16 steps: rel L2 <= 1e-2, as phase 8's steps)
-        vc = rgb_cfg.vae
-        g2 = torch.Generator(device=dev).manual_seed(92)
-        lat = torch.randn((1, 2, out_h // vc.spatial_downsample_factor, out_w // vc.spatial_downsample_factor,
-                           vc.latent_channels), generator=g2, device=dev)
-        negative = runner.with_config(rgb_cfg)
-        negative.text_pos = runner.text_neg
-        steps = {key: r.upscale(lat, rgb_cfg.seed).float() for key, r in (
-            ("guided", runner.with_config(cfg2)), ("pos", runner.with_config(rgb_cfg)), ("neg", negative))}
-        combined = steps["neg"] + 2.0 * (steps["pos"] - steps["neg"])
-        step_rel = _rel((steps["guided"],), (combined,))
-        apart = _rel((steps["pos"],), (combined,))
-        if not step_rel <= 1e-2:
-            raise RuntimeError(f"cfg_scale 2: the guided step is {step_rel:.3e} rel L2 from neg + 2 (pos - neg)")
-        runs["cfg_scale 2 (5 frames, phases.generate)"].update(step_rel_l2_vs_combined=step_rel,
-                                                              unguided_rel_l2_vs_combined=apart)
-        print(f"  cfg_scale 2 step vs neg + 2 (pos - neg) of two unguided steps: rel L2 {step_rel:.3e} (the "
-              f"positive step alone: {apart:.3e})", flush=True)
-        video.make_video_reader, video.make_video_writer = files
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if batches is not None:
+            expect(f"CLI {label}", counts, {k: per_batch[k] * batches for k in ("K1", "K2", "K3")})
+        n = n if processed is None else processed
+        runs[label] = {"frames": n, "wall_s": wall, "fps": n / wall, "peak_gib": peak,
+                       "launches": {k: counts[k] for k in ("K1", "K2", "K3", "K3q", "K4", "K5")}}
+        print(f"  CLI {label}: {n} frames upscaled in {wall:.2f} s ({n / wall:.2f} fps), peak {peak:.2f} GiB, "
+              f"launches {runs[label]['launches']}", flush=True)
+        return cli.build_config(cli.parse_arguments(argv + base))
+
+    def image_reference(label, cfg, path):
+        """phases.generate on the image at ``path`` (its launches counted
+        alone): the CLI run ``label`` must have launched as many K1, K2
+        and K3 (an image is one batch: phase 5's K1 and K3 a batch; K2
+        3, one latent frame)."""
+        reset_counts()
+        ref = phases.generate(runner.with_config(cfg), video.read_image(path)[None], packed=True)
+        counts = read_counts()
+        want = {k: counts[k] for k in ("K1", "K2", "K3")}
+        if want["K1"] != per_batch["K1"] or want["K3"] != per_batch["K3"] or want["K2"] == 0:
+            raise RuntimeError(f"{label}: phases.generate on the image launched {want}")
+        expect(f"CLI {label}", runs[label]["launches"], want)
+        return ref
+
+    if have_cv2:
+        # an image: the run that reads the weights (its wall includes the load)
+        cfg = drive("image (weights read)", [f"{d}/still.png", "--output", f"{d}/still_up.png", "--debug"])
+        ref = image_reference("image (weights read)", cfg, f"{d}/still.png")
+        runs["image (weights read)"]["max_abs_diff_codes"] = _same_codes(
+            "image", video.read_image(f"{d}/still_up.png"), ref[0])
+        # an RGBA image: the alpha route (4 phases, alpha upscaled against the RGB)
+        cfg = drive("rgba image", [f"{d}/rgba.png", "--output", f"{d}/rgba_up.png"])
+        out = video.read_image(f"{d}/rgba_up.png")
+        ref = image_reference("rgba image", cfg, f"{d}/rgba.png")
+        if out.shape != (out_h, out_w, 4):
+            raise RuntimeError(f"CLI rgba: output {out.shape}")
+        runs["rgba image"]["max_abs_diff_codes"] = _same_codes("rgba", out, ref[0])
+    # 12 frames in chunks of 5 overlapping by 3: frames 0-4, 2-6, 4-8, 6-10 and 8-11, one batch each (the
+    # 4-phase path: the overlap applies inside a chunk too), 4 seams of 3 frames weighed 1, 0.5 and 0
+    argv = [f"{d}/clip.mp4", "--output", f"{d}/chunks.mp4", "--chunk_size", "5", "--temporal_overlap", "3"]
+    cfg = drive("video chunks 5 overlap 3", argv, batches=5)
+    got = np.concatenate(recording.frames[f"{d}/chunks.mp4"])
+    ref = _chunk_reference(runner.with_config(cfg), decoded, 5, 3)
+    runs["video chunks 5 overlap 3"]["max_abs_diff_codes"] = _same_codes("chunks", got, ref)
+    # --resume: a chunked run cut off in its third chunk, then resumed: only the third chunk runs
+    argv = [f"{d}/clip.mp4", "--output", f"{d}/resume.mp4", "--chunk_size", "5"]
+    real, calls = cli.process_frames, []
+
+    def cut_at_third(*a, **kw):
+        calls.append(len(a[2]))
+        if len(calls) == 3:
+            raise _Interrupted
+        return real(*a, **kw)
+
+    cli.process_frames = cut_at_third
+    try:
+        cli.run(argv + base, runner)
+    except _Interrupted:
+        pass
+    finally:
+        cli.process_frames = real
+    manifest = json.load(open(f"{d}/resume.mp4.resume.json"))
+    if manifest["chunks_done"] != 2:
+        raise RuntimeError(f"CLI resume: the manifest of the cut run says {manifest['chunks_done']} chunks done")
+    cfg = drive("video resume (third chunk)", argv + ["--resume"], batches=1, processed=2)
+    got = np.concatenate(recording.frames[f"{d}/resume.part0002.mp4"][-1:])
+    ref = phases.generate(runner.with_config(cfg), decoded[10:], packed=True)
+    runs["video resume (third chunk)"]["max_abs_diff_codes"] = _same_codes("resume", got, ref)
+    parts = sorted(Path(d).glob("resume.part*.mp4"))
+    finals = parts if parts else [Path(f"{d}/resume.mp4")]
+    total = sum(video.make_video_reader(str(p)).total_frames for p in finals)
+    if total != 12:
+        raise RuntimeError(f"CLI resume: {total} frames written in {[p.name for p in finals]}")
+    # the noise flags: the 12 frames in 5-frame batches (5, 5, 2 + 3 padding)
+    argv = [f"{d}/clip.mp4", "--output", f"{d}/noise.mp4", "--input_noise_scale", "0.1",
+            "--latent_noise_scale", "0.1"]
+    cfg = drive("video noise 0.1 / 0.1", argv, batches=3)
+    got = np.concatenate(recording.frames[f"{d}/noise.mp4"])
+    ref = phases.generate(runner.with_config(cfg), decoded, packed=True)
+    runs["video noise 0.1 / 0.1"]["max_abs_diff_codes"] = _same_codes("noise", got, ref)
+    plain = phases.generate(runner.with_config(cfg.replace(input_noise_scale=0.0, latent_noise_scale=0.0)),
+                            decoded, packed=True)
+    if np.array_equal(plain, ref):
+        raise RuntimeError("CLI noise: the noise flags left the output unchanged")
+    # yuv420: the CLI's --pixfmt yuv420 where ffmpeg can sink planes, else the pipeline API on the card
+    rgb_cfg = cfg.replace(input_noise_scale=0.0, latent_noise_scale=0.0, output_pixfmt="rgb", output_bits=16)
+    rgb = phases.generate(runner.with_config(rgb_cfg), decoded)
+    if have_ffmpeg:
+        drive("video --pixfmt yuv420", [f"{d}/clip.mp4", "--output", f"{d}/yuv.mp4", "--pixfmt", "yuv420"],
+              batches=3)
+        parts = recording.frames[f"{d}/yuv.mp4"]
+        planes = PlanarYUV420(*(np.concatenate([getattr(p, a) for p in parts]) for a in "yuv"), depth=parts[0].depth)
+    else:
+        print("  yuv420: no ffmpeg on this machine, so no planar mp4 sink: the fused path's planes are "
+              "packed on the card through phases.generate (output_pixfmt yuv420), and planar input "
+              "(the decoded frames' BT.601 planes) is converted there", flush=True)
+        reset_counts()
+        planes = phases.generate(runner.with_config(rgb_cfg.replace(output_pixfmt="yuv420")), decoded,
+                                 packed=True)
+        expect("yuv420 planes", read_counts(), {k: per_batch[k] * 3 for k in ("K1", "K2", "K3")})
+    if not (is_planar(planes) and planes.depth == 10 and planes.shape == (12, out_h, out_w, 3)):
+        raise RuntimeError(f"yuv420: got {type(planes).__name__} {getattr(planes, 'shape', None)}")
+    want = rgb01_to_yuv420_np(rgb, 10)
+    plane_diff = max(int(np.abs(getattr(planes, a).astype(np.int64) - getattr(want, a).astype(np.int64)).max())
+                     for a in "yuv")
+    if plane_diff > 1:
+        raise RuntimeError(f"yuv420: planes {plane_diff} codes from rgb01_to_yuv420_np of the RGB result")
+    # planar input: the decoded frames' 4:2:0 planes, uploaded as planes and converted inside
+    # Runner.fused_batch; held against the same loop with each batch's planes converted by ops/yuv.py
+    # before fused_batch (max |diff| 0 codes), and that conversion on the card against the host's
+    # yuv420_to_rgb01_np (fp32: max |diff| <= 1e-6). phases.generate on host-converted frames is no exact
+    # reference: float frames go to the card as float16.
+    planar_in = rgb01_to_yuv420_np(decoded.astype(np.float32) / 255.0, 8)
+    rgb_runner = runner.with_config(rgb_cfg)
+    from_planes = phases.generate(rgb_runner, planar_in, packed=True)
+    converted = _fused_on_converted(rgb_runner, planar_in, out_h, out_w)
+    if not (from_planes.shape == converted.shape == rgb.shape and from_planes.dtype == np.uint16):
+        raise RuntimeError(f"planar input: shapes {from_planes.shape} {converted.shape}")
+    exact = int(np.abs(from_planes.astype(np.int64) - converted.astype(np.int64)).max())
+    on_card = yuv420_to_rgb01(planar_in.to_device(dev)).cpu().numpy().astype(np.float64)
+    conversion = float(np.abs(on_card - yuv420_to_rgb01_np(planar_in)).max())
+    if exact != 0 or conversion > 1e-6:
+        raise RuntimeError(f"planar input: max |diff| {exact} codes from the planes converted on the card; "
+                           f"the card's conversion {conversion:.3e} from the host's")
+    runs["yuv420"] = {"max_plane_diff_codes": plane_diff, "ffmpeg_sink": have_ffmpeg,
+                      "planar_input_max_abs_diff_vs_card_converted_codes": exact,
+                      "card_vs_host_conversion_max_abs_diff": conversion,
+                      "planar_input_mean_abs_diff_vs_rgb_input": float(
+                          np.abs(from_planes.astype(np.float64) / 65535.0 - rgb).mean())}
+    print(f"  yuv420 planes vs rgb01_to_yuv420_np of the RGB result: max |diff| {plane_diff} code; planar "
+          f"input vs the planes converted on the card: max |diff| {exact} codes, the card's conversion vs "
+          f"the host's {conversion:.3e}; vs the RGB input: mean "
+          f"{runs['yuv420']['planar_input_mean_abs_diff_vs_rgb_input']:.3e} (chroma subsampling)", flush=True)
+    # cfg_scale 2 through the same runner (a Python API setting): the DiT runs on both prompts
+    cfg2 = rgb_cfg.replace(diffusion=dataclasses.replace(rgb_cfg.diffusion, cfg_scale=2.0))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    out2 = phases.generate(runner.with_config(cfg2), decoded[:5])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    expect("cfg_scale 2", counts, {"K1": per_batch["K1"], "K2": per_batch["K2"], "K3": 2 * per_batch["K3"]})
+    if not (out2.shape == (5, out_h, out_w, 3) and np.isfinite(out2).all()
+            and np.abs(out2 - rgb[:5]).max() > 1e-3):
+        raise RuntimeError("cfg_scale 2: bad output, or the same as cfg_scale 1")
+    runs["cfg_scale 2 (5 frames, phases.generate)"] = {
+        "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": {k: counts[k] for k in ("K1", "K2", "K3")}}
+    print(f"  cfg_scale 2: 5 frames in {wall:.2f} s, K3 {counts['K3']} (two DiT passes)", flush=True)
+    # the guided step against two unguided ones: one Euler step is affine in the DiT's prediction, so with
+    # cfg_rescale 0 it is neg + 2 (pos - neg) of two cfg_scale 1 steps, the second with the negative prompt
+    # as its positive (bf16 steps: rel L2 <= 1e-2, as phase 8's steps)
+    vc = rgb_cfg.vae
+    g2 = torch.Generator(device=dev).manual_seed(92)
+    lat = torch.randn((1, 2, out_h // vc.spatial_downsample_factor, out_w // vc.spatial_downsample_factor,
+                       vc.latent_channels), generator=g2, device=dev)
+    negative = runner.with_config(rgb_cfg)
+    negative.text_pos = runner.text_neg
+    steps = {key: r.upscale(lat, rgb_cfg.seed).float() for key, r in (
+        ("guided", runner.with_config(cfg2)), ("pos", runner.with_config(rgb_cfg)), ("neg", negative))}
+    combined = steps["neg"] + 2.0 * (steps["pos"] - steps["neg"])
+    step_rel = _rel((steps["guided"],), (combined,))
+    apart = _rel((steps["pos"],), (combined,))
+    if not step_rel <= 1e-2:
+        raise RuntimeError(f"cfg_scale 2: the guided step is {step_rel:.3e} rel L2 from neg + 2 (pos - neg)")
+    runs["cfg_scale 2 (5 frames, phases.generate)"].update(step_rel_l2_vs_combined=step_rel,
+                                                          unguided_rel_l2_vs_combined=apart)
+    print(f"  cfg_scale 2 step vs neg + 2 (pos - neg) of two unguided steps: rel L2 {step_rel:.3e} (the "
+          f"positive step alone: {apart:.3e})", flush=True)
+    video.make_video_reader, video.make_video_writer = files
     del runner
     gc.collect()
     torch.cuda.empty_cache()
     return {"checkpoint_gib": size, "checkpoint_write_s": write_s, "video_backends": {
         "cv2": have_cv2, "ffmpeg": have_ffmpeg, "in_memory": memory is not None}, "runs": runs}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 10: int8 weights
+# --------------------------------------------------------------------------- #
+
+
+def _dequantized_dit(dit):
+    """A bf16 NaDiT whose weights are ``dit``'s int8 leaves dequantized (w_q *
+    w_s in fp32, rounded to bf16), built on the same card."""
+    from seedvr2_tpu_torch.io.weights import dit_from_flat
+    from seedvr2_tpu_torch.models.params import leaf_paths
+    from seedvr2_tpu_torch.ops.quant import dequantize_weight
+
+    flat = {}
+    for path, m, leaf in leaf_paths(dit):
+        if leaf == "w_q":
+            flat[path[: -len("w_q")] + "w"] = dequantize_weight({"w_q": m.jax_value("w_q"), "w_s": m.w_s})
+        elif leaf != "w_s":
+            flat[path] = m.jax_value(leaf)
+    with torch.inference_mode():
+        return dit_from_flat(flat, dit.cfg, dit.vid_in.w.device, torch.bfloat16)
+
+
+def int8_phase(dev, text, frames, d, per_batch):
+    """Phase 10: int8 weights at full width. (a) NaDiT-7B with
+    quantize="int8" under sageattn_2 (weights drawn and quantized on the
+    card) and the VAE through phases.generate, two runs: K7 launches =
+    int8_linear_calls, K3q 36; its DiT step against a bf16 7B with the same
+    int8 leaves dequantized (rel L2 <= 5e-2), and, for information, against
+    the unquantized bf16 step on the same draws. (b) NaDiT-3B through the
+    CLI's argv in this process: --quantize int8 from phase 9's safetensors,
+    then a .gguf (Q8_0 block linears, F16 other matrices, F32 vectors)
+    that io/gguf.py writes from the same weights; each output against
+    phases.generate on the runner the CLI loaded (max |diff| 0 codes), its
+    launches against the per-batch counts of phase 5 and K7's."""
+    from seedvr2_tpu_torch import cli
+    from seedvr2_tpu_torch.config import pipeline_7b
+    from seedvr2_tpu_torch.io import gguf, video
+    from seedvr2_tpu_torch.io.checkpoint import load_safetensors
+    from seedvr2_tpu_torch.io.weights import random_dit, random_vae
+    from seedvr2_tpu_torch.ops.quant import quantize_linear, tree_bytes
+    from seedvr2_tpu_torch.pipeline import phases
+    from seedvr2_tpu_torch.pipeline.runner import Runner
+
+    INT8_RUNS["allowed"] = True
+    out = {}
+    # (a) 7B int8 under sageattn_2
+    cfg = pipeline_7b(resolution=720)
+    t0 = time.perf_counter()
+    dit = random_dit(cfg.dit, torch.Generator(device=dev).manual_seed(101), quantize="int8")
+    dit.set_attention_mode("sageattn_2")
+    vae = random_vae(cfg.vae, torch.Generator(device=dev).manual_seed(102))
+    runner = Runner(cfg, dit, vae, text, device=dev)
+    torch.cuda.synchronize()
+    dit_gib = tree_bytes(dit) / 2**30
+    print(f"  7B int8 weights drawn and quantized on the card in {time.perf_counter() - t0:.1f} s: DiT {dit_gib:.2f} "
+          f"GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    launches, e2e = drive(runner, frames, "7B int8 sageattn_2")
+    per_step = int8_linear_calls(dit)
+    expect("7B int8 sageattn_2", launches, {"K7": per_step, "K3q": cfg.dit.num_layers, "K3": 0, "K5": 0})
+    vc = cfg.vae
+    lat = torch.randn((1, 2, 720 // vc.spatial_downsample_factor, 1280 // vc.spatial_downsample_factor,
+                       vc.latent_channels), generator=torch.Generator(device=dev).manual_seed(103), device=dev)
+    step = _phase8_step(runner, lat, cfg.seed)[0]
+    deq = Runner(cfg, _dequantized_dit(dit).set_attention_mode("sageattn_2"), vae, text, device=dev)
+    step_deq = _phase8_step(deq, lat, cfg.seed)[0]
+    del deq
+    torch.cuda.empty_cache()
+    rel_deq = _rel((step,), (step_deq,))
+    if not (torch.isfinite(step).all() and rel_deq <= 5e-2):
+        raise RuntimeError(f"7B int8 step is {rel_deq:.3e} rel L2 from the bf16 step on its dequantized weights")
+    del runner, dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = Runner(cfg, random_dit(cfg.dit, torch.Generator(device=dev).manual_seed(101)).set_attention_mode(
+        "sageattn_2"), vae, text, device=dev)
+    rel_dense = _rel((step,), (_phase8_step(dense, lat, cfg.seed)[0],))
+    del dense, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e.update(dit_gib=dit_gib, k7_per_step=per_step, step_rel_l2_vs_dequantized_bf16=rel_deq,
+               step_rel_l2_vs_unquantized_bf16=rel_dense)
+    out["7b_int8_sageattn_2"] = e2e
+    print(f"  7B int8 step vs the bf16 step on its dequantized weights: rel L2 {rel_deq:.3e}; vs the unquantized "
+          f"bf16 step on the same draws (the quantization error): {rel_dense:.3e}", flush=True)
+
+    # (b) 3B through the CLI: int8 from safetensors, then GGUF
+    have_io = video.have_ffmpeg() and video.have_ffprobe()
+    try:
+        import cv2  # noqa: F401
+        have_io = True
+    except ImportError:
+        pass
+    files = (video.make_video_reader, video.make_video_writer)
+    if not have_io:
+        memory = _MemoryVideos()
+        video.make_video_reader, video.make_video_writer = memory.reader, memory.writer
+    try:
+        h, w = PHASE9_HW
+        writer = video.make_video_writer(f"{d}/int8_in.mp4", w, h, 24.0)
+        writer.write(frames.astype(np.float32) / 255.0)
+        writer.close()
+        reader = video.make_video_reader(f"{d}/int8_in.mp4", np.uint8)
+        decoded = reader.read()
+        reader.close()
+        recording = _Recording(video.make_video_writer)
+        video.make_video_writer = recording
+        base = ["--model_dir", d, "--resolution", str(PHASE9_RESOLUTION), "--cuda_device", str(dev.index or 0)]
+        safetensors = f"{d}/seedvr2_ema_3b_fp16.safetensors"
+        t0 = time.perf_counter()
+        state = load_safetensors(safetensors)
+        types = {k: (v, gguf.Q8_0 if k.startswith("blocks.") and v.ndim == 2 else gguf.F16 if v.ndim >= 2
+                     else gguf.F32) for k, v in state.items()}
+        gguf.write_gguf(f"{d}/seedvr2_ema_3b-Q8_0.gguf", types)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        read = gguf.load_gguf_state_dict(f"{d}/seedvr2_ema_3b-Q8_0.gguf")
+        read_s = time.perf_counter() - t0
+        qkv_key = "blocks.0.attn.proj_qkv.vid.weight"
+        qkv_t = {"safetensors": state[qkv_key], "gguf": read[qkv_key]}
+        del state, read, types
+        gc.collect()
+        gib = os.path.getsize(f"{d}/seedvr2_ema_3b-Q8_0.gguf") / 2**30
+        print(f"  GGUF written from phase 9's 3B safetensors: {gib:.2f} GiB in {write_s:.1f} s; read and dequantized "
+              f"(numpy, host) in {read_s:.1f} s", flush=True)
+        out["3b_gguf_file"] = {"gib": gib, "write_s": write_s, "read_dequantize_s": read_s}
+        for label, argv, source in (
+            ("3B --quantize int8 (safetensors)", ["--quantize", "int8"], "safetensors"),
+            ("3B .gguf", ["--dit_model", "seedvr2_ema_3b-Q8_0.gguf"], "gguf"),
+        ):
+            out_path = f"{d}/int8_{source}.mp4"
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            n, runner = cli.run([f"{d}/int8_in.mp4", "--output", out_path, *argv, *base], None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = int8_linear_calls(runner.dit)
+            expect(f"CLI {label}", counts, {"K7": want, "K1": per_batch["K1"], "K2": per_batch["K2"],
+                                            "K3": per_batch["K3"]})
+            # the loaded int8 leaves: the file's weight converted and quantized whole (bit-equal)
+            qkv = quantize_linear(np.ascontiguousarray(qkv_t[source].T).reshape(qkv_t[source].shape[1], 3, -1))
+            leaf = runner.dit.blocks[0].attn.qkv["vid"]
+            if not (torch.equal(leaf.jax_value("w_q").cpu(), qkv["w_q"]) and torch.equal(leaf.w_s.cpu(), qkv["w_s"])):
+                raise RuntimeError(f"CLI {label}: the loaded int8 qkv of block 0 is not the file's weight quantized")
+            cfg3 = cli.build_config(cli.parse_arguments([f"{d}/int8_in.mp4", *argv, *base]))
+            ref = phases.generate(runner.with_config(cfg3), decoded, packed=True)
+            got = np.concatenate(recording.frames[out_path])
+            diff = _same_codes(label, got, ref)
+            dit_gib = tree_bytes(runner.dit) / 2**30
+            out[label] = {"frames": n, "wall_s": wall, "peak_gib": peak, "dit_gib": dit_gib,
+                          "launches": {k: counts[k] for k in ("K7", "K1", "K2", "K3")}, "max_abs_diff_codes": diff}
+            print(f"  CLI {label}: {n} frames in {wall:.2f} s (the weights read, converted and quantized included), "
+                  f"DiT {dit_gib:.2f} GiB, peak {peak:.2f} GiB, launches {out[label]['launches']}, max |diff| vs "
+                  f"phases.generate {diff} codes", flush=True)
+            del runner
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        video.make_video_reader, video.make_video_writer = files
+        INT8_RUNS["allowed"] = False
+    return out, launches
 
 
 def main():
@@ -1430,17 +1703,28 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("[9] the CLI: python -m seedvr2_tpu_torch.cli's argv in this process, 3B + VAE through safetensors, "
-          "640x360 -> 1280x720", flush=True)
-    t0 = time.perf_counter()
-    e2e_cli = cli_phase(dev, launches)
-    e2e_cli["wall_s"] = time.perf_counter() - t0
+    with scratch_dir() as d:
+        print("[9] the CLI: python -m seedvr2_tpu_torch.cli's argv in this process, 3B + VAE through safetensors, "
+              "640x360 -> 1280x720", flush=True)
+        t0 = time.perf_counter()
+        e2e_cli = cli_phase(dev, launches, d)
+        e2e_cli["wall_s"] = time.perf_counter() - t0
+
+        print("[10] int8 weights: 7B quantize='int8' under sageattn_2 (K7, K3q), then 3B through the CLI with "
+              "--quantize int8 and from a .gguf", flush=True)
+        t0 = time.perf_counter()
+        e2e_int8, launches_int8 = int8_phase(dev, text, frames, d, launches)
+        e2e_int8["wall_s"] = time.perf_counter() - t0
+    launches_3b_int8 = e2e_int8["3B --quantize int8 (safetensors)"]["launches"]
     launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
+    path_counts = {"long_clip": launches_long, "int8_7b": launches_int8, "int8_3b": launches_3b_int8}
     for row in rows:
-        row["launches"] = (launches_long if row.get("path") == "long_clip" else launches)[row["kernel"]]
+        if "path" in row and row["path"] is None:
+            continue  # a shape that no driven run gives: timed alone, launches null
+        row["launches"] = path_counts.get(row.get("path"), launches)[row["kernel"]]
     rows += rank_rows
     e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long),
-               multi_rank=e2e_multi, cli=e2e_cli)
+               multi_rank=e2e_multi, cli=e2e_cli, int8=e2e_int8)
     print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,
                       "build_nvcc_s": b.compile_seconds}))
     print(card)

@@ -81,7 +81,8 @@ def parse_arguments(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--debug", action="store_true")
     p.add_argument("--resume", action="store_true", help="resume an interrupted chunked run")
     p.add_argument("--quantize", type=str, default="none", choices=["none", "int8"],
-                   help="int8 weight-only DiT (not ported yet: raises)")
+                   help="int8 weight-only DiT storage (the block linears run K7, a W8A16 kernel); a .gguf "
+                        "DiT is always int8")
     p.add_argument("--fps", type=float, default=0.0, help="override output fps")
     p.add_argument("--10bit", dest="use_10bit", action="store_true",
                    help="10-bit x265 output (the ffmpeg writer's default); forces the 16-bit transfer under "
@@ -233,7 +234,7 @@ def build_runner(args, mesh=None, runner=None):
     debug.start_timer("load")
     runner = load_runner(_dit_name(args), args.vae_model, args.model_dir, cfg, device=device,
                          quantize=None if args.quantize == "none" else args.quantize,
-                         attention_mode=args.attention_mode, mesh=mesh)
+                         attention_mode=args.attention_mode, mesh=mesh, debug=debug)
     debug.end_timer("load", "Weights loaded")
     if mesh is not None:
         debug.log(f"mesh: data={mesh.shape['data']} seq={mesh.shape['seq']} tensor={mesh.shape['tensor']}",
@@ -291,7 +292,8 @@ def build_mesh(args, n_frames: Optional[int] = None):
 
     cpu = _device(args).type == "cpu"
     initialize("gloo" if cpu else "nccl")
-    return pmesh.build_mesh(args.mesh, n_frames, _configs(_dit_name(args))[0], device="cpu" if cpu else None)
+    return pmesh.build_mesh(args.mesh, n_frames, _configs(_dit_name(args))[0], device="cpu" if cpu else None,
+                            quantize=None if args.quantize == "none" else args.quantize, dit_model=_dit_name(args))
 
 
 def _probe_frames(args, kind: str) -> Optional[int]:

@@ -1,7 +1,8 @@
 """Reference checkpoints <-> flat parameter dicts in the JAX package's layout
-(the port's copy of seedvr2_tpu/io/weights.py: the safetensors read, the
-DiT and VAE key maps, convert_state_dict and its inverse export_state_dict,
-flatten_tree and load_text_embeddings; same keys, same transforms).
+(the port's copy of seedvr2_tpu/io/weights.py: the safetensors and .pth
+reads, the format dispatch load_state_dict_any, the DiT and VAE key maps,
+convert_state_dict and its inverse export_state_dict, flatten_tree and
+load_text_embeddings; same keys, same transforms).
 
 A flat dict maps a '/'-joined path of the JAX parameter tree
 (``blocks/3/attn/qkv/vid/w``) to an array; io/weights.py fills the port's
@@ -43,6 +44,38 @@ def load_safetensors(path: str) -> Dict[str, np.ndarray]:
             for k in needs_torch:
                 out[k] = f.get_tensor(k).to(torch.float32).numpy()
     return out
+
+
+def load_pth(path: str) -> Dict[str, np.ndarray]:
+    """A torch .pth / .pt checkpoint as host numpy arrays (memory-mapped,
+    ``weights_only``): a ``state_dict`` entry is unwrapped, floats are widened
+    to fp32, entries that are not tensors are dropped."""
+    import torch
+
+    state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    if isinstance(state, dict) and "state_dict" in state and isinstance(state["state_dict"], dict):
+        state = state["state_dict"]
+    out = {}
+    for k, v in state.items():
+        if not hasattr(v, "numpy"):
+            continue
+        if v.dtype in (torch.bfloat16, torch.float16, torch.float32, torch.float64):
+            out[k] = v.to(torch.float32).numpy()
+        else:
+            out[k] = v.numpy()
+    return out
+
+
+def load_state_dict_any(path: str, dtype=np.float32) -> Dict[str, np.ndarray]:
+    """By extension: .gguf (every tensor dequantized to ``dtype``, io/gguf.py),
+    .pth / .pt, else safetensors."""
+    if path.endswith(".gguf"):
+        from .gguf import load_gguf_state_dict
+
+        return load_gguf_state_dict(path, dtype)
+    if path.endswith((".pth", ".pt")):
+        return load_pth(path)
+    return load_safetensors(path)
 
 
 # --------------------------------------------------------------------------- #

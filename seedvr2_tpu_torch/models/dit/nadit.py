@@ -28,7 +28,7 @@ shared cache key; checkpoint parity needs it.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Collection, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,11 +44,12 @@ from ...ops.fused_window_attention import (
     window_range,
 )
 from ...ops.normalization import rms_norm
+from ...ops import quant
 from ...ops.rope import axial_freqs_lang, axial_freqs_pixel, pad_angles, rotate
 from ...parallel.comm import all_gather_cat, all_reduce_sum, pad_to
 from ...parallel.sharding import check_tensor_split
 from ...parallel.sp import ShardingHints, current_hints
-from ..params import NORMAL, ONES, ONES_PLUS_NORMAL, ZEROS, Leaf, Linear, branch
+from ..params import NORMAL, ONES, ONES_PLUS_NORMAL, Leaf, Linear, branch, leaf_paths
 from .windows import WindowPlan, window_plan
 
 # --------------------------------------------------------------------------- #
@@ -135,10 +136,10 @@ def device_plans(plans: AttnPlans, head_dim: int, device) -> Tuple[DevicePlan, D
 
 
 def _mm(make, shared: bool, vid_only: bool) -> nn.ModuleDict:
-    """vid/txt branches, or one shared 'all' branch (MMModule)."""
-    if shared:
-        return nn.ModuleDict({"all": make()})
-    return nn.ModuleDict({"vid": make()} if vid_only else {"vid": make(), "txt": make()})
+    """vid/txt branches, or one shared 'all' branch (MMModule); ``make``
+    takes the branch's name."""
+    names = ("all",) if shared else ("vid",) if vid_only else ("vid", "txt")
+    return nn.ModuleDict({n: make(n) for n in names})
 
 
 def _ada_leaf(dim: int, device, dtype, layers=("attn", "mlp"), modes=("in", "out")) -> Leaf:
@@ -163,9 +164,10 @@ def mlp_hidden(cfg: DiTConfig) -> int:
 
 def _row_linear(lin: Linear, x: torch.Tensor, hints: Optional[ShardingHints]) -> torch.Tensor:
     """x @ w + b for a row-parallel layer: under tensor sharding the partial
-    products are summed over the tensor group first and the bias is added
-    once, after the sum (not on every rank)."""
-    y = x @ lin.w
+    products (int8: already scaled, the scale being per output column) are
+    summed over the tensor group first and the bias is added once, after
+    the sum (not on every rank)."""
+    y = lin(x, bias=False)
     if hints is not None:
         y = all_reduce_sum(y, hints.tensor_group)
     return y + lin.b if "b" in lin.spec else y
@@ -173,20 +175,21 @@ def _row_linear(lin: Linear, x: torch.Tensor, hints: Optional[ShardingHints]) ->
 
 class MLP(nn.Module):
     """``tensor`` > 1: this rank's hidden columns (proj_in, proj_in_gate
-    column-parallel, proj_out row-parallel)."""
+    column-parallel, proj_out row-parallel). ``int8(name)``: the linear
+    ``name`` holds int8 weights."""
 
-    def __init__(self, cfg: DiTConfig, device, dtype, tensor: int = 1):
+    def __init__(self, cfg: DiTConfig, device, dtype, tensor: int = 1, int8=lambda name: False):
         super().__init__()
         D = cfg.vid_dim
         hidden = mlp_hidden(cfg) // tensor
         self.swiglu = cfg.mlp_type == "swiglu"
         if self.swiglu:
-            self.proj_in_gate = Linear(D, hidden, device, dtype, bias=False)
-            self.proj_in = Linear(D, hidden, device, dtype, bias=False)
-            self.proj_out = Linear(hidden, D, device, dtype, bias=False)
+            self.proj_in_gate = Linear(D, hidden, device, dtype, bias=False, quant=int8("proj_in_gate"))
+            self.proj_in = Linear(D, hidden, device, dtype, bias=False, quant=int8("proj_in"))
+            self.proj_out = Linear(hidden, D, device, dtype, bias=False, quant=int8("proj_out"))
         else:
-            self.proj_in = Linear(D, hidden, device, dtype)
-            self.proj_out = Linear(hidden, D, device, dtype)
+            self.proj_in = Linear(D, hidden, device, dtype, quant=int8("proj_in"))
+            self.proj_out = Linear(hidden, D, device, dtype, quant=int8("proj_out"))
 
     def forward(self, x: torch.Tensor, hints: Optional[ShardingHints] = None) -> torch.Tensor:
         if self.swiglu:
@@ -198,28 +201,30 @@ class MLP(nn.Module):
 
 class Attention(nn.Module):
     """``tensor`` > 1: this rank's heads (qkv column-parallel, out
-    row-parallel)."""
+    row-parallel). ``int8(path)``: the linear at ``path`` ("qkv/vid")
+    holds int8 weights."""
 
-    def __init__(self, cfg: DiTConfig, shared: bool, device, dtype, tensor: int = 1):
+    def __init__(self, cfg: DiTConfig, shared: bool, device, dtype, tensor: int = 1, int8=lambda path: False):
         super().__init__()
         D, inner, hd = cfg.vid_dim, cfg.inner_dim // tensor, cfg.head_dim
-        qkv_spec = {"w": ((D, 3, inner), (NORMAL, D**-0.5))}
-        if cfg.qk_bias:
-            qkv_spec["b"] = ((3, inner), (ZEROS, 0.0))
-        self.qkv = _mm(lambda: Leaf(qkv_spec, device, dtype), shared, False)
-        self.out = _mm(lambda: Linear(inner, D, device, dtype), shared, False)
-        self.norm_q = _mm(lambda: Leaf({"w": ((hd,), (ONES, 0.0))}, device, dtype), shared, False)
-        self.norm_k = _mm(lambda: Leaf({"w": ((hd,), (ONES, 0.0))}, device, dtype), shared, False)
+        self.qkv = _mm(lambda b: Linear(D, (3, inner), device, dtype, bias=cfg.qk_bias, quant=int8(f"qkv/{b}")),
+                       shared, False)
+        self.out = _mm(lambda b: Linear(inner, D, device, dtype, quant=int8(f"out/{b}")), shared, False)
+        self.norm_q = _mm(lambda b: Leaf({"w": ((hd,), (ONES, 0.0))}, device, dtype), shared, False)
+        self.norm_k = _mm(lambda b: Leaf({"w": ((hd,), (ONES, 0.0))}, device, dtype), shared, False)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: DiTConfig, layer: int, device, dtype, tensor: int = 1):
+    """``int8``: the paths of the DiT's int8 linears (NaDiT)."""
+
+    def __init__(self, cfg: DiTConfig, layer: int, device, dtype, tensor: int = 1, int8: Collection[str] = ()):
         super().__init__()
         shared, vid_only = cfg.shared_weights(layer), cfg.vid_only(layer)
         self.vid_only = vid_only
-        self.attn = Attention(cfg, shared, device, dtype, tensor)
-        self.mlp = _mm(lambda: MLP(cfg, device, dtype, tensor), shared, vid_only)
-        self.ada = _mm(lambda: _ada_leaf(cfg.vid_dim, device, dtype), shared, vid_only)
+        self.attn = Attention(cfg, shared, device, dtype, tensor, lambda p: f"blocks/{layer}/attn/{p}" in int8)
+        self.mlp = _mm(lambda b: MLP(cfg, device, dtype, tensor, lambda n: f"blocks/{layer}/mlp/{b}/{n}" in int8),
+                       shared, vid_only)
+        self.ada = _mm(lambda b: _ada_leaf(cfg.vid_dim, device, dtype), shared, vid_only)
 
 
 class TimeEmbedding(nn.Module):
@@ -258,17 +263,31 @@ def _ada(p_ada: nn.ModuleDict, stream: str, x, emb_slices, idx: int, mode: str, 
     return x * g
 
 
+def int8_linears(cfg: DiTConfig) -> frozenset:
+    """The block linears that ops/quant.py:quantize_dit_params stores as
+    int8 (``quant.quantizes`` on each whole weight), by path: NaDiT's
+    ``int8`` for quantize="int8"."""
+    dense = NaDiT(cfg, "meta", torch.float32)
+    return frozenset(p[: -len("/w")] for p, m, leaf in leaf_paths(dense) if quant.quantizes(p, m.spec[leaf][0]))
+
+
 class NaDiT(nn.Module):
     """``tensor`` > 1: the module holds one tensor rank's part of the
     weights (parallel/sharding.py) and runs only under ``sharded_dit`` with
-    a tensor axis of that size."""
+    a tensor axis of that size.
+
+    ``int8``: the block linears ("blocks/0/attn/qkv/vid", ...) held as int8
+    weights (ops/quant.py): ``int8_linears(cfg)`` for quantize="int8", or
+    the linears whose ``w_q`` a flat dict holds (io/weights.py); patch
+    in/out and the embeddings stay in ``dtype``."""
 
     def __init__(self, cfg: DiTConfig, device=None, dtype=torch.bfloat16, attention_mode: str = "fused",
-                 tensor: int = 1):
+                 tensor: int = 1, int8: Collection[str] = ()):
         super().__init__()
         check_tensor_split(cfg, tensor)
         self.cfg = cfg
         self.tensor = tensor
+        self.quantize = "int8" if int8 else None
         self.heads_local = cfg.heads // tensor
         self.set_attention_mode(attention_mode)
         D = cfg.vid_dim
@@ -282,7 +301,11 @@ class NaDiT(nn.Module):
             self.vid_out_ada = nn.ModuleDict(
                 {"vid": _ada_leaf(D, device, dtype, layers=("out",), modes=("in",))}
             )
-        self.blocks = nn.ModuleList([Block(cfg, i, device, dtype, tensor) for i in range(cfg.num_layers)])
+        int8 = frozenset(int8)
+        self.blocks = nn.ModuleList([Block(cfg, i, device, dtype, tensor, int8) for i in range(cfg.num_layers)])
+        unknown = int8 - {p[: -len("/w_q")] for p, _, _ in leaf_paths(self) if p.endswith("/w_q")}
+        if unknown:
+            raise ValueError(f"int8: no block linear at {sorted(unknown)[:3]}")
 
     def set_attention_mode(self, name: str) -> "NaDiT":
         """A name of ops/attention.py's alias table (fused, sdpa,
@@ -294,9 +317,8 @@ class NaDiT(nn.Module):
     # ------------------------------------------------------------------ #
 
     @staticmethod
-    def _qkv_tokens(leaf, x):  # -> [B, len, 3 * heads_local * hd]
-        y = x @ leaf.w.reshape(x.shape[-1], -1)
-        return y + leaf.b.reshape(-1) if "b" in leaf.spec else y
+    def _qkv_tokens(leaf: Linear, x):  # -> [B, len, 3 * heads_local * hd]
+        return leaf(x)
 
     @staticmethod
     def _seq(h: Optional[ShardingHints]):

@@ -16,8 +16,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import quant
+
 # init kinds of the JAX package's init_params / init_vae_params
 NORMAL, ZEROS, ONES, ONES_PLUS_NORMAL, IDENTITY_TILE = "normal", "zeros", "ones", "1+normal", "identity"
+SCALES = "int8 scales"  # w_s: drawn with its w_q (random_leaves)
 
 
 class Leaf(nn.Module):
@@ -38,9 +41,17 @@ class Leaf(nn.Module):
     def stored_dtype(self, name: str):
         return self.dtype
 
+    def load_dtype(self, name: str):
+        """The type a leaf is cast to at load (the JAX loader's cast)."""
+        return self.dtype
+
     def convert(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """JAX layout -> stored layout."""
         return t
+
+    def jax_value(self, name: str) -> torch.Tensor:
+        """The stored leaf back in the JAX layout (the inverse of convert)."""
+        return getattr(self, name)
 
     def set_jax(self, name: str, arr) -> None:
         if name not in self.spec:
@@ -50,25 +61,55 @@ class Leaf(nn.Module):
         if tuple(t.shape) != tuple(self.spec[name][0]):
             raise ValueError(f"leaf {name}: shape {tuple(t.shape)}, expected {self.spec[name][0]}")
         # round to the compute dtype first, as the JAX loader casts every leaf
-        buf.copy_(self.convert(name, t.to(device=buf.device, dtype=self.dtype)))
+        buf.copy_(self.convert(name, t.to(device=buf.device, dtype=self.load_dtype(name))))
 
 
-def linear_spec(din: int, dout: int, bias: bool = True) -> Dict:
-    spec = {"w": ((din, dout), (NORMAL, din**-0.5))}
+def linear_spec(din: int, dout, bias: bool = True, quant: bool = False) -> Dict:
+    """w [din, *dout] (or, int8, w_q [din, *dout] and its scales w_s
+    [*dout], drawn together from w's init), then b [*dout]."""
+    out = tuple(dout) if isinstance(dout, (tuple, list)) else (dout,)
+    spec = {"w_q" if quant else "w": ((din, *out), (NORMAL, din**-0.5))}
+    if quant:
+        spec["w_s"] = (out, (SCALES, 0.0))
     if bias:
-        spec["b"] = ((dout,), (ZEROS, 0.0))
+        spec["b"] = (out, (ZEROS, 0.0))
     return spec
 
 
 class Linear(Leaf):
-    """y = x @ w + b with w [din, dout] (the JAX layout)."""
+    """y = x @ w + b with w [din, *dout] (the JAX layout; a qkv weight is
+    [D, 3, inner]), the output flattened to [..., prod(dout)].
 
-    def __init__(self, din: int, dout: int, device, dtype, bias: bool = True):
-        super().__init__(linear_spec(din, dout, bias), device, dtype)
+    ``quant``: int8 weight storage (ops/quant.py): w_q is stored [N, K] int8
+    (K7's layout, N = prod(dout)), w_s fp32 in its JAX shape; the product
+    is ops/quant.linear_apply (K7 on the card)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
-        return y + self.b if "b" in self.spec else y
+    def __init__(self, din: int, dout, device, dtype, bias: bool = True, quant: bool = False):
+        super().__init__(linear_spec(din, dout, bias, quant), device, dtype)
+
+    def stored_shape(self, name, shape):
+        return (int(np.prod(shape[1:])), shape[0]) if name == "w_q" else shape
+
+    def stored_dtype(self, name):
+        return {"w_q": torch.int8, "w_s": torch.float32}.get(name, self.dtype)
+
+    # the int8 payload and its fp32 scales are kept as they are (the JAX loader's _cast)
+    load_dtype = stored_dtype
+
+    def convert(self, name, t):
+        return t.reshape(t.shape[0], -1).t() if name == "w_q" else t
+
+    def jax_value(self, name):
+        if name == "w_q":
+            return self.w_q.t().reshape(self.spec["w_q"][0])
+        return getattr(self, name)
+
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        b = self.b if bias and "b" in self.spec else None
+        if quant.is_quantized(self.spec):
+            return quant.linear_apply(x.contiguous(), self.w_q, self.w_s, b)
+        y = x @ self.w.reshape(self.w.shape[0], -1)
+        return y if b is None else y + b.reshape(-1)
 
 
 def branch(group: nn.ModuleDict, name: str) -> nn.Module:
@@ -119,10 +160,22 @@ def load_flat(root: nn.Module, flat: Mapping[str, object]) -> nn.Module:
 def random_leaves(root: nn.Module, generator: torch.Generator):
     """(path, module, leaf, fp32 tensor in the JAX layout) for every leaf of
     ``root``, drawn on the generator's device with the JAX package's init
-    distributions (normal * scale, zero biases, unit norms, ...)."""
+    distributions (normal * scale, zero biases, unit norms, ...). An int8
+    linear's weight is drawn dense, as w would be, and quantized
+    (ops/quant.py): its w_q (int8) and w_s follow, as
+    quantize_dit_params(init_params(...)) makes them; the draws are those
+    of the same module with dense weights."""
     dev = generator.device
     for path, m, leaf in leaf_paths(root):
         shape, (kind, scale) = m.spec[leaf]
+        if kind == SCALES:
+            continue  # yielded with its w_q
+        if leaf == "w_q":
+            q = quant.quantize_linear(torch.randn(shape, generator=generator, device=dev) * scale)
+            stem = path[: -len("w_q")]
+            yield path, m, leaf, q["w_q"]
+            yield stem + "w_s", m, "w_s", q["w_s"]
+            continue
         if kind in (NORMAL, ONES_PLUS_NORMAL):
             t = torch.randn(shape, generator=generator, device=dev) * scale
             t = t + 1.0 if kind == ONES_PLUS_NORMAL else t

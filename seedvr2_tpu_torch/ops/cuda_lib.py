@@ -51,6 +51,7 @@ _SIGNATURES = {
     "seedvr2_fold_upsample": [_vp] * 5 + [_i] * 7 + [_vp],
     "seedvr2_window_attention": [_vp] * 10 + [_i] * 8 + [_f] * 2 + [_vp],
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
+    "seedvr2_w8a16_linear": [_vp] * 5 + [_i] * 3 + [_vp],
 }
 
 _lib: Optional[ctypes.CDLL] = None

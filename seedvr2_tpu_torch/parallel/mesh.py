@@ -150,22 +150,25 @@ def auto_mesh(
     return make_mesh(d, s, t, device=device)
 
 
-def build_mesh(spec: str, n_frames: Optional[int], dit_cfg, device=None) -> Optional[Mesh]:
+def build_mesh(spec: str, n_frames: Optional[int], dit_cfg, device=None, quantize: Optional[str] = None,
+               dit_model: str = "") -> Optional[Mesh]:
     """The mesh of one invocation, as the JAX CLI and node layer build it
     (inference_cli.py:build_mesh, interfaces.py:_build_mesh): None on one
     rank (or without an initialised job); ``"auto"`` sizes the mesh with
-    auto_mesh_shape from the frame count, the DiT's heads and its bf16
-    weight bytes against this rank's device memory (the port has no int8
-    weights, so no auto-quantisation enters the bytes); ``"d,s,t"`` is
-    taken as given."""
+    auto_mesh_shape from the frame count, the DiT's heads and its resident
+    weight bytes against this rank's device memory: int8 bytes where the
+    loader will store int8 (``quantize``, its auto_quantize default, or a
+    .gguf ``dit_model``), as inference_cli.py:_estimate_dit counts them;
+    ``"d,s,t"`` is taken as given."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return None
     if spec != "auto":
         d, s, t = (int(x) for x in spec.split(","))
         return make_mesh(d, s, t, device=device)
-    from ..pipeline.loader import dit_param_bytes
+    from ..pipeline.loader import dit_param_bytes, resident_quantize
     from ..pipeline.phases import _hbm_bytes
 
     dev = torch.device(device) if device is not None else _default_device(dist.get_rank())
-    return auto_mesh(n_frames=n_frames, heads=dit_cfg.heads, model_bytes=dit_param_bytes(dit_cfg),
-                     hbm_bytes=_hbm_bytes(dev), device=dev)
+    hbm = _hbm_bytes(dev)
+    model_bytes = dit_param_bytes(dit_cfg, resident_quantize(dit_cfg, dit_model, quantize, hbm))
+    return auto_mesh(n_frames=n_frames, heads=dit_cfg.heads, model_bytes=model_bytes, hbm_bytes=hbm, device=dev)

@@ -10,6 +10,15 @@ column-parallel layer's 1-D bias replicated and slices it at the add, the
 port slices it at load (``local_slice``). A row-parallel layer's bias stays
 whole; the forward adds it once, after the sum over the tensor group.
 
+An int8 weight (ops/quant.py) splits like the dense one: ``w_q`` as ``w``,
+and the per-column scales ``w_s`` follow their columns (qkv's [3, inner] on
+axis 1, the MLP's proj_in / proj_in_gate [hidden] on axis 0); a
+row-parallel layer's scales [D] stay whole. The whole weight is quantized
+first and then sliced (io/weights.py, ``shard_dit``), as the JAX package
+quantizes the whole tree before GSPMD shards it: a row-parallel column's
+absmax runs over the split axis, so a slice quantized alone would get
+another scale.
+
 The weights are sliced where they lie: on the host when they come from a
 checkpoint (pipeline/loader.py), so that a rank's card only ever holds its
 part, which is what the tensor axis is for (7B).
@@ -46,8 +55,8 @@ def _split_axis(path: str, ndim: int):
     spec = leaf_spec(path, ndim)
     if AXIS_TENSOR in spec:
         return spec.index(AXIS_TENSOR)
-    if ndim == 1 and "mlp" in path and "proj_in" in path and path.endswith("/b"):
-        return 0  # a column-parallel bias follows its columns
+    if ndim == 1 and "mlp" in path and "proj_in" in path and path.endswith(("/b", "/w_s")):
+        return 0  # a column-parallel bias, or int8 scale, follows its columns
     return None
 
 
@@ -96,9 +105,9 @@ def shard_dit(dit, mesh: Mesh):
         return dit
     if getattr(dit, "tensor", 1) != 1:
         raise ValueError("shard_dit: the DiT is already split")
-    dev = next(dit.buffers()).device
-    dtype = next(dit.buffers()).dtype
-    flat = {p: getattr(m, leaf) for p, m, leaf in leaf_paths(dit)}
+    dev = dit.vid_in.w.device
+    dtype = dit.vid_in.w.dtype
+    flat = {p: m.jax_value(leaf) for p, m, leaf in leaf_paths(dit)}
     with torch.inference_mode():
         local = dit_from_flat(shard_flat(flat, dit.cfg, mesh.coord(AXIS_TENSOR), t), dit.cfg, dev, dtype, tensor=t)
     return local.set_attention_mode(dit.attention_backend)  # a backend name is its own alias

@@ -46,10 +46,6 @@ from . import diffusion as dm
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
-def _not_ported(setting: str, item: str):
-    return NotImplementedError(f"{setting} is not ported yet (ROADMAP.md queue 1: {item})")
-
-
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise for a setting the pipeline does not know."""
     if cfg.color_correction not in color_ops.SUPPORTED:

@@ -19,6 +19,7 @@ from seedvr2_tpu_torch.ops import conv3d_kernel as k1
 from seedvr2_tpu_torch.ops import flash_attention as k5
 from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
 from seedvr2_tpu_torch.ops import fused_window_attention as k3
+from seedvr2_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.gpu
 
@@ -350,3 +351,51 @@ def test_conv_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         k1.conv3d_3x3x3_im2col(x, wbuf[8:].view(w.shape), b)
     assert k1.conv3d_3x3x3_im2col(x, w, b).shape == (1, 1, 4, 4, 128)  # the same tensors, owned, are taken
+
+
+# K7: M ragged against the 128-row tile (1, 58, 130, 300), several N tiles
+# and K steps, with and without a bias; the row-parallel call leaves it out.
+# N a multiple of 64 only leaves the last 128-column tile half full (64,
+# 192, and 1728 = 6912 / 4: 3B's MLP on a rank of a tensor axis of 4).
+K7_CASES = [(1, 128, 64, True), (58, 256, 128, False), (130, 384, 192, True), (300, 128, 640, False),
+            (58, 1024, 3072, True), (5, 64, 64, True), (58, 192, 128, False), (300, 1728, 2560, False)]
+
+
+@pytest.mark.parametrize("M,N,K,bias", K7_CASES)
+def test_w8a16_linear_matches_plain(cuda, M, N, K, bias):
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    q = quant.quantize_linear(torch.randn(K, N, generator=g, device=cuda) * K**-0.5)
+    w_q, w_s = q["w_q"].t().contiguous(), q["w_s"]
+    b = torch.randn(N, generator=g, device=cuda).bfloat16() if bias else None
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    n0 = quant.linear_apply.launches
+    y = quant.linear_apply(x, w_q, w_s, b)
+    torch.cuda.synchronize()
+    assert quant.linear_apply.launches == n0 + 1 and y.shape == (M, N) and y.dtype == torch.bfloat16
+    assert _rel(y, quant.linear_apply_plain(x, w_q, w_s, b)) <= REL_BOUND
+    exact = (x.float() @ w_q.t().float()) * w_s + (b.float() if bias else 0.0)
+    assert _rel(y, exact) <= 4e-3  # one bf16 rounding of the fp32 result
+    y3 = quant.linear_apply(x.reshape(1, M, K), w_q, w_s, b)  # leading dims are flattened
+    assert torch.equal(y3.reshape(M, N), y)
+
+
+def test_w8a16_linear_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(4, 128, device=cuda, dtype=torch.bfloat16)
+    w_q = torch.zeros(256, 128, device=cuda, dtype=torch.int8)
+    w_s = torch.ones(256, device=cuda)
+    for args in (
+        (x, w_q[:200].contiguous(), w_s[:200]),  # N % 64
+        (x[:, :96].contiguous(), w_q[:, :96].contiguous(), w_s),  # K % 64
+        (x.float(), w_q, w_s),  # x not bf16
+        (x, w_q.float(), w_s),  # w_q not int8
+        (x, w_q, w_s.bfloat16()),  # scales not fp32
+        (x, w_q.cpu(), w_s),  # another device
+        (x, w_q, w_s[:128]),  # scales of another N
+        (x[:, ::2], w_q[:, :64].contiguous(), w_s),  # x not contiguous
+        (x[:0], w_q, w_s),  # no rows
+    ):
+        with pytest.raises(ValueError):
+            quant.linear_apply(*args)
+    with pytest.raises(ValueError):
+        quant.linear_apply(x, w_q, w_s, torch.zeros(256, device=cuda))  # fp32 bias
+    assert quant.linear_apply(x, w_q, w_s).shape == (4, 256)

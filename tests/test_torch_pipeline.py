@@ -201,15 +201,31 @@ def test_load_runner_variant_rule(tmp_path, name, variant):
         load_runner(name, "ema_vae_fp16.safetensors", str(tmp_path), device="cpu", attention_mode="flash")
 
 
-def test_settings_off_the_ported_path_raise_rgba_and_quantize(setup, tmp_path):
-    """The settings still to port: int8 weights and GGUF checkpoints (RGBA,
-    noise augmentation, cfg_scale and yuv420 are ported:
-    tests/test_torch_augment.py, tests/test_torch_yuv.py)."""
-    cfg = _port_cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_runner("a.safetensors", "b.safetensors", str(tmp_path), cfg, device="cpu", quantize="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_runner("a.gguf", "b.safetensors", str(tmp_path), cfg, device="cpu")
+def test_int8_and_gguf_settings_load_a_runner(setup, tmp_path, monkeypatch):
+    """The two settings that raised before int8 weights were ported:
+    ``quantize="int8"`` on a safetensors DiT and a .gguf DiT now give a
+    Runner with int8 block linears (the threshold lowered to the tiny
+    widths; tests/test_torch_quant.py and tests/test_torch_gguf.py hold
+    their forwards against the JAX package)."""
+    from safetensors.numpy import save_file
+
+    from seedvr2_tpu_torch.io import gguf
+    from seedvr2_tpu_torch.ops import quant
+
+    monkeypatch.setattr(quant, "_QUANT_MIN_SIZE", 1024)
+
+    cfg, dit_p, vae_p, _ = setup
+    dit_sd = {k: np.ascontiguousarray(v) for k, v in jweights.export_state_dict(dit_p, jweights.dit_key_map(cfg.dit)).items()}
+    save_file(dit_sd, str(tmp_path / "a.safetensors"))
+    gguf.write_gguf(str(tmp_path / "a.gguf"), {k: (v, gguf.F32) for k, v in dit_sd.items()})
+    save_file({k: np.ascontiguousarray(v) for k, v in jweights.export_state_dict(vae_p, jweights.vae_key_map(cfg.vae)).items()},
+              str(tmp_path / "b.safetensors"))
+    pc = _port_cfg()
+    for runner in (load_runner("a.safetensors", "b.safetensors", str(tmp_path), pc, device="cpu", quantize="int8"),
+                   load_runner("a.gguf", "b.safetensors", str(tmp_path), pc, device="cpu")):
+        assert isinstance(runner, Runner) and runner.dit.quantize == "int8"
+    with pytest.raises(ValueError, match="int8"):
+        load_runner("a.safetensors", "b.safetensors", str(tmp_path), pc, device="cpu", quantize="fp8")
 
 
 def test_port_runs_without_jax():

@@ -46,8 +46,9 @@ def _pipeline_cfg(spec):
 
 def task_dit(rank, inputs, cases, directory):
     """Sharded NaDiT forwards: one mesh per case (all of NPROCS ranks); the
-    weights sliced from the flat arrays, or (``checkpoint``) loaded by
-    load_runner from a safetensors file in DIR."""
+    weights sliced from the flat arrays (``quantize_min_size``: quantized to
+    int8 whole first), or (``checkpoint``) loaded by load_runner from a
+    safetensors file in DIR."""
     from seedvr2_tpu_torch import config
     from seedvr2_tpu_torch.io.weights import dit_from_flat
     from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
@@ -67,8 +68,15 @@ def task_dit(rank, inputs, cases, directory):
                                 attention_mode=case["mode"]).dit
             assert model.tensor == t and model.blocks[0].attn.qkv["vid"].w.shape[2] == cfg.inner_dim // t
         else:
-            local = shard_flat(_flat(inputs, case["params"] + "/"), cfg, mesh.coord("tensor"), t)
-            model = dit_from_flat(local, cfg, "cpu", torch.float32, tensor=t).set_attention_mode(case["mode"])
+            flat = _flat(inputs, case["params"] + "/")
+            min_size = case.get("quantize_min_size")
+            if min_size is not None:  # int8: the whole weights quantized, then this rank's slice
+                from seedvr2_tpu_torch.ops.quant import quantize_dit_params
+
+                flat = quantize_dit_params(flat, min_size)
+            local = shard_flat(flat, cfg, mesh.coord("tensor"), t)
+            model = dit_from_flat(local, cfg, "cpu", torch.float32, tensor=t)
+            model.set_attention_mode(case["mode"])
         vid, txt, ts = (torch.from_numpy(inputs[f"{case['inputs']}/{k}"]) for k in ("vid", "txt", "t"))
         thw = (vid.shape[1], vid.shape[2] // 2, vid.shape[3] // 2)
         dplans = device_plans(build_attn_plans(cfg, thw, txt.shape[1]), cfg.head_dim, "cpu")
