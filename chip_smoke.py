@@ -96,9 +96,28 @@ Phases (any failure raises and the script exits non-zero without a result):
      read + dequantize seconds. Phase 3 holds K7 against its plain version
      at the 3B and 7B linears' shapes (video rows M 7200 and 24,480, text
      rows M 58).
+ 11. the ComfyUI node layer (seedvr2_tpu_torch/interfaces.py) under the
+     stub host of tests/comfy_stub.py (installed through a
+     pytest.MonkeyPatch and undone at the end), 3B + VAE from phase 9's
+     safetensors: (a) the V3 workflow (loader nodes with cache_model, the
+     upscaler) on the phase-5 clip as a ComfyUI IMAGE, its output a CPU
+     float32 tensor equal to phases.generate's on the same runner (max
+     |diff| 0), K1, K2 and K3 = phase 5's, the progress bar monotone to
+     100; (b) a second execute with color_correction="lab": no load, equal
+     to phases.generate under that config; (c) 10 frames in two batches,
+     the interrupt flag set from the first progress update and then from
+     the first after a batch: InterruptProcessingException, and no launch
+     after the flag; (d) the 3B 1920x1080 batch (phase 7's geometry): the
+     peaks of its stages, then phases.generate under
+     torch.cuda.set_per_process_memory_fraction(PHASE11_MEMORY_FRACTION):
+     the fused route falls back and the 4-phase route's VAE climbs the
+     ladder (each rung printed), 0 codes from the run at the tiles it
+     reached; the cap lifted in a finally; (e) on that batch's latent, the
+     host-staged decode against the device-tiled one at 512 px tiles (rel
+     L2 <= 1e-3, PSNR, time and a lower peak).
 Budgets (H100 80GB HBM3, 700 W; PERF.md): phases 1-8 ~180 s, phase 9
-~100 s, phase 10 ~190 s (the whole script ~460 s); it must end within
-1200 s. K7 may
+~100 s, phase 10 ~190 s, phase 11 ~100 s (the whole script ~560 s); it
+must end within 1200 s. K7 may
 launch only in phases 3 and 10 (read_counts raises elsewhere).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
@@ -1648,6 +1667,299 @@ def int8_phase(dev, text, frames, d, per_batch):
     return out, launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 11: the ComfyUI node layer
+# --------------------------------------------------------------------------- #
+
+# (c) the interrupt's clip: 10 frames in two 5-frame batches; (d) and (e) the
+# ladder's batch: phase 7's geometry (960x540 -> 1920x1080), one 5-frame batch
+PHASE11_INTERRUPT_FRAMES = 10
+PHASE11_LADDER_HW = (540, 960)
+PHASE11_LADDER_RESOLUTION = 1080
+# (d) the card's share that the ladder runs under, from the peaks that (d)
+# measures first (PERF.md section 6; on the H100 80GB, of 79.18 GiB, the
+# 7.02 GiB of weights included): the fused route 61.01 GiB, the encode
+# untiled / 1024 px / 512 px tiles 36.54 / 15.94 / 9.69, the DiT step 8.29,
+# the decode untiled / 1024 / 512 60.89 / 23.26 / 11.85. A quarter (19.79
+# GiB) is above the 1024 px encode and the 512 px decode, below the 1024 px
+# decode: the ladder must take the fused fallback, one encode rung and two
+# decode rungs.
+PHASE11_MEMORY_FRACTION = 0.25
+PHASE11_RUNGS = [(False, (1024, 1024)), (True, (1024, 1024)), (True, (512, 512)), (True, (256, 256))]
+# (e) the staged decode's tiles, against the device-tiled decode at the same tiles
+PHASE11_STAGED_TILE = ((512, 512), (64, 64))
+
+
+def _comfy_stub():
+    """tests/comfy_stub.py of this checkout (it imports neither jax nor the
+    JAX package): the ComfyUI host modules the node layer touches."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("comfy_stub", Path(__file__).resolve().parent / "tests" /
+                                                  "comfy_stub.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _recorded_log():
+    """A Debug whose printed lines (every forced one: the ladder's rungs)
+    are also kept in ``lines``."""
+    from seedvr2_tpu_torch.utils.debug import Debug
+
+    class Log(Debug):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def log(self, msg, category="info", force=False, indent_level=0):
+            if self.enabled or force:
+                self.lines.append(msg)
+            super().log(msg, category, force, indent_level)
+
+    return Log()
+
+
+def _record_vae_attempts(runner, attempts):
+    """Wrap a runner's raw VAE stages (both routes call them): each attempt's
+    (stage, tiled, tile size, overlap, "ok" or "oom") lands in ``attempts``."""
+    for stage in ("_encode", "_decode"):
+        raw = getattr(runner, stage)
+
+        def rec(x, tiled, ts, to, tile_parallel=True, _raw=raw, _name=stage[1:]):
+            try:
+                out = _raw(x, tiled, ts, to, tile_parallel)
+            except torch.cuda.OutOfMemoryError:
+                attempts.append((_name, tiled, tuple(ts), tuple(to), "oom"))
+                raise
+            attempts.append((_name, tiled, tuple(ts), tuple(to), "ok"))
+            return out
+
+        setattr(runner, stage, rec)
+
+
+def _max_code_diff(a, b) -> int:
+    """Largest difference of two [0, 1] float clips in 16-bit codes."""
+    if a.shape != b.shape:
+        raise RuntimeError(f"shapes differ: {a.shape} vs {b.shape}")
+    return int(np.abs(np.rint(np.asarray(a, np.float64) * 65535) - np.rint(np.asarray(b, np.float64) * 65535)).max())
+
+
+def _peak_call(dev, fn):
+    """(result, seconds, peak GiB) of fn() from a clean peak counter."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def node_phase(dev, per_batch, d, frames):
+    """Phase 11: the node layer (seedvr2_tpu_torch/interfaces.py) under the
+    stub ComfyUI host, at full width (3B + VAE, bf16) from phase 9's
+    safetensors in ``d``: (a) the V3 workflow on the main path's clip, (b)
+    a cached second execute, (c) the interrupt, (d) the OOM ladder under a
+    memory cap at 1080p, (e) the host-staged decode against the
+    device-tiled one. Every check raises."""
+    import asyncio
+
+    import pytest
+
+    from seedvr2_tpu_torch import interfaces as I
+    from seedvr2_tpu_torch.models.vae import tiling
+    from seedvr2_tpu_torch.ops.resize import pipeline_transform, to_f01, true_target_dims
+    from seedvr2_tpu_torch.pipeline import loader, phases
+    from seedvr2_tpu_torch.utils.metrics import psnr
+
+    stub = _comfy_stub()
+    mp = pytest.MonkeyPatch()
+    out = {}
+    try:
+        comfy = stub.install(mp)
+        loads = []
+        real_load = loader.load_runner
+        mp.setattr(loader, "load_runner", lambda **kw: loads.append(real_load(**kw)) or loads[-1])
+        I.get_global_cache().clear()
+        ext = asyncio.run(I.comfy_entrypoint())
+        nodes = {cls.__name__: cls for cls in asyncio.run(ext.get_node_list())}
+        comfy.node_id = "11"
+        dit = nodes["SeedVR2LoadDiTModel"].execute(model="seedvr2_ema_3b_fp16.safetensors", cache_model=True).values[0]
+        vae = nodes["SeedVR2LoadVAEModel"].execute(model="ema_vae_fp16.safetensors").values[0]
+        if (dit["device"], vae["device"], dit["attention_mode"]) != ("cuda:0", "cuda:0", "fused"):
+            raise RuntimeError(f"node defaults: DiT {dit}, VAE {vae}")
+        upscaler = nodes["SeedVR2VideoUpscaler"]
+        image = torch.from_numpy(frames.astype(np.float32) / 255.0)  # a ComfyUI IMAGE: CPU float32 [T, H, W, C]
+        kw = dict(dit=dit, vae=vae, seed=42, resolution=PHASE9_RESOLUTION, batch_size=5, model_dir=d)
+
+        # (a) the V3 workflow
+        reset_counts()
+        res, wall, peak = _peak_call(dev, lambda: upscaler.execute(image=image, **kw).values[0])
+        counts = read_counts()
+        (runner,) = loads
+        shape = (len(frames),) + true_target_dims(*frames.shape[1:3], PHASE9_RESOLUTION) + (3,)
+        if not (isinstance(res, torch.Tensor) and res.dtype == torch.float32 and res.device.type == "cpu"
+                and tuple(res.shape) == shape):
+            raise RuntimeError(f"node output {type(res)} {getattr(res, 'shape', None)} is not a ComfyUI IMAGE")
+        expect("node (a)", counts, {k: per_batch[k] for k in ("K1", "K2", "K3")})
+        ref = phases.generate(runner, image.numpy())
+        diff = float(np.abs(res.numpy() - ref).max())
+        ups = comfy.progress_bars[-1].updates
+        if diff != 0 or ups != sorted(ups) or ups[-1] != 100:
+            raise RuntimeError(f"node (a): max |diff| {diff} from phases.generate, progress {ups}")
+        out["a"] = {"wall_s": wall, "peak_gib": peak, "launches": {k: counts[k] for k in ("K1", "K2", "K3")},
+                    "max_abs_diff": diff, "progress": ups}
+        print(f"  (a) V3 workflow, {frames.shape} -> {shape}: first execute {wall:.2f} s (the 3B and VAE safetensors "
+              f"read included), peak {peak:.2f} GiB, launches {out['a']['launches']}, max |diff| vs phases.generate "
+              f"{diff}, progress {ups}", flush=True)
+
+        # (b) the cache: another colour fix, no load
+        res_lab, wall_b, _ = _peak_call(dev, lambda: upscaler.execute(image=image, color_correction="lab",
+                                                                      **kw).values[0])
+        ref_lab = phases.generate(runner.with_config(runner.cfg.replace(color_correction="lab")), image.numpy())
+        diff_b = float(np.abs(res_lab.numpy() - ref_lab).max())
+        if len(loads) != 1 or diff_b != 0 or runner.cfg.color_correction != "wavelet":
+            raise RuntimeError(f"node (b): loads {len(loads)}, max |diff| {diff_b}, cached cfg "
+                               f"{runner.cfg.color_correction}")
+        out["b"] = {"wall_s": wall_b, "load_runner_calls": len(loads), "max_abs_diff": diff_b}
+        print(f"  (b) cached execute, color_correction=lab: {wall_b:.2f} s, load_runner called once in all, max "
+              f"|diff| vs phases.generate {diff_b}", flush=True)
+
+        # (c) the interrupt, set from a progress update: first the first one
+        # (phases 1-2 reported up front: no batch has run), then the first
+        # after a batch (one batch ran)
+        clip = np.random.RandomState(111).randint(0, 256, (PHASE11_INTERRUPT_FRAMES,) + frames.shape[1:])
+        clip = torch.from_numpy(clip.astype(np.float32) / 255.0)
+        update = stub.StubProgressBar.update_absolute
+        out["c"] = {}
+        for label, at in (("first update", 0), ("first update after a batch", 46)):
+            seen = {}
+
+            def hooked(bar, value, total, _at=at, _seen=seen):
+                update(bar, value, total)
+                if value >= _at and not comfy.interrupted:
+                    comfy.interrupted = True
+                    _seen["counts"], _seen["value"] = read_counts(), value
+
+            mp.setattr(stub.StubProgressBar, "update_absolute", hooked)
+            comfy.interrupted = False
+            reset_counts()
+            try:
+                upscaler.execute(image=clip, **kw)
+                raise RuntimeError(f"node (c) {label}: no InterruptProcessingException")
+            except stub.InterruptProcessingException:
+                pass
+            after = read_counts()
+            comfy.interrupted = False
+            batches = 0 if at == 0 else 1
+            want = {k: per_batch[k] * batches for k in ("K1", "K2", "K3")}
+            if after != seen["counts"]:
+                raise RuntimeError(f"node (c) {label}: launches after the flag: {seen['counts']} -> {after}")
+            expect(f"node (c) {label}", after, want)
+            out["c"][label] = {"flag_at_percent": seen["value"], "launches": {k: after[k] for k in want}}
+            print(f"  (c) interrupt set at the {label} ({seen['value']}%): InterruptProcessingException raised, "
+                  f"launches {out['c'][label]['launches']} at the flag and after it", flush=True)
+        mp.setattr(stub.StubProgressBar, "update_absolute", update)
+        del res, ref, res_lab, ref_lab
+
+        # (d) the ladder, 3B at 1080p: the peaks of its stages, then the run
+        # under a memory cap between them, then the run at the tiles it reached
+        h, w = PHASE11_LADDER_HW
+        big = np.random.RandomState(112).randint(0, 256, (5, h, w, 3)).astype(np.uint8)
+        cfg_l = runner.cfg.replace(resolution=PHASE11_LADDER_RESOLUTION)
+        plain = runner.with_config(cfg_l)
+        peaks = {}
+        _, _, peaks["fused route"] = _peak_call(dev, lambda: phases.generate(plain, big))
+        with torch.inference_mode():
+            tv = pipeline_transform(to_f01(phases.upload_frames(big, dev)), cfg_l.resolution, 0)[None]
+            tv = tv.to(runner.compute_dtype)
+            for tiled, size in PHASE11_RUNGS[:3]:
+                lat, _, peaks[f"encode {size[0] if tiled else 'untiled'}"] = _peak_call(
+                    dev, lambda: plain._encode(tv, tiled, size, (size[0] // 8,) * 2))
+            del tv
+            up, _, peaks["DiT step"] = _peak_call(dev, lambda: plain.upscale(lat, cfg_l.seed))
+            for tiled, size in PHASE11_RUNGS:
+                _, _, peaks[f"decode {size[0] if tiled else 'untiled'}"] = _peak_call(
+                    dev, lambda: plain._decode(up, tiled, size, (size[0] // 8,) * 2))
+        total_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+        cap = PHASE11_MEMORY_FRACTION * total_gib
+        print(f"  (d) peaks at 1080p, GiB: " + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()), flush=True)
+        if not (peaks["decode 1024"] > cap > max(peaks["encode 1024"], peaks["decode 512"], peaks["DiT step"])):
+            raise RuntimeError(f"node (d): a cap of {cap:.2f} GiB does not force the rungs (peaks {peaks})")
+        ladder = runner.with_config(cfg_l)
+        ladder.debug = log = _recorded_log()
+        attempts = []
+        _record_vae_attempts(ladder, attempts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(PHASE11_MEMORY_FRACTION, dev)
+        print(f"  (d) memory cap: fraction {PHASE11_MEMORY_FRACTION} of {total_gib:.2f} GiB = {cap:.2f} GiB "
+              f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)", flush=True)
+        try:
+            reset_counts()
+            got, wall_d, peak_d = _peak_call(dev, lambda: phases.generate(ladder, big, debug=log))
+            counts_d = read_counts()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        for line in log.lines:
+            print(f"      rung: {line}", flush=True)
+        for a in attempts:
+            print(f"      VAE attempt: {a}", flush=True)
+        fused_fell = any("fused pipeline" in line for line in log.lines)
+        untiled_decode_oom = ("decode", False) in {a[:2] for a in attempts if a[4] == "oom"}
+        enc = [a for a in attempts if a[0] == "encode" and a[4] == "ok"][-1]
+        dec = [a for a in attempts if a[0] == "decode" and a[4] == "ok"]
+        if not (fused_fell and untiled_decode_oom and dec and dec[-1][1]):
+            raise RuntimeError(f"node (d): the cap did not force the fused fallback and a tiled decode rung: "
+                               f"{log.lines}, {attempts}")
+        dec = dec[-1]
+        ref_cfg = cfg_l.replace(encode_tiled=enc[1], encode_tile_size=enc[2], encode_tile_overlap=enc[3],
+                                decode_tiled=True, decode_tile_size=dec[2], decode_tile_overlap=dec[3])
+        ref_d, ref_wall, ref_peak = _peak_call(dev, lambda: phases.generate(runner.with_config(ref_cfg), big))
+        codes = _max_code_diff(got, ref_d)
+        if codes != 0 or got.shape != (5,) + true_target_dims(h, w, PHASE11_LADDER_RESOLUTION) + (3,):
+            raise RuntimeError(f"node (d): ladder output {got.shape} is {codes} codes from the run at its tiles")
+        out["d"] = {"memory_fraction": PHASE11_MEMORY_FRACTION, "cap_gib": cap, "peaks_gib": peaks,
+                    "rungs": log.lines, "attempts": attempts, "wall_s": wall_d, "peak_gib": peak_d,
+                    "launches": {k: counts_d[k] for k in ("K1", "K2", "K3")}, "reference_wall_s": ref_wall,
+                    "reference_peak_gib": ref_peak, "max_abs_diff_codes": codes}
+        print(f"  (d) ladder: {big.shape} -> {got.shape} in {wall_d:.2f} s under the cap, peak {peak_d:.2f} GiB, "
+              f"launches {out['d']['launches']}; encode {enc[1:4]}, decode {dec[1:4]}; the same tiles without the "
+              f"cap (fused route) {ref_wall:.2f} s, peak {ref_peak:.2f} GiB; max |diff| {codes} codes", flush=True)
+        del got, ref_d, lat
+
+        # (e) the host-staged decode against the device-tiled decode, on that batch's latent
+        ts, to = PHASE11_STAGED_TILE
+        vc = cfg_l.vae
+        with torch.inference_mode():
+            z = up / vc.scaling_factor + vc.shifting_factor
+            del up
+            tiled, tiled_s, tiled_peak = _peak_call(dev, lambda: tiling.tiled_decode(runner.vae, z, ts, to))
+            staged, staged_s, staged_peak = _peak_call(dev, lambda: tiling.tiled_decode_staged(runner.vae, z, ts, to))
+        tiled = tiled.float().cpu()
+        rel = _rel((staged.to(torch.bfloat16).float(),), (tiled,))
+        rel_fp32 = _rel((staged,), (tiled,))
+        db = psnr(staged.clamp(-1, 1).numpy() * 0.5 + 0.5, tiled.clamp(-1, 1).numpy() * 0.5 + 0.5)
+        if not (rel <= 1e-3 and staged_peak < tiled_peak and torch.isfinite(staged).all()):
+            raise RuntimeError(f"node (e): staged vs device-tiled rel L2 {rel:.3e}, peaks {staged_peak:.2f} / "
+                               f"{tiled_peak:.2f} GiB")
+        out["e"] = {"tile": ts, "overlap": to, "rel_l2_bf16": rel, "rel_l2_fp32_vs_bf16": rel_fp32, "psnr_db": db,
+                    "staged_s": staged_s, "tiled_s": tiled_s, "staged_peak_gib": staged_peak,
+                    "tiled_peak_gib": tiled_peak}
+        print(f"  (e) staged vs device-tiled decode at {ts} px tiles: rel L2 {rel:.3e} (the staged fp32 sums rounded "
+              f"to bf16 as the tiled decode's; unrounded {rel_fp32:.3e}), PSNR {db:.2f} dB; staged {staged_s:.2f} s, "
+              f"peak {staged_peak:.2f} GiB; device-tiled {tiled_s:.2f} s, peak {tiled_peak:.2f} GiB", flush=True)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        mp.undo()
+        I.get_global_cache().clear()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1715,6 +2027,16 @@ def main():
         t0 = time.perf_counter()
         e2e_int8, launches_int8 = int8_phase(dev, text, frames, d, launches)
         e2e_int8["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("[11] the ComfyUI node layer under the stub host: 3B + VAE from phase 9's safetensors; the V3 "
+              "workflow, the cache, the interrupt, the OOM ladder at 1080p under a memory cap, the staged decode",
+              flush=True)
+        t0 = time.perf_counter()
+        e2e_node = node_phase(dev, launches, d, frames)
+        e2e_node["wall_s"] = time.perf_counter() - t0
+        print(f"  phase 11: {e2e_node['wall_s']:.1f} s", flush=True)
     launches_3b_int8 = e2e_int8["3B --quantize int8 (safetensors)"]["launches"]
     launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
     path_counts = {"long_clip": launches_long, "int8_7b": launches_int8, "int8_3b": launches_3b_int8}
@@ -1724,7 +2046,7 @@ def main():
         row["launches"] = path_counts.get(row.get("path"), launches)[row["kernel"]]
     rows += rank_rows
     e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long),
-               multi_rank=e2e_multi, cli=e2e_cli, int8=e2e_int8)
+               multi_rank=e2e_multi, cli=e2e_cli, int8=e2e_int8, node=e2e_node)
     print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,
                       "build_nvcc_s": b.compile_seconds}))
     print(card)

@@ -258,21 +258,14 @@ def process_frames(runner, cfg, frames, debug, mesh=None, tile_debug="false"):
     from .pipeline import phases
 
     packed = tile_debug not in ("encode", "decode")
-    debug.start_timer("generate")
     if mesh is not None and mesh.shape["data"] > 1:
         from .pipeline.multichip import generate_multichip
 
-        out = generate_multichip(runner, frames, mesh)
+        out = generate_multichip(runner, frames, mesh, debug=debug)
     else:
-        out = phases.generate(runner, frames, cfg, packed=packed)
+        out = phases.generate(runner, frames, cfg, packed=packed, debug=debug)
         if mesh is not None and mesh.rank != 0:
             out = None
-    if runner.device.type == "cuda":
-        torch.cuda.synchronize(runner.device)
-    dt = debug.end_timer("generate")
-    debug.log(f"Generated {len(frames)} frames in {dt:.2f}s ({len(frames) / max(dt, 1e-9):.2f} fps)",
-              category="generation")
-    debug.peak_memory_summary()
     if out is not None and tile_debug in ("encode", "decode"):
         from .utils.tile_debug import draw_for_config
 

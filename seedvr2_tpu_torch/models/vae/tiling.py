@@ -8,11 +8,14 @@
   blended with separable cosine ramps on interior edges into fp32
   accumulators on the device, divided by the accumulated weight.
 
+- The host-staged decode (``tiled_decode_staged``): the same grid and
+  ramps, one tile at a time on the device, the blend in host memory.
+
 The JAX package runs the tile groups as one ``lax.scan`` and pads the last
 group with zero-weight duplicates so that every step has one shape; here
 the groups are a Python loop and the last group is simply shorter. The
-column-chunk streaming decode (ColumnChunkPlan, tiled_decode_staged) is
-not ported yet (ROADMAP.md queue 1).
+column-chunk streaming decode (ColumnChunkPlan) is not ported yet
+(ROADMAP.md queue 1).
 
 Tile parallelism (``shard=TileShard(...)``, the counterpart of the JAX
 package's ``tile_sharding``): rank r of n runs the tiles whose index is r
@@ -248,6 +251,34 @@ def tiled_encode(
     return result.to(x.dtype)
 
 
+class _DecodeGrid(NamedTuple):
+    """The decode tile grid of a latent: the latent (y, x) start of each
+    tile (row-major), the latent tile size and each tile's pixel blend
+    weights."""
+
+    tiles: List[Tuple[int, int]]
+    lt_h: int
+    lt_w: int
+    weights: List[np.ndarray]
+
+
+def _decode_grid(H: int, W: int, sf: int, tile_size: Tuple[int, int], tile_overlap: Tuple[int, int]) -> _DecodeGrid:
+    """tiled_decode's grid, hard-seam guard included (shared with
+    tiled_decode_staged): an equalised latent grid (_axis_grid), pixel
+    ramps clamped to the smallest actual pixel seam."""
+    ltmax_h, ltmax_w = max(1, tile_size[0] // sf), max(1, tile_size[1] // sf)
+    ov_h = effective_pixel_overlap(tile_overlap[0], H, ltmax_h, sf)
+    ov_w = effective_pixel_overlap(tile_overlap[1], W, ltmax_w, sf)
+    lo_h = max(0, min(ov_h // sf, ltmax_h - 1))
+    lo_w = max(0, min(ov_w // sf, ltmax_w - 1))
+    lt_h, rows = _axis_grid(H, ltmax_h, lo_h)
+    lt_w, cols = _axis_grid(W, ltmax_w, lo_w)
+    th, tw = lt_h * sf, lt_w * sf
+    r_h = _seam_ramp(th, [y * sf for y in rows], ov_h)
+    r_w = _seam_ramp(tw, [x * sf for x in cols], ov_w)
+    return _DecodeGrid([(y, x) for y in rows for x in cols], lt_h, lt_w, _grid_weights(th, tw, rows, cols, r_h, r_w))
+
+
 def tiled_decode(
     vae: VAE,
     z: torch.Tensor,
@@ -256,31 +287,49 @@ def tiled_decode(
     tile_batch: int = 1,
     shard: Optional[TileShard] = None,
 ) -> torch.Tensor:
-    """A uniform full-size latent tile grid (_axis_grid), each tile decoded
-    and blended in pixel space with ramps clamped to the smallest actual
-    pixel seam. z [B, T', H', W', C] -> [B, 4(T'-1)+1, 8H', 8W', 3] in z's
-    dtype."""
+    """A uniform full-size latent tile grid (_decode_grid), each tile
+    decoded and blended in pixel space. z [B, T', H', W', C] -> [B,
+    4(T'-1)+1, 8H', 8W', 3] in z's dtype."""
     B, T, H, W, _ = z.shape
     sf = vae.cfg.spatial_downsample_factor
-    ltmax_h, ltmax_w = max(1, tile_size[0] // sf), max(1, tile_size[1] // sf)
-    if H <= ltmax_h and W <= ltmax_w:
+    if H <= max(1, tile_size[0] // sf) and W <= max(1, tile_size[1] // sf):
         return slicing_decode(vae, z)
-    ov_h = effective_pixel_overlap(tile_overlap[0], H, ltmax_h, sf)
-    ov_w = effective_pixel_overlap(tile_overlap[1], W, ltmax_w, sf)
-    lo_h = max(0, min(ov_h // sf, ltmax_h - 1))
-    lo_w = max(0, min(ov_w // sf, ltmax_w - 1))
-    lt_h, rows = _axis_grid(H, ltmax_h, lo_h)
-    lt_w, cols = _axis_grid(W, ltmax_w, lo_w)
-    tiles = [(y, x) for y in rows for x in cols]
-    th, tw = lt_h * sf, lt_w * sf
-    r_h = _seam_ramp(th, [y * sf for y in rows], ov_h)
-    r_w = _seam_ramp(tw, [x * sf for x in cols], ov_w)
-    weights = _grid_weights(th, tw, rows, cols, r_h, r_w)
-    tile_in = [z[:, :, y : y + lt_h, x : x + lt_w] for (y, x) in tiles]
-    starts = [(y * sf, x * sf) for (y, x) in tiles]
-    result = _blend_tiles(lambda b: slicing_decode(vae, b), tile_in, weights, starts, (H * sf, W * sf), tile_batch,
-                          shard)
+    grid = _decode_grid(H, W, sf, tile_size, tile_overlap)
+    tile_in = [z[:, :, y : y + grid.lt_h, x : x + grid.lt_w] for (y, x) in grid.tiles]
+    starts = [(y * sf, x * sf) for (y, x) in grid.tiles]
+    result = _blend_tiles(lambda b: slicing_decode(vae, b), tile_in, grid.weights, starts, (H * sf, W * sf),
+                          tile_batch, shard)
     return result.to(z.dtype)
+
+
+def tiled_decode_staged(
+    vae: VAE,
+    z: torch.Tensor,  # [B, T', H', W', C] unscaled latent on the VAE's device
+    tile_size: Tuple[int, int] = (1024, 1024),
+    tile_overlap: Tuple[int, int] = (128, 128),
+) -> torch.Tensor:
+    """Host-staged tiled decode, the last rung of the decode OOM ladder
+    (pipeline/runner.py): tiled_decode's grid and ramps, one tile at a time
+    decoded on the device, weighted there, copied to host fp32 and added
+    into one host accumulator. The device never holds more than one tile's
+    activations and output besides the latent. Returns a host (CPU) fp32
+    tensor in the decoder's range [-1, 1]; where the grid is one tile, that
+    tile's decode. Counterpart of the JAX package's tiled_decode_staged."""
+    B, T, H, W, _ = z.shape
+    sf = vae.cfg.spatial_downsample_factor
+    grid = _decode_grid(H, W, sf, tile_size, tile_overlap)
+    acc = cnt = None
+    for (y, x), w in zip(grid.tiles, grid.weights):
+        w_dev = torch.from_numpy(w).to(z.device)[None, None, :, :, None]
+        out = (slicing_decode(vae, z[:, :, y : y + grid.lt_h, x : x + grid.lt_w]).float() * w_dev).cpu()
+        if acc is None:
+            acc = torch.zeros((B, out.shape[1], H * sf, W * sf, out.shape[-1]), dtype=torch.float32)
+            cnt = torch.zeros((1, 1, H * sf, W * sf, 1), dtype=torch.float32)
+        th, tw = w.shape
+        acc[:, :, y * sf : y * sf + th, x * sf : x * sf + tw] += out
+        cnt[:, :, y * sf : y * sf + th, x * sf : x * sf + tw] += torch.from_numpy(w)[None, None, :, :, None]
+        del out
+    return acc / cnt.clamp_min(1e-6)
 
 
 # --------------------------------------------------------------------------- #

@@ -115,4 +115,4 @@ def load_runner(
     vae = vae_from_checkpoint(paths[1], cfg.vae, device, dtype)
     pos, neg = load_text_embeddings(emb_dir)
     width = cfg.dit.txt_in_dim
-    return Runner(cfg, dit, vae, pos[:, :width], device=device, mesh=mesh, text_neg=neg[:, :width])
+    return Runner(cfg, dit, vae, pos[:, :width], device=device, mesh=mesh, text_neg=neg[:, :width], debug=debug)

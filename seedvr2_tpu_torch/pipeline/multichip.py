@@ -15,7 +15,7 @@ segment.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -25,6 +25,7 @@ from ..ops.resize import true_target_dims
 from ..parallel.comm import all_gather_cat
 from ..parallel.mesh import AXIS_DATA, Mesh
 from ..parallel.multihost import local_data_coords
+from ..utils.debug import Debug
 from . import batching, phases
 from .runner import InputNoise, Runner, as_draws, check_supported
 
@@ -35,6 +36,9 @@ def generate_multichip(
     mesh: Mesh,
     seam_overlap: int = 4,
     noise=None,
+    debug: Optional[Debug] = None,
+    progress_callback: Optional[Callable] = None,
+    interrupt_fn: Optional[Callable] = None,
 ) -> Optional[np.ndarray]:
     """Upscale ``images`` with every data rank of ``mesh``; every rank of
     the mesh calls this with the same arguments. Rank 0 returns the clip
@@ -47,13 +51,25 @@ def generate_multichip(
     draw a batch of the clip, the same in every segment (Draws.inputs: one
     [T', H', W', 3] a batch). An RGBA input's alpha skips the models: rank
     0 upscales it against the blended RGB, batch_size frames at a time
-    (pipeline/alpha.py)."""
+    (pipeline/alpha.py).
+
+    ``interrupt_fn`` is called before every batch (and may raise);
+    ``progress_callback`` gets the fused path's protocol (phases 1 and 2
+    done up front, phase 3 per batch, phase 4 at the end; frames counted
+    over every segment), on rank 0 only. With one data rank both go to
+    phases.generate."""
     cfg = runner.cfg
     check_supported(cfg)
+    debug = debug or Debug()
     n = mesh.shape[AXIS_DATA]
+    lead = mesh.rank == 0
     if n == 1 or len(images) < 2 * n:
-        out = phases.generate(runner, images, cfg, noise=noise)
-        return out if mesh.rank == 0 else None
+        if n > 1:
+            debug.log(f"multichip: {len(images)} frames < 2 per rank on data={n}; falling back to the single-clip "
+                      "pipeline (the tile-parallel VAE still uses the mesh)", category="generation", force=True)
+        out = phases.generate(runner, images, cfg, noise=noise, debug=debug,
+                              progress_callback=progress_callback if lead else None, interrupt_fn=interrupt_fn)
+        return out if lead else None
 
     if cfg.prepend_frames > 0:
         images = batching.pad_temporal_reversed(images, cfg.prepend_frames, prepend=True)
@@ -69,10 +85,15 @@ def generate_multichip(
     true_h, true_w = true_target_dims(images.shape[1], images.shape[2], cfg.resolution, cfg.max_resolution)
 
     input_noise = InputNoise(cfg, runner.device, as_draws(noise).inputs)
-    lead = mesh.rank == 0
+    progress = progress_callback if lead else None
     out_segs = np.zeros((n, target_len, true_h, true_w, 3), np.float32) if lead else None
     write = 0
-    for spec in specs:
+    if progress:
+        progress(1, 1, 0, "Phase 1: Encoding")
+        progress(1, 1, 0, "Phase 2: Upscaling")
+    for si, spec in enumerate(specs):
+        if interrupt_fn is not None:
+            interrupt_fn()
         frames = phases.upload_frames(batching.prepare_batch(segment, spec), runner.device)
         codes = runner.fused_segment(frames, true_h, true_w, cfg.seed, noise=noise, ori=spec.ori_length,
                                      input_noise=input_noise)
@@ -80,6 +101,8 @@ def generate_multichip(
         if lead:
             out_segs[:, write : write + spec.ori_length] = phases._unpack(every.cpu().numpy(), cfg)
         write += spec.ori_length
+        if progress:
+            progress(si + 1, len(specs), spec.ori_length * n, "Phase 3: Decoding")
     if write < target_len - (cfg.batch_size - 1):
         raise RuntimeError(f"multichip batching drift: wrote {write} of {target_len} frames "
                            f"(batch_size={cfg.batch_size}, specs={len(specs)})")
@@ -109,4 +132,6 @@ def generate_multichip(
         final = np.concatenate([final, alpha], axis=-1)
     if cfg.prepend_frames > 0:
         final = final[cfg.prepend_frames :]
+    if progress:
+        progress(1, 1, 0, "Phase 4: Post-processing")
     return final

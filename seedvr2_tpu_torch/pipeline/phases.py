@@ -22,14 +22,27 @@ and is converted to RGB once up front on the 4-phase path; with
 Random draws: ``noise`` is a runner.Draws (or the DiT base noise alone)
 whose fields replace the generators' draws.
 
-Batches run one after another; overlapping batch i+1's compute with batch
-i's device->host copy (pinned buffers, a copy stream) is later work, and so
-is the OOM ladder: a torch.cuda.OutOfMemoryError propagates.
+Progress and interrupt, as in the JAX package: ``interrupt_fn`` is called
+before every batch of every phase and may raise (nothing here catches what
+it raises); ``progress_callback(cur, total, frames, phase_name)`` after
+it, with the phase names "Phase 1: Encoding", "Phase 2: Upscaling",
+"Phase 3: Decoding" and "Phase 4: Post-processing". The fused path reports
+phases 1 and 2 once up front as (1, 1, 0, ...), phase 3 per batch and
+phase 4 once at the end.
+
+Out of memory: where the fused path raises torch.cuda.OutOfMemoryError,
+``generate`` logs it and reruns the clip on the 4-phase path, whose VAE
+calls run under the runner's ladder (tiled, smaller tiles, host-staged
+decode). Batches run one after another; overlapping batch i+1's compute
+with batch i's device->host copy (pinned buffers, a copy stream) is later
+work.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import gc
+import time
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -40,6 +53,7 @@ from ..ops import color as color_ops
 from ..ops.blending import blend_overlapping_frames
 from ..ops.resize import pipeline_transform, to_f01, true_target_dims
 from ..ops.yuv import is_planar, yuv420_to_rgb01_np
+from ..utils.debug import Debug
 from . import batching
 from .runner import InputNoise, Runner, as_draws, check_supported
 
@@ -73,18 +87,34 @@ def generate_streaming(
     cfg: PipelineConfig,
     packed: bool = False,
     noise=None,
+    debug: Optional[Debug] = None,
+    progress_callback: Optional[Callable] = None,
+    interrupt_fn: Optional[Callable] = None,
 ):
     """The fused per-batch path (Runner.fused_batch). Where the runner packs
     the sink's yuv420 planes, a ``packed`` caller gets a PlanarYUV420 of the
     whole clip; any other caller gets RGB (planes converted on the host,
-    batch by batch: each holds whole frames, so no chroma seam)."""
+    batch by batch: each holds whole frames, so no chroma seam). Raises
+    torch.cuda.OutOfMemoryError where a batch does not fit (generate then
+    takes the 4-phase path)."""
+    debug = debug or Debug()
     total = len(images)
     true_h, true_w = true_target_dims(images.shape[1], images.shape[2], cfg.resolution, cfg.max_resolution)
     specs = batching.compute_batches(total, cfg.batch_size, 0, cfg.uniform_batch_size)
     inoise = InputNoise(cfg, runner.device, as_draws(noise).inputs)
     final = None  # allocated at the first batch: RGB frames, or planes
     write = 0
-    for spec in specs:
+    debug.start_timer("streaming_pipeline")
+    if progress_callback:
+        # one chain covers the four phases of a batch: phases 1-2 are
+        # reported done up front, phase 3 per batch, phase 4 at the end, so
+        # that a weighted progress bar only moves forward
+        progress_callback(1, 1, 0, "Phase 1: Encoding")
+        progress_callback(1, 1, 0, "Phase 2: Upscaling")
+    for bi, spec in enumerate(specs):
+        if interrupt_fn is not None:
+            interrupt_fn()
+        debug.start_timer(f"batch_{bi+1}")
         video = batching.prepare_batch(images, spec)
         fr = upload_frames(video if is_planar(video) else video[..., :3], runner.device)
         codes = runner.fused_batch(fr, true_h, true_w, cfg.seed, noise=noise, ori=spec.ori_length, input_noise=inoise)
@@ -105,6 +135,14 @@ def generate_streaming(
                 final = np.zeros((total, true_h, true_w, 3), host.dtype)
             final[write : write + ori] = host
         write += ori
+        debug.end_timer(f"batch_{bi+1}", f"Batch {bi+1}/{len(specs)} (fused)")
+        debug.log_memory_state(f"after batch {bi+1}")
+        if progress_callback:
+            progress_callback(bi + 1, len(specs), ori, "Phase 3: Decoding")
+    if progress_callback:
+        progress_callback(1, 1, 0, "Phase 4: Post-processing")
+    debug.end_timer("streaming_pipeline", "Fused streaming pipeline complete", show_breakdown=True)
+    debug.peak_memory_summary()
     return final[:write]
 
 
@@ -113,10 +151,14 @@ def generate_streaming(
 # --------------------------------------------------------------------------- #
 
 
-def make_context(cfg: PipelineConfig) -> Dict[str, Any]:
-    """The state the four phases hand on."""
+def make_context(cfg: PipelineConfig, debug: Optional[Debug] = None,
+                 interrupt_fn: Optional[Callable] = None) -> Dict[str, Any]:
+    """The state the four phases hand on, with the run log and the
+    interrupt that every phase calls before each batch."""
     return {
         "cfg": cfg,
+        "debug": debug or Debug(),
+        "interrupt_fn": interrupt_fn,
         "batches": None,
         "all_latents": [],
         "all_upscaled": [],
@@ -131,6 +173,12 @@ def make_context(cfg: PipelineConfig) -> Dict[str, Any]:
     }
 
 
+def _check_interrupt(ctx: Dict[str, Any]) -> None:
+    fn = ctx.get("interrupt_fn")
+    if fn is not None:
+        fn()
+
+
 def _transform_batch(cfg: PipelineConfig, rgb: np.ndarray, device) -> torch.Tensor:
     """[T, H, W, 3] host frames -> [T, H', W', 3] fp32 in [-1, 1] on the
     device (resize, pad to /16, normalise)."""
@@ -143,13 +191,17 @@ def _to_host_if(offload: bool, t: torch.Tensor) -> torch.Tensor:
 
 @torch.inference_mode()
 def encode_all_batches(runner: Runner, ctx: Dict[str, Any], images: np.ndarray,
-                       input_noise: Optional[InputNoise] = None) -> Dict[str, Any]:
+                       input_noise: Optional[InputNoise] = None,
+                       progress_callback: Optional[Callable] = None) -> Dict[str, Any]:
     """Phase 1: prepend frames, batch math, transform and VAE-encode every
     batch; the transformed frames are stashed on the device as the colour
     reference when the run budget allows. RGBA frames leave their alpha on
     the host for phase 4. ``input_noise`` augments the encoder's input
     (cfg.input_noise_scale; the colour reference stays clean)."""
     cfg: PipelineConfig = ctx["cfg"]
+    debug: Debug = ctx["debug"]
+    debug.log("Phase 1: VAE encoding", category="vae")
+    debug.start_timer("phase1_encoding")
     if cfg.prepend_frames > 0:
         images = batching.pad_temporal_reversed(images, cfg.prepend_frames, prepend=True)
     ctx["total_frames"] = len(images)
@@ -165,6 +217,8 @@ def encode_all_batches(runner: Runner, ctx: Dict[str, Any], images: np.ndarray,
     input_noise = input_noise or InputNoise(cfg, runner.device)
     with record_function("phase.encode"):
         for bi, spec in enumerate(specs):
+            _check_interrupt(ctx)
+            debug.start_timer(f"encode_batch_{bi+1}")
             video = batching.prepare_batch(images, spec)
             if ctx["is_rgba"]:
                 ctx["all_alpha"][bi] = video[..., 3:]
@@ -173,40 +227,61 @@ def encode_all_batches(runner: Runner, ctx: Dict[str, Any], images: np.ndarray,
                 ctx["ref_device"][bi] = tv
             latent = runner.vae_encode(input_noise.apply(tv)[None].to(runner.compute_dtype))
             ctx["all_latents"][bi] = _to_host_if(_offload(cfg, ctx, runner), latent[0])
+            debug.end_timer(f"encode_batch_{bi+1}", f"Encoded batch {bi+1}/{len(specs)}")
+            if progress_callback:
+                progress_callback(bi + 1, len(specs), spec.ori_length, "Phase 1: Encoding")
+    debug.end_timer("phase1_encoding", "Phase 1: VAE encoding complete")
+    debug.log_memory_state("after phase1")
     return ctx
 
 
 @torch.inference_mode()
-def upscale_all_batches(runner: Runner, ctx: Dict[str, Any], noise=None) -> Dict[str, Any]:
+def upscale_all_batches(runner: Runner, ctx: Dict[str, Any], noise=None,
+                        progress_callback: Optional[Callable] = None) -> Dict[str, Any]:
     """Phase 2: one DiT step per batch, each seeded alike (outputs do not
     depend on batch position); ``noise`` replaces every batch's draw. With
     phased_weights the DiT then leaves the device for the decode."""
     cfg: PipelineConfig = ctx["cfg"]
+    debug: Debug = ctx["debug"]
+    debug.start_timer("phase2_upscaling")
     n = len(ctx["all_latents"])
     ctx["all_upscaled"] = [None] * n
     with record_function("phase.upscale"):
         for bi in range(n):
+            _check_interrupt(ctx)
+            debug.start_timer(f"upscale_batch_{bi+1}")
             up = runner.upscale(ctx["all_latents"][bi][None], cfg.seed, noise)
             ctx["all_upscaled"][bi] = _to_host_if(_offload(cfg, ctx, runner), up[0])
             ctx["all_latents"][bi] = None
+            debug.end_timer(f"upscale_batch_{bi+1}", f"Upscaled batch {bi+1}/{n}")
+            if progress_callback:
+                progress_callback(bi + 1, n, 1, "Phase 2: Upscaling")
     runner.release_dit()
+    debug.end_timer("phase2_upscaling", "Phase 2: DiT upscaling complete")
+    debug.log_memory_state("after phase2")
     return ctx
 
 
 @torch.inference_mode()
-def decode_all_batches(runner: Runner, ctx: Dict[str, Any]) -> Dict[str, Any]:
+def decode_all_batches(runner: Runner, ctx: Dict[str, Any],
+                       progress_callback: Optional[Callable] = None) -> Dict[str, Any]:
     """Phase 3: decode every batch, trim its temporal and spatial padding,
     Hann-blend the overlap with the previous batch's tail, and write it into
     one host float32 video in [-1, 1] (with a fourth channel for phase 4's
     alpha when the input is RGBA)."""
+    debug: Debug = ctx["debug"]
+    debug.start_timer("phase3_decoding")
     true_h, true_w = ctx["true_dims"]
     final = np.zeros((ctx["total_frames"], true_h, true_w, 4 if ctx["is_rgba"] else 3), np.float32)
     overlap = ctx["actual_overlap"]
     specs = ctx["batches"]
     write = 0
     ctx["decode_info"] = []
+    n = len(ctx["all_upscaled"])
     with record_function("phase.decode"):
         for bi, up in enumerate(ctx["all_upscaled"]):
+            _check_interrupt(ctx)
+            debug.start_timer(f"decode_batch_{bi+1}")
             dec = runner.vae_decode(up.to(runner.device)[None])[0]
             ori = specs[bi].ori_length
             sample = dec[:ori, :true_h, :true_w].float().cpu()
@@ -220,22 +295,32 @@ def decode_all_batches(runner: Runner, ctx: Dict[str, Any]) -> Dict[str, Any]:
             ctx["decode_info"].append((write, write + t, bi, ori))
             write += t
             ctx["all_upscaled"][bi] = None
+            debug.end_timer(f"decode_batch_{bi+1}", f"Decoded batch {bi+1}/{n}")
+            if progress_callback:
+                progress_callback(bi + 1, n, t, "Phase 3: Decoding")
     ctx["final_video"] = final[:write]
+    debug.end_timer("phase3_decoding", "Phase 3: VAE decoding complete")
+    debug.log_memory_state("after phase3")
     return ctx
 
 
 @torch.inference_mode()
-def postprocess_all_batches(runner: Runner, ctx: Dict[str, Any]) -> Dict[str, Any]:
+def postprocess_all_batches(runner: Runner, ctx: Dict[str, Any],
+                            progress_callback: Optional[Callable] = None) -> Dict[str, Any]:
     """Phase 4: per batch, the colour fix against the transformed input
     (the phase-1 stash, or transformed again), trimmed like the output;
     [-1, 1] -> [0, 1]; an RGBA input's alpha upscaled against the result
     (pipeline/alpha.py); the prepended frames dropped."""
     cfg: PipelineConfig = ctx["cfg"]
+    debug: Debug = ctx["debug"]
+    debug.start_timer("phase4_postprocess")
     final = ctx["final_video"]
     specs = ctx["batches"]
     true_h, true_w = ctx["true_dims"]
+    n = len(ctx["decode_info"])
     with record_function("phase.postprocess"):
-        for ws, we, bi, ori in ctx["decode_info"]:
+        for i, (ws, we, bi, ori) in enumerate(ctx["decode_info"]):
+            _check_interrupt(ctx)
             out = final[ws:we, ..., :3]
             skip = ori - (we - ws)  # overlap frames dropped from the batch head
             if cfg.color_correction != "none":
@@ -252,25 +337,35 @@ def postprocess_all_batches(runner: Runner, ctx: Dict[str, Any]) -> Dict[str, An
 
                 final[ws:we, ..., 3] = upscale_alpha_batch(ctx["all_alpha"][bi][skip:ori], final[ws:we, ..., :3],
                                                            runner.device)
+            if progress_callback:
+                progress_callback(i + 1, n, we - ws, "Phase 4: Post-processing")
     if cfg.prepend_frames > 0:
         final = final[cfg.prepend_frames :]
     ctx["final_video"] = final
+    debug.end_timer("phase4_postprocess", "Phase 4: Post-processing complete")
+    debug.log_memory_state("after phase4")
     return ctx
 
 
 @torch.inference_mode()
-def decode_and_postprocess_fused(runner: Runner, ctx: Dict[str, Any]) -> Dict[str, Any]:
+def decode_and_postprocess_fused(runner: Runner, ctx: Dict[str, Any],
+                                 progress_callback: Optional[Callable] = None) -> Dict[str, Any]:
     """Phases 3 and 4 per batch when no batch overlaps another and nothing
     was prepended: decode, then Runner.finalize_batch (trim, colour, pack)
     on the device; only the packed codes reach the host."""
     cfg: PipelineConfig = ctx["cfg"]
+    debug: Debug = ctx["debug"]
+    debug.start_timer("phase34_fused")
     true_h, true_w = ctx["true_dims"]
     specs = ctx["batches"]
     packed = bool(ctx.get("packed"))
     final = np.zeros((ctx["total_frames"], true_h, true_w, 3), _packed_dtype(cfg) if packed else np.float32)
     write = 0
+    n = len(ctx["all_upscaled"])
     with record_function("phase.decode"):
         for bi, up in enumerate(ctx["all_upscaled"]):
+            _check_interrupt(ctx)
+            debug.start_timer(f"finalize_batch_{bi+1}")
             dec = runner.vae_decode(up.to(runner.device)[None])
             ori = specs[bi].ori_length
             ref, transformed = None, False
@@ -283,7 +378,15 @@ def decode_and_postprocess_fused(runner: Runner, ctx: Dict[str, Any]) -> Dict[st
             final[write : write + ori] = host.astype(_packed_dtype(cfg)) if packed else _unpack(host, cfg)
             write += ori
             ctx["all_upscaled"][bi] = None
+            debug.end_timer(f"finalize_batch_{bi+1}", f"Finalized batch {bi+1}/{n}")
+            if progress_callback:
+                progress_callback(bi + 1, n, ori, "Phase 3: Decoding")
+    if progress_callback:
+        # colour and normalisation ran in finalize_batch: this path is phase 4 too
+        progress_callback(1, 1, 0, "Phase 4: Post-processing")
     ctx["final_video"] = final[:write]
+    debug.end_timer("phase34_fused", "Phases 3+4 (fused) complete")
+    debug.log_memory_state("after phase34")
     return ctx
 
 
@@ -293,6 +396,9 @@ def generate(
     cfg: Optional[PipelineConfig] = None,
     packed: bool = False,
     noise=None,
+    debug: Optional[Debug] = None,
+    progress_callback: Optional[Callable] = None,
+    interrupt_fn: Optional[Callable] = None,
 ):
     """Frames THWC -> upscaled frames THWC: float32 in [0, 1], or with
     ``packed=True`` the uint16 / uint8 codes (cfg.output_bits) where the
@@ -301,9 +407,13 @@ def generate(
     in the JAX package). With cfg.output_pixfmt "yuv420" a ``packed``
     caller of the fused path gets a PlanarYUV420. ``noise``: a Draws (or
     the DiT base noise [t, h, w, C] alone) replacing the generators' draws
-    (tests)."""
+    (tests). ``debug``: the run log; ``progress_callback`` and
+    ``interrupt_fn`` as the module docstring says. A fused run that runs
+    out of device memory is rerun on the 4-phase path."""
     cfg = cfg or runner.cfg
     check_supported(cfg)
+    debug = debug or Debug()
+    t0 = time.perf_counter()
     can_stream = (
         cfg.fused_pipeline != "off"
         and batching.effective_overlap(cfg.batch_size, cfg.temporal_overlap) == 0
@@ -314,20 +424,40 @@ def generate(
         and len(images) > 0
     )
     if can_stream:
-        return generate_streaming(runner, images, cfg, packed=packed, noise=noise)
+        try:
+            out = generate_streaming(runner, images, cfg, packed, noise, debug, progress_callback, interrupt_fn)
+        except torch.cuda.OutOfMemoryError:
+            pass  # retried below, once this block has let go of the failed batch's tensors
+        else:
+            _log_rate(debug, len(out), t0)
+            return out
+        if runner.device.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+        debug.log("HBM exhausted in the fused pipeline; falling back to the phase-wise path with the tiling ladder",
+                  category="memory", force=True)
     if is_planar(images):
         # the 4-phase path works on RGB frames on the host: convert once here
         images = yuv420_to_rgb01_np(images.to_numpy()).astype(np.float32)
-    ctx = make_context(cfg)
+    ctx = make_context(cfg, debug, interrupt_fn)
     ctx["packed"] = packed
-    encode_all_batches(runner, ctx, images, InputNoise(cfg, runner.device, as_draws(noise).inputs))
-    upscale_all_batches(runner, ctx, noise)
+    debug.start_timer("generation")
+    encode_all_batches(runner, ctx, images, InputNoise(cfg, runner.device, as_draws(noise).inputs), progress_callback)
+    upscale_all_batches(runner, ctx, noise, progress_callback)
     if ctx["actual_overlap"] == 0 and cfg.prepend_frames == 0 and not ctx["is_rgba"]:
-        decode_and_postprocess_fused(runner, ctx)
+        decode_and_postprocess_fused(runner, ctx, progress_callback)
     else:
-        decode_all_batches(runner, ctx)
-        postprocess_all_batches(runner, ctx)
+        decode_all_batches(runner, ctx, progress_callback)
+        postprocess_all_batches(runner, ctx, progress_callback)
+    debug.end_timer("generation", "All phases complete", show_breakdown=True)
+    debug.peak_memory_summary()
+    _log_rate(debug, len(ctx["final_video"]), t0)
     return ctx["final_video"]
+
+
+def _log_rate(debug: Debug, n: int, t0: float) -> None:
+    dt = time.perf_counter() - t0
+    debug.log(f"Generated {n} frames in {dt:.1f}s ({n / max(dt, 1e-9):.2f} fps)", category="generation")
 
 
 # --------------------------------------------------------------------------- #

@@ -6,11 +6,14 @@ to_f01 -> pipeline_transform -> VAE encode -> one Euler step of the NaDiT
 -> VAE decode -> trim, colour fix, packed pixels (``finalize_batch``). The
 4-phase path (pipeline/phases.py) calls the same stages one phase at a
 time: ``vae_encode``, ``upscale``, ``vae_decode``, ``finalize_batch``. The
-VAE stages read the tile settings of the config (the OOM ladder of the JAX
-runner, which turns tiling on after RESOURCE_EXHAUSTED, is not ported: a
-torch.cuda.OutOfMemoryError propagates). With ``output_pixfmt="yuv420"``
-``fused_batch`` returns the sink's planes (ops/yuv.py) instead of RGB
-codes. Each stage of ``fused_batch`` is a
+VAE stages read the tile settings of the config; on the 4-phase path they
+run under the out-of-memory ladder (``_with_oom_fallback``): after a
+torch.cuda.OutOfMemoryError they retry tiled, then with smaller tiles, and
+a decode last of all host-staged. ``fused_batch`` runs the VAE without the
+ladder, as the JAX package's fused program does: its OOM propagates to
+phases.generate, which reruns the clip on the 4-phase path. With
+``output_pixfmt="yuv420"`` ``fused_batch`` returns the sink's planes
+(ops/yuv.py) instead of RGB codes. Each stage of ``fused_batch`` is a
 ``torch.profiler.record_function`` range ("runner.<stage>"), read by
 profile_batch.py; without a running profiler a range is one small host call.
 
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +45,7 @@ from ..ops.resize import pipeline_transform, to_f01
 from ..ops.yuv import rgb01_to_yuv420
 from ..parallel.mesh import Mesh
 from ..parallel.sp import sharded_dit
+from ..utils.debug import Debug
 from . import diffusion as dm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -122,12 +127,14 @@ class Runner:
         device=None,
         mesh: Optional[Mesh] = None,
         text_neg=None,  # [Lt', txt_in_dim]: the negative prompt, read when cfg_scale != 1
+        debug: Optional[Debug] = None,  # the run log: the OOM ladder's rungs go there
     ):
         check_supported(cfg)
         self.cfg = cfg
         self.dit = dit
         self.vae = vae
         self.mesh = mesh
+        self.debug = debug or Debug()
         self.device = torch.device(device) if device is not None else next(dit.buffers()).device
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.text_pos = torch.as_tensor(np.asarray(text_pos, np.float32), device=self.device)[None]
@@ -176,24 +183,75 @@ class Runner:
             return None
         return tiling.TileShard(self.mesh.rank, self.mesh.size, self.mesh.world)
 
-    @torch.inference_mode()
-    def vae_encode(self, video: torch.Tensor, tile_parallel: bool = True) -> torch.Tensor:
-        """[B, T, H, W, 3] in [-1, 1] -> scaled latent, tiled as cfg says."""
-        c = self.cfg
+    def _encode(self, video: torch.Tensor, tiled: bool, tile_size, tile_overlap, tile_parallel: bool = True):
         return tiling.vae_encode(
-            self.vae, video, tiled=c.encode_tiled, tile_size=c.encode_tile_size,
-            tile_overlap=c.encode_tile_overlap, tile_batch=c.encode_tile_batch,
-            shard=self._tile_parallel(video.shape[0], tile_parallel),
+            self.vae, video, tiled=tiled, tile_size=tile_size, tile_overlap=tile_overlap,
+            tile_batch=self.cfg.encode_tile_batch, shard=self._tile_parallel(video.shape[0], tile_parallel),
+        )
+
+    def _decode(self, latent: torch.Tensor, tiled: bool, tile_size, tile_overlap, tile_parallel: bool = True):
+        return tiling.vae_decode(
+            self.vae, latent, tiled=tiled, tile_size=tile_size, tile_overlap=tile_overlap,
+            tile_batch=self.cfg.decode_tile_batch, shard=self._tile_parallel(latent.shape[0], tile_parallel),
         )
 
     @torch.inference_mode()
-    def vae_decode(self, latent: torch.Tensor, tile_parallel: bool = True) -> torch.Tensor:
+    def vae_encode(self, video: torch.Tensor) -> torch.Tensor:
+        """[B, T, H, W, 3] in [-1, 1] -> scaled latent, tiled as cfg says,
+        under the OOM ladder."""
         c = self.cfg
-        return tiling.vae_decode(
-            self.vae, latent, tiled=c.decode_tiled, tile_size=c.decode_tile_size,
-            tile_overlap=c.decode_tile_overlap, tile_batch=c.decode_tile_batch,
-            shard=self._tile_parallel(latent.shape[0], tile_parallel),
-        )
+        return self._with_oom_fallback("encode", lambda t, ts, to: self._encode(video, t, ts, to), c.encode_tiled,
+                                       c.encode_tile_size, c.encode_tile_overlap)
+
+    @torch.inference_mode()
+    def vae_decode(self, latent: torch.Tensor) -> torch.Tensor:
+        """Scaled latent -> [B, T, H, W, 3] in [-1, 1] on the latent's
+        device, tiled as cfg says, under the OOM ladder (whose last rung
+        returns fp32)."""
+        c, vc = self.cfg, self.cfg.vae
+
+        def staged(ts, to):
+            z = latent / vc.scaling_factor + vc.shifting_factor
+            return tiling.tiled_decode_staged(self.vae, z, ts, to).to(latent.device)
+
+        return self._with_oom_fallback("decode", lambda t, ts, to: self._decode(latent, t, ts, to), c.decode_tiled,
+                                       c.decode_tile_size, c.decode_tile_overlap, staged_fn=staged)
+
+    def _with_oom_fallback(self, tag: str, fn, tiled: bool, tile_size, tile_overlap, staged_fn=None):
+        """The JAX runner's ladder on torch.cuda.OutOfMemoryError (and on
+        nothing else): untiled -> tiled at 1024/128 px -> the tile halved
+        (overlap halved, at least 32 px) while it is above 256 px -> for a
+        decode, ``staged_fn`` at the last tile (host-staged accumulation);
+        past the last rung the error propagates. Every rung is logged with
+        force=True.
+
+        The caching allocator raises at the allocation, synchronously, so
+        an OOM surfaces inside ``fn``: the JAX runner's completion fetch
+        and its set of shapes already validated (there for asynchronous
+        RESOURCE_EXHAUSTED) have no counterpart. The retry runs outside
+        the ``except`` block, after a collection (should a reference cycle
+        hold a failed frame) and empty_cache: inside it, the traceback
+        still holds the failed attempt's frames and their activations."""
+        while True:
+            try:
+                return fn(tiled, tile_size, tile_overlap)
+            except torch.cuda.OutOfMemoryError:
+                if tiled and tile_size[0] <= 256 and staged_fn is None:
+                    raise
+            if self.device.type == "cuda":
+                gc.collect()
+                torch.cuda.empty_cache()
+            if not tiled:
+                tiled, tile_size, tile_overlap = True, (1024, 1024), (128, 128)
+            elif tile_size[0] > 256:
+                tile_size = (tile_size[0] // 2, tile_size[1] // 2)
+                tile_overlap = (max(32, tile_overlap[0] // 2),) * 2
+            else:
+                self.debug.log(f"HBM exhausted during VAE {tag} at the tile floor; falling back to host-staged tile "
+                               "accumulation", category="memory", force=True)
+                return staged_fn(tile_size, tile_overlap)
+            self.debug.log(f"HBM exhausted during VAE {tag}; retrying with tiles {tile_size}",
+                           category="memory", force=True)
 
     # ------------------------------- DiT ----------------------------------- #
 
@@ -294,11 +352,12 @@ class Runner:
             tv = pipeline_transform(to_f01(frames), c.resolution, c.max_resolution)  # fp32 [-1, 1]
             video = tv if input_noise is None else input_noise.apply(tv)
         with record_function("runner.vae_encode"):
-            latent = self.vae_encode(video[None].to(self.compute_dtype), tile_parallel)
+            latent = self._encode(video[None].to(self.compute_dtype), c.encode_tiled, c.encode_tile_size,
+                                  c.encode_tile_overlap, tile_parallel)
         with record_function("runner.dit_step"):
             up = self.upscale(latent, seed, noise)
         with record_function("runner.vae_decode"):
-            dec = self.vae_decode(up, tile_parallel)
+            dec = self._decode(up, c.decode_tiled, c.decode_tile_size, c.decode_tile_overlap, tile_parallel)
         with record_function("runner.color_pack"):
             return self.finalize_batch(dec, tv, tv.shape[0] if ori is None else ori, true_h, true_w, True, planes)
 

@@ -399,3 +399,63 @@ def test_w8a16_linear_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         quant.linear_apply(x, w_q, w_s, torch.zeros(256, device=cuda))  # fp32 bias
     assert quant.linear_apply(x, w_q, w_s).shape == (4, 256)
+
+
+@pytest.fixture
+def memory_cap(cuda):
+    """cap(gib) limits this process's share of the card
+    (torch.cuda.set_per_process_memory_fraction); the cap is lifted at
+    teardown, whatever the test did."""
+
+    index = torch.cuda.current_device()  # the call takes a device index
+
+    def cap(gib):
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(gib * 2**30 / torch.cuda.get_device_properties(index).total_memory,
+                                                   index)
+
+    yield cap
+    torch.cuda.set_per_process_memory_fraction(1.0, index)
+    torch.cuda.empty_cache()
+
+
+def test_oom_ladder_reaches_a_tiled_rung_under_a_memory_cap(cuda, memory_cap, capsys):
+    """A VAE decode of a 5 x 512x768 output under a cap halfway between the
+    untiled decode's peak and the 512 px tiled decode's: the ladder fails
+    untiled and at 1024 px (one tile: the untiled pass again), passes at
+    512 px, and returns exactly the 512 px tiled decode (K1, K2 on each
+    tile)."""
+    import numpy as np
+
+    from seedvr2_tpu_torch.config import PipelineConfig, VAEConfig
+    from seedvr2_tpu_torch.models.params import init_random
+    from seedvr2_tpu_torch.models.vae.model import VAE
+    from seedvr2_tpu_torch.pipeline.runner import Runner
+
+    vc = VAEConfig(block_out_channels=(128, 128, 256, 256), layers_per_block=1)
+    cfg = PipelineConfig(vae=vc)
+    vae = init_random(VAE(vc, cuda, torch.bfloat16), torch.Generator(device=cuda).manual_seed(12))
+    runner = Runner(cfg, None, vae, np.zeros((1, cfg.dit.txt_in_dim), np.float32), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    lat = torch.randn((1, 2, 64, 96, vc.latent_channels), generator=g, device=cuda).bfloat16()
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated()
+
+    _, untiled = peak(lambda: runner._decode(lat, False, (1024, 1024), (128, 128)))
+    ref, tiled = peak(lambda: runner._decode(lat, True, (512, 512), (64, 64)))
+    assert tiled < 0.8 * untiled, (tiled, untiled)
+    n0 = (k1.conv3d_3x3x3.launches, k2.fold_upsample_conv.launches)
+    memory_cap((tiled + untiled) / 2 / 2**30)
+    out = runner.vae_decode(lat)
+    torch.cuda.synchronize()
+    log = capsys.readouterr().out
+    assert "retrying with tiles (1024, 1024)" in log and "retrying with tiles (512, 512)" in log, log
+    assert "host-staged" not in log
+    assert k1.conv3d_3x3x3.launches > n0[0] and k2.fold_upsample_conv.launches > n0[1]
+    assert torch.equal(out, ref)
