@@ -115,9 +115,22 @@ Phases (any failure raises and the script exits non-zero without a result):
      reached; the cap lifted in a finally; (e) on that batch's latent, the
      host-staged decode against the device-tiled one at 512 px tiles (rel
      L2 <= 1e-3, PSNR, time and a lower peak).
+ 12. the streamed output path: 3B + VAE at full width (random bf16
+     weights, wavelet, 16-bit codes), phases.generate on the column-chunk
+     route (chunked_output "auto") against one fused_batch a batch
+     ("off"), two runs each, every batch asserted on its route: (a) the
+     main path's clip with decode_tiled at 1024 / 128 px (the plan asserted:
+     columns (0, 72), chunk ends (544, 1280)), (b) 960x540 -> 1920x1080 at
+     1088 x 1024 px tiles ((0, 112), (864, 1920)): wall, peak, codes within
+     2, K1 / K2 / K3 equal on both routes and non-zero; (c) 15 frames in
+     three batches under torch.profiler: the device -> host copies' bytes
+     and ms, the ms of them under a compute-stream kernel, the device's
+     idle share, and the synchronizing calls of each route
+     (torch.cuda.set_sync_debug_mode); (d) (a) with yuv420 planes, within
+     1 code.
 Budgets (H100 80GB HBM3, 700 W; PERF.md): phases 1-8 ~180 s, phase 9
-~100 s, phase 10 ~190 s, phase 11 ~100 s (the whole script ~560 s); it
-must end within 1200 s. K7 may
+~100 s, phase 10 ~190 s, phase 11 ~100 s, phase 12 <= 60 s (the whole
+script ~630 s); it must end within 1200 s. K7 may
 launch only in phases 3 and 10 (read_counts raises elsewhere).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
@@ -1960,6 +1973,149 @@ def node_phase(dev, per_batch, d, frames):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Phase 12: the streamed output path
+# --------------------------------------------------------------------------- #
+
+# (a) the main path's clip with the tiled decode at its default 1024 / 128 px
+# tiles: one row of two 704 px column tiles; (b) 960x540 -> 1920x1080 with
+# 1088 x 1024 px tiles: two 1024 px column tiles. (column starts in latent
+# units, chunk end columns in pixels; tiling.column_chunk_plan)
+PHASE12_PLANS = {"720p": ((0, 72), (544, 1280)), "1080p": ((0, 112), (864, 1920))}
+PHASE12_1080_TILE = (1088, 1024)
+# (c) the deferred flush: three 5-frame batches at (a)'s geometry
+PHASE12_FLUSH_FRAMES = 15
+
+
+def _spy_routes(runner):
+    """Count the batches that ``runner`` sends through each fused route."""
+    seen = {"chunks": 0, "fused": 0}
+    chunks, fused = runner.fused_batch_chunks, runner.fused_batch
+
+    def count_chunks(*a, **k):
+        seen["chunks"] += 1
+        return chunks(*a, **k)
+
+    def count_fused(*a, **k):
+        seen["fused"] += 1
+        return fused(*a, **k)
+
+    runner.fused_batch_chunks, runner.fused_batch = count_chunks, count_fused
+    return seen
+
+
+def _routes(runner, frames, label, out_hw, want_plan, **generate_kw):
+    """phases.generate on the chunk route ("auto") and on one fused_batch a
+    batch ("off"), two runs each (the first counted and its peak read);
+    each route's batches asserted on their route, the codes compared and
+    the K1 / K2 / K3 counts asserted equal and non-zero."""
+    from seedvr2_tpu_torch.ops.yuv import is_planar
+    from seedvr2_tpu_torch.pipeline import phases
+
+    plan = runner.supports_chunked((5,) + frames.shape[1:3] + (3,), *out_hw)
+    if plan is None or (plan.cols, plan.emit) != want_plan:
+        raise RuntimeError(f"{label}: plan {plan}, expected cols / emit {want_plan}")
+    res, outs = {"plan": {"cols": plan.cols, "emit": plan.emit, "tile_px": plan.tw}}, {}
+    for route in ("auto", "off"):
+        r = runner.with_config(runner.cfg.replace(chunked_output=route))
+        seen = _spy_routes(r)
+        walls = []
+        for run in range(2):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = phases.generate(r, frames, packed=True, **generate_kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if run == 0:
+                launches, peak = read_counts(), torch.cuda.max_memory_allocated(r.device) / 2**30
+        batches = -(-len(frames) // 5) * 2
+        if seen != ({"chunks": batches, "fused": 0} if route == "auto" else {"chunks": 0, "fused": batches}):
+            raise RuntimeError(f"{label} {route}: batches by route {seen}")
+        outs[route] = out
+        res[route] = {"wall_s": walls, "peak_gib": peak,
+                      "launches": {k: launches[k] for k in ("K1", "K2", "K3", "K4", "K3q", "K5", "K6", "K7")}}
+    auto, off = outs["auto"], outs["off"]
+    if tuple(auto.shape) != tuple(off.shape) or tuple(auto.shape[1:3]) != out_hw:
+        raise RuntimeError(f"{label}: shapes {auto.shape} vs {off.shape}")
+    planar = is_planar(auto)
+    if planar != (runner.cfg.output_pixfmt == "yuv420") or planar != is_planar(off):
+        raise RuntimeError(f"{label}: planes {planar} / {is_planar(off)} for output_pixfmt {runner.cfg.output_pixfmt}")
+    pairs = zip((auto.y, auto.u, auto.v), (off.y, off.u, off.v)) if planar else [(auto, off)]
+    diff = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()) for a, b in pairs)
+    bound = 1 if planar else 2
+    res["max_code_diff"] = diff
+    la, lo = res["auto"]["launches"], res["off"]["launches"]
+    if diff > bound or any(la[k] != lo[k] or la[k] == 0 for k in ("K1", "K2", "K3")):
+        raise RuntimeError(f"{label}: chunked vs off {diff} codes (bound {bound}), launches {la} vs {lo}")
+    print(f"  {label}: plan cols {plan.cols} emit {plan.emit} ({plan.tw} px tiles); auto {res['auto']['wall_s'][0]:.3f}"
+          f" / {res['auto']['wall_s'][1]:.3f} s, peak {res['auto']['peak_gib']:.2f} GiB; off "
+          f"{res['off']['wall_s'][0]:.3f} / {res['off']['wall_s'][1]:.3f} s, peak {res['off']['peak_gib']:.2f} GiB; "
+          f"max code diff {diff}; K1 {la['K1']} K2 {la['K2']} K3 {la['K3']} on both", flush=True)
+    return res
+
+
+def stream_phase(dev, text, frames):
+    """Phase 12: the streamed column-chunk decode and the deferred output
+    copy at full width (3B + VAE, bf16, wavelet, 16-bit codes), each route
+    of phases.generate against the other: (a) 720p, (b) 1080p, (c) the
+    deferred flush over three batches under the profiler, with the sync
+    census of the chunk route, (d) yuv420 planes. Every check raises."""
+    from seedvr2_tpu_torch.config import PipelineConfig
+    from seedvr2_tpu_torch.io.weights import random_dit, random_vae
+    from seedvr2_tpu_torch.pipeline import phases
+    from seedvr2_tpu_torch.pipeline.runner import Runner
+    from seedvr2_tpu_torch.stream_ab import sync_census, trace_copies
+
+    cfg = PipelineConfig(resolution=720, decode_tiled=True)
+    g = torch.Generator(device=dev).manual_seed(46)
+    runner = Runner(cfg, random_dit(cfg.dit, g), random_vae(cfg.vae, g), text, device=dev)
+    out = {}
+    print("  (a) 720p, decode_tiled at 1024 / 128 px", flush=True)
+    out["a"] = _routes(runner, frames, "720p", (720, 1280), PHASE12_PLANS["720p"])
+    print("  (b) 1080p, decode tiles 1088 x 1024 px", flush=True)
+    big = np.random.RandomState(12).randint(0, 256, (5, 540, 960, 3)).astype(np.uint8)
+    r1080 = runner.with_config(cfg.replace(resolution=1080, decode_tile_size=PHASE12_1080_TILE))
+    out["b"] = _routes(r1080, big, "1080p", (1080, 1920), PHASE12_PLANS["1080p"])
+    del big, r1080
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    clip = np.random.RandomState(13).randint(0, 256, (PHASE12_FLUSH_FRAMES, 360, 640, 3)).astype(np.uint8)
+    out["c"] = {}
+    for route in ("auto", "off"):
+        r = runner.with_config(cfg.replace(chunked_output=route))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        phases.generate(r, clip, packed=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        tr = trace_copies(r, clip)
+        tr.update(unprofiled_wall_s=wall, launches={k: launches[k] for k in ("K1", "K2", "K3")})
+        out["c"][route] = tr
+        print(f"  (c) {PHASE12_FLUSH_FRAMES} frames, 3 batches, {route}: {wall:.3f} s ({tr['wall_s']:.3f} s profiled); "
+              f"{tr['d2h_count']} D2H copies, {tr['d2h_bytes'] / 1e6:.1f} MB, {tr['d2h_ms']:.3f} ms, "
+              f"{tr['d2h_overlapping_compute_ms']:.3f} ms of it under a compute-stream kernel (streams "
+              f"{tr['d2h_streams']} vs compute {tr['compute_stream']}); device idle share {tr['idle_share']:.4f}",
+              flush=True)
+    if out["c"]["auto"]["d2h_count"] < 3 * len(PHASE12_PLANS["720p"][1]):
+        raise RuntimeError(f"(c) chunk route: {out['c']['auto']['d2h_count']} D2H copies for 3 batches")
+    for route in ("auto", "off"):
+        out["c"][f"syncs_{route}"] = sync_census(runner.with_config(cfg.replace(chunked_output=route)), clip)
+        print(f"  (c) synchronizing calls in one {route} run (file:line -> count): {out['c'][f'syncs_{route}']}",
+              flush=True)
+    del clip
+
+    print("  (d) yuv420 planes, 720p", flush=True)
+    yuv = runner.with_config(cfg.replace(output_pixfmt="yuv420"))
+    out["d"] = _routes(yuv, frames, "720p yuv420", (720, 1280), PHASE12_PLANS["720p"])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2037,6 +2193,15 @@ def main():
         e2e_node = node_phase(dev, launches, d, frames)
         e2e_node["wall_s"] = time.perf_counter() - t0
         print(f"  phase 11: {e2e_node['wall_s']:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[12] the streamed output path: 3B + VAE, the column-chunk route against one fused_batch a batch "
+          "(720p, 1080p, three batches under the profiler, yuv420)", flush=True)
+    t0 = time.perf_counter()
+    e2e_stream = stream_phase(dev, text, frames)
+    e2e_stream["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 12: {e2e_stream['wall_s']:.1f} s", flush=True)
     launches_3b_int8 = e2e_int8["3B --quantize int8 (safetensors)"]["launches"]
     launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
     path_counts = {"long_clip": launches_long, "int8_7b": launches_int8, "int8_3b": launches_3b_int8}
@@ -2046,7 +2211,7 @@ def main():
         row["launches"] = path_counts.get(row.get("path"), launches)[row["kernel"]]
     rows += rank_rows
     e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long),
-               multi_rank=e2e_multi, cli=e2e_cli, int8=e2e_int8, node=e2e_node)
+               multi_rank=e2e_multi, cli=e2e_cli, int8=e2e_int8, node=e2e_node, stream=e2e_stream)
     print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,
                       "build_nvcc_s": b.compile_seconds}))
     print(card)

@@ -190,8 +190,9 @@ class DiffusionConfig:
 @dataclass(frozen=True)
 class PipelineConfig:
     """End-to-end generation settings (the CLI and node parameters). The
-    fields are those of the JAX package; the port raises NotImplementedError
-    for every value off its ported path (pipeline/runner.py:check_supported)."""
+    fields and defaults are those of the JAX package; every value of every
+    field runs (pipeline/runner.py:check_supported raises ValueError only
+    for an unknown colour method or output_pixfmt)."""
 
     dit: DiTConfig = field(default_factory=dit_3b)
     vae: VAEConfig = field(default_factory=vae_config)
@@ -219,6 +220,9 @@ class PipelineConfig:
     output_bits: int = 16  # packed output codes: 16 or 8 bits a channel
     output_pixfmt: str = "rgb"  # "rgb" | "yuv420"
     fused_pipeline: str = "auto"  # "auto": one chain per batch; "off": 4 phases
+    # "auto": a fused batch whose decode grid is one row of column tiles is
+    # decoded and copied to the host column chunk by column chunk
+    # (Runner.fused_batch_chunks); "off": one fused_batch a batch
     chunked_output: str = "auto"
     tensor_offload: str = "auto"  # "auto" | "always" | "never"
     phased_weights: bool = False

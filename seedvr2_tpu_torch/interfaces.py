@@ -10,7 +10,9 @@ video upscaler) from one schema table, in two frontends:
 - standalone, the same classes are legacy dict nodes
   (``NODE_CLASS_MAPPINGS``), for scripted pipelines and tests.
 
-The loaders' ``device`` is a card ("cuda:0", the default, ...) or "cpu".
+The loaders' ``device`` is a card ("cuda:0", the default, ...) or "cpu";
+a workflow saved with the JAX package's nodes holds "tpu", which runs on
+``SAVED_TPU_DEVICE`` (the default card), with a log line.
 The CUDA-era knobs of the reference that the JAX package accepts and
 ignores (blocks_to_swap, swap_io_components, offload_device, the compile
 settings) are accepted and ignored here too. The upscaler loads through
@@ -58,6 +60,22 @@ def _devices() -> Tuple[str, ...]:
     """The cards this process sees ("cuda:0" first, listed even where no
     card is visible), then "cpu"."""
     return tuple(f"cuda:{i}" for i in range(max(torch.cuda.device_count(), 1))) + ("cpu",)
+
+
+# where a saved "tpu" device runs: the default card, or "cpu" where the
+# caller asks for the CPU (a machine without a card)
+SAVED_TPU_DEVICE = "cuda:0"
+
+
+def _resolve_device(device: str) -> str:
+    """A loader's ``device``: "tpu" (the JAX package's only option, which
+    its saved workflows hold) becomes SAVED_TPU_DEVICE; anything else is
+    kept."""
+    if device != "tpu":
+        return device
+    Debug().log(f'device "tpu" (a workflow saved for the JAX package): running on {SAVED_TPU_DEVICE}',
+                category="setup", force=True)
+    return SAVED_TPU_DEVICE
 
 
 _OFFLOAD_OPTS = ("none", "cpu")
@@ -256,8 +274,8 @@ class SeedVR2LoadDiTModel:
         node_id: Optional[Any] = None,
         **_ignored,
     ):
-        return ({"model": model, "device": device, "cache_model": cache_model, "attention_mode": attention_mode,
-                 "node_id": node_id},)
+        return ({"model": model, "device": _resolve_device(device), "cache_model": cache_model,
+                 "attention_mode": attention_mode, "node_id": node_id},)
 
 
 class SeedVR2LoadVAEModel:
@@ -289,7 +307,7 @@ class SeedVR2LoadVAEModel:
         return (
             {
                 "model": model,
-                "device": device,
+                "device": _resolve_device(device),
                 "cache_model": cache_model,
                 "encode_tiled": encode_tiled,
                 "encode_tile_size": (encode_tile_size, encode_tile_size),

@@ -10,12 +10,14 @@
 
 - The host-staged decode (``tiled_decode_staged``): the same grid and
   ramps, one tile at a time on the device, the blend in host memory.
+- The streamed column-chunk decode (``column_chunk_plan``): where the
+  decode grid is one row of column tiles, the geometry with which
+  pipeline/runner.py:fused_batch_chunks decodes the tiles left to right and
+  emits each finished column range as soon as its tile is blended.
 
 The JAX package runs the tile groups as one ``lax.scan`` and pads the last
 group with zero-weight duplicates so that every step has one shape; here
-the groups are a Python loop and the last group is simply shorter. The
-column-chunk streaming decode (ColumnChunkPlan) is not ported yet
-(ROADMAP.md queue 1).
+the groups are a Python loop and the last group is simply shorter.
 
 Tile parallelism (``shard=TileShard(...)``, the counterpart of the JAX
 package's ``tile_sharding``): rank r of n runs the tiles whose index is r
@@ -36,6 +38,7 @@ import torch
 
 from ...config import VAEConfig
 from ...parallel.comm import all_reduce_sum
+from ...utils.transfer import to_device
 from .causal_conv import StreamCtx
 from .model import VAE, posterior_mode
 
@@ -188,7 +191,7 @@ def _blend_tiles(
     cnt = torch.zeros((1, 1, H, W, 1), dtype=torch.float32, device=dev)
     for i, (y, x) in enumerate(out_starts):  # every tile's weight, on every rank
         th, tw = weights[i].shape
-        cnt[:, :, y : y + th, x : x + tw] += torch.from_numpy(weights[i]).to(dev)[None, None, :, :, None]
+        cnt[:, :, y : y + th, x : x + tw] += to_device(weights[i], dev)[None, None, :, :, None]
     acc = None
     for g0 in range(0, len(mine), tile_batch):
         ids = mine[g0 : g0 + tile_batch]
@@ -200,7 +203,7 @@ def _blend_tiles(
             acc = torch.zeros((B, out.shape[2], H, W, out.shape[-1]), dtype=torch.float32, device=dev)
         th, tw = out.shape[3], out.shape[4]
         for gi, i in enumerate(ids):
-            w = torch.from_numpy(weights[i]).to(dev)[None, None, :, :, None]
+            w = to_device(weights[i], dev)[None, None, :, :, None]
             y, x = out_starts[i]
             acc[:, :, y : y + th, x : x + tw] += out[:, gi].float() * w
         del out
@@ -262,21 +265,99 @@ class _DecodeGrid(NamedTuple):
     weights: List[np.ndarray]
 
 
+def _decode_axis(extent: int, tile_px: int, overlap_px: int, sf: int) -> Tuple[int, list, int]:
+    """One axis of tiled_decode's grid, hard-seam guard included: (latent
+    tile size, latent starts of an equalised grid (_axis_grid), pixel ramp
+    clamped to the smallest actual pixel seam)."""
+    ltmax = max(1, tile_px // sf)
+    ov = effective_pixel_overlap(overlap_px, extent, ltmax, sf)
+    lt, starts = _axis_grid(extent, ltmax, max(0, min(ov // sf, ltmax - 1)))
+    return lt, starts, _seam_ramp(lt * sf, [s * sf for s in starts], ov)
+
+
 def _decode_grid(H: int, W: int, sf: int, tile_size: Tuple[int, int], tile_overlap: Tuple[int, int]) -> _DecodeGrid:
-    """tiled_decode's grid, hard-seam guard included (shared with
-    tiled_decode_staged): an equalised latent grid (_axis_grid), pixel
-    ramps clamped to the smallest actual pixel seam."""
-    ltmax_h, ltmax_w = max(1, tile_size[0] // sf), max(1, tile_size[1] // sf)
-    ov_h = effective_pixel_overlap(tile_overlap[0], H, ltmax_h, sf)
-    ov_w = effective_pixel_overlap(tile_overlap[1], W, ltmax_w, sf)
-    lo_h = max(0, min(ov_h // sf, ltmax_h - 1))
-    lo_w = max(0, min(ov_w // sf, ltmax_w - 1))
-    lt_h, rows = _axis_grid(H, ltmax_h, lo_h)
-    lt_w, cols = _axis_grid(W, ltmax_w, lo_w)
-    th, tw = lt_h * sf, lt_w * sf
-    r_h = _seam_ramp(th, [y * sf for y in rows], ov_h)
-    r_w = _seam_ramp(tw, [x * sf for x in cols], ov_w)
-    return _DecodeGrid([(y, x) for y in rows for x in cols], lt_h, lt_w, _grid_weights(th, tw, rows, cols, r_h, r_w))
+    """tiled_decode's grid (shared with tiled_decode_staged and
+    column_chunk_plan)."""
+    lt_h, rows, r_h = _decode_axis(H, tile_size[0], tile_overlap[0], sf)
+    lt_w, cols, r_w = _decode_axis(W, tile_size[1], tile_overlap[1], sf)
+    return _DecodeGrid([(y, x) for y in rows for x in cols], lt_h, lt_w,
+                       _grid_weights(lt_h * sf, lt_w * sf, rows, cols, r_h, r_w))
+
+
+class ColumnChunkPlan(NamedTuple):
+    """The geometry of the streamed column-chunk decode
+    (pipeline/runner.py:fused_batch_chunks): a single row of >= 2
+    full-height column tiles, decoded left to right and chained by an
+    (acc, cnt) carry strip, each emitting the packed columns that are final
+    once it is blended. Pixel units unless noted."""
+
+    sf: int
+    lt_w: int  # latent tile width
+    cols: Tuple[int, ...]  # latent column starts (>= 2)
+    tw: int  # pixel tile width
+    th: int  # pixel tile height (the full frame height)
+    ramp: int  # seam blend ramp length
+    halo: int  # colour-fix halo (0 when there is no colour fix)
+    emit: Tuple[int, ...]  # chunk end columns; emit[-1] == true_w
+    true_w: int
+
+    def tile_weights(self, i: int) -> np.ndarray:
+        """Column tile i's blend weights across its width, as tiled_decode
+        weighs it (ramps on interior seams only)."""
+        return _edge_weights(self.tw, self.ramp, i == 0, i == len(self.cols) - 1)
+
+
+def column_chunk_plan(
+    cfg: VAEConfig,
+    H: int,  # latent rows of the decode input
+    W: int,  # latent columns
+    tile_size: Tuple[int, int],
+    tile_overlap: Tuple[int, int],
+    true_h: int,
+    true_w: int,
+    halo: int,
+) -> Optional[ColumnChunkPlan]:
+    """The ColumnChunkPlan of tiled_decode's own grid (_decode_axis), or
+    None where streaming would change the result: the grid must be a
+    single row of >= 2 column tiles, each interior boundary plus its halo
+    must lie inside the true width (a halo cut at true_w would be
+    replicate-padded where the whole frame has real pixels), and ``halo``
+    must cover the colour fix's reach (wavelet: 5 levels of dilated 3x3,
+    radii 1+2+4+8+16 = 31 -> 32). The radius-clamp guard rejects shapes
+    where wavelet_blur's min(H, W) // 8 clamp (ops/color.py) would act
+    otherwise on a halo'd chunk than on the whole frame."""
+    sf = cfg.spatial_downsample_factor
+    if H > max(1, tile_size[0] // sf):  # more than one tile row
+        return None
+    lt_w, cols, ramp = _decode_axis(W, tile_size[1], tile_overlap[1], sf)
+    if len(cols) < 2:
+        return None
+    tw, th = lt_w * sf, H * sf
+    if true_h > th or true_w > W * sf:
+        return None
+    p = [x * sf for x in cols]
+    emit = []
+    prev = 0
+    for i in range(len(cols) - 1):
+        e = p[i + 1] - halo
+        if e <= prev or (halo and p[i + 1] > true_w) or e - halo < 0:
+            return None
+        emit.append(e)
+        prev = e
+    if true_w <= prev:
+        return None
+    emit.append(true_w)
+    if halo:
+        m_full = max(1, min(true_h, true_w) // 8)
+        lo = 0
+        for i, e in enumerate(emit):
+            a = max(0, lo - (halo if i else 0))
+            b = min(true_w, e + (halo if i < len(emit) - 1 else 0))
+            m_chunk = max(1, min(true_h, b - a) // 8)
+            if m_chunk != m_full and (m_chunk < 16 or m_full < 16):
+                return None
+            lo = e
+    return ColumnChunkPlan(sf, lt_w, tuple(cols), tw, th, ramp, halo, tuple(emit), true_w)
 
 
 def tiled_decode(

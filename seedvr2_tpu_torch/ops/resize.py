@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.transfer import to_device
+
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.5) -> np.ndarray:
     ax = np.abs(x)
@@ -67,8 +69,8 @@ def true_target_dims(h: int, w: int, resolution: int, max_resolution: int = 0) -
 
 def resize_video(video: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """[T, H, W, C] -> [T, size[0], size[1], C], fp32 matmuls."""
-    mh = torch.from_numpy(resample_matrix(video.shape[1], size[0])).to(video.device)
-    mw = torch.from_numpy(resample_matrix(video.shape[2], size[1])).to(video.device)
+    mh = to_device(resample_matrix(video.shape[1], size[0]), video.device)
+    mw = to_device(resample_matrix(video.shape[2], size[1]), video.device)
     y = torch.einsum("hH,tHwc->thwc", mh, video.float())
     return torch.einsum("wW,thWc->thwc", mw, y).to(video.dtype)
 

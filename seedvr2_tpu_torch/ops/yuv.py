@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.transfer import to_device
+
 _KR, _KG, _KB = 0.299, 0.587, 0.114  # BT.601
 
 
@@ -80,8 +82,8 @@ class PlanarYUV420:
     def to_device(self, device) -> "PlanarYUV420":
         """Host planes -> the card, 8-bit codes as uint8, 10-bit as int16."""
         def dev(p):
-            a = np.ascontiguousarray(p)
-            return torch.from_numpy(a.astype(np.int16) if a.dtype == np.uint16 else a).to(device)
+            a = np.asarray(p)
+            return to_device(a.astype(np.int16) if a.dtype == np.uint16 else a, device)
 
         return self.tmap(dev)
 

@@ -48,6 +48,12 @@ def effective_overlap(batch_size: int, temporal_overlap: int) -> int:
     return 0 if temporal_overlap >= batch_size else temporal_overlap
 
 
+def optimal_batch_size(total_frames: int) -> int:
+    """The largest 4n+1 <= total_frames (1 for an empty clip)."""
+    valid = [i for i in range(1, total_frames + 1) if i % 4 == 1]
+    return max(valid) if valid else 1
+
+
 def pad_temporal_reversed(video: np.ndarray, count: int, prepend: bool = False) -> np.ndarray:
     """Extend with time-reversed frames (temporal axis 0)."""
     t = video.shape[0]

@@ -29,6 +29,16 @@ def schedule_forward(x0: torch.Tensor, xT: torch.Tensor, t: torch.Tensor, T: flo
     return schedule_A(t, T) * x0 + schedule_B(t, T) * xT
 
 
+def schedule_snr(t, T: float):
+    """Signal-to-noise ratio A(t)^2 / B(t)^2."""
+    return (schedule_A(t, T) ** 2) / (schedule_B(t, T) ** 2)
+
+
+def schedule_isnr(snr, T: float):
+    """The timestep of a signal-to-noise ratio: T / (1 + sqrt(snr))."""
+    return T / (1.0 + snr**0.5)
+
+
 def convert_from_pred(pred: torch.Tensor, pred_type: str, x_t: torch.Tensor, t: torch.Tensor, T: float):
     """(pred_x0, pred_xT) from the model prediction."""
     t = expand_dims_right(t, x_t.ndim)
@@ -41,6 +51,21 @@ def convert_from_pred(pred: torch.Tensor, pred_type: str, x_t: torch.Tensor, t: 
         return A * x_t - B * pred, A * pred + B * x_t
     if pred_type == "v_lerp":
         return (x_t - B * pred) / (A + B), (x_t + A * pred) / (A + B)
+    raise NotImplementedError(pred_type)
+
+
+def convert_to_pred(x_0: torch.Tensor, x_T: torch.Tensor, t: torch.Tensor, T: float, pred_type: str) -> torch.Tensor:
+    """The model prediction of ``pred_type`` from (x_0, x_T): the inverse
+    of convert_from_pred."""
+    if pred_type == "x_T":
+        return x_T
+    if pred_type == "x_0":
+        return x_0
+    if pred_type == "v_cos":
+        t = expand_dims_right(t, x_0.ndim)
+        return schedule_A(t, T) * x_T - schedule_B(t, T) * x_0
+    if pred_type == "v_lerp":
+        return x_T - x_0
     raise NotImplementedError(pred_type)
 
 

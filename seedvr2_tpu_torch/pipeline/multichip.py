@@ -35,10 +35,11 @@ def generate_multichip(
     images: np.ndarray,  # [T, H, W, 3|4]: float in [0, 1], uint8 or uint16
     mesh: Mesh,
     seam_overlap: int = 4,
-    noise=None,
     debug: Optional[Debug] = None,
     progress_callback: Optional[Callable] = None,
     interrupt_fn: Optional[Callable] = None,
+    *,
+    noise=None,
 ) -> Optional[np.ndarray]:
     """Upscale ``images`` with every data rank of ``mesh``; every rank of
     the mesh calls this with the same arguments. Rank 0 returns the clip
@@ -46,7 +47,8 @@ def generate_multichip(
 
     With one data rank, or fewer than 2 frames per data rank, every rank
     runs phases.generate on the whole clip (the DiT sharded over seq and
-    tensor, the tiles of a tiled VAE over every rank). ``noise`` replaces
+    tensor, the tiles of a tiled VAE over every rank). ``noise`` (keyword
+    only; the positional order is the JAX package's) replaces
     the generators' draws, as in phases.generate; the input noise is one
     draw a batch of the clip, the same in every segment (Draws.inputs: one
     [T', H', W', 3] a batch). An RGBA input's alpha skips the models: rank

@@ -30,12 +30,24 @@ it, with the phase names "Phase 1: Encoding", "Phase 2: Upscaling",
 phases 1 and 2 once up front as (1, 1, 0, ...), phase 3 per batch and
 phase 4 once at the end.
 
-Out of memory: where the fused path raises torch.cuda.OutOfMemoryError,
-``generate`` logs it and reruns the clip on the 4-phase path, whose VAE
-calls run under the runner's ladder (tiled, smaller tiles, host-staged
-decode). Batches run one after another; overlapping batch i+1's compute
-with batch i's device->host copy (pinned buffers, a copy stream) is later
-work.
+The fused path's output stream: a batch whose decode grid is one row of
+column tiles (Runner.supports_chunked, cfg.chunked_output "auto") runs as
+Runner.fused_batch_chunks, which yields each finished column chunk while
+the next tile still computes; any other batch runs as one
+Runner.fused_batch. Each chunk (or whole batch) is copied to pinned host
+memory on a side copy stream as soon as its kernels are queued
+(utils/transfer.py), and batch i is flushed (the copies waited for, the
+codes unpacked or the planes converted on the host) only after batch
+i+1's work has been queued, so that the copies and the host's unpack
+overlap the next batch's compute. On a CPU runner the same code reads the
+chunks where they lie.
+
+Out of memory: where the chunk route raises torch.cuda.OutOfMemoryError,
+``generate`` logs it, disables the route on the runner
+(``_disable_chunked``) and reruns the clip with one fused_batch a batch;
+where the fused path raises it, ``generate`` logs it and reruns the clip
+on the 4-phase path, whose VAE calls run under the runner's ladder (tiled,
+smaller tiles, host-staged decode).
 """
 
 from __future__ import annotations
@@ -52,8 +64,9 @@ from ..config import PipelineConfig
 from ..ops import color as color_ops
 from ..ops.blending import blend_overlapping_frames
 from ..ops.resize import pipeline_transform, to_f01, true_target_dims
-from ..ops.yuv import is_planar, yuv420_to_rgb01_np
+from ..ops.yuv import PlanarYUV420, is_planar, yuv420_to_rgb01_np
 from ..utils.debug import Debug
+from ..utils.transfer import HostCopies, to_device
 from . import batching
 from .runner import InputNoise, Runner, as_draws, check_supported
 
@@ -64,13 +77,9 @@ def upload_frames(rgb: np.ndarray, device) -> torch.Tensor:
     planar yuv420 codes as raw planes (1.5 codes a pixel)."""
     if is_planar(rgb):
         return rgb.to_device(device)
-    if rgb.dtype == np.uint8:
-        t = torch.from_numpy(np.ascontiguousarray(rgb))
-    elif rgb.dtype == np.uint16:
-        t = torch.from_numpy(rgb.astype(np.int32))
-    else:
-        t = torch.from_numpy(np.ascontiguousarray(rgb, dtype=np.float16))
-    return t.to(device)
+    if rgb.dtype == np.uint16:
+        return to_device(rgb.astype(np.int32), device)
+    return to_device(rgb if rgb.dtype == np.uint8 else np.asarray(rgb, np.float16), device)
 
 
 def _unpack(codes: np.ndarray, cfg: PipelineConfig) -> np.ndarray:
@@ -81,29 +90,67 @@ def _packed_dtype(cfg: PipelineConfig):
     return np.uint8 if cfg.output_bits == 8 else np.uint16
 
 
+def _start_copy(copies: HostCopies, out):
+    """The host copy of a chunk: codes, or a PlanarYUV420 of its planes."""
+    return out.tmap(copies.start) if is_planar(out) else copies.start(out)
+
+
+def _landed(copy):
+    """A started copy's host array (or planes), once the copy has run."""
+    return copy.tmap(lambda c: c.wait().numpy()) if is_planar(copy) else copy.wait().numpy()
+
+
 def generate_streaming(
     runner: Runner,
     images,  # [T, H, W, 3] frames, or PlanarYUV420
     cfg: PipelineConfig,
-    packed: bool = False,
-    noise=None,
     debug: Optional[Debug] = None,
     progress_callback: Optional[Callable] = None,
     interrupt_fn: Optional[Callable] = None,
+    packed: bool = False,
+    *,
+    noise=None,
 ):
-    """The fused per-batch path (Runner.fused_batch). Where the runner packs
-    the sink's yuv420 planes, a ``packed`` caller gets a PlanarYUV420 of the
-    whole clip; any other caller gets RGB (planes converted on the host,
-    batch by batch: each holds whole frames, so no chroma seam). Raises
-    torch.cuda.OutOfMemoryError where a batch does not fit (generate then
-    takes the 4-phase path)."""
+    """The fused per-batch path (Runner.fused_batch, or fused_batch_chunks
+    where the runner gives a column-chunk plan), with the deferred flush of
+    the module docstring. Where the runner packs the sink's yuv420 planes, a
+    ``packed`` caller gets a PlanarYUV420 of the whole clip; any other
+    caller gets RGB (a batch's planes are put together first and converted
+    on the host as whole frames, so column chunks leave no chroma seam).
+    Raises torch.cuda.OutOfMemoryError where a batch does not fit (generate
+    then takes another route)."""
     debug = debug or Debug()
     total = len(images)
     true_h, true_w = true_target_dims(images.shape[1], images.shape[2], cfg.resolution, cfg.max_resolution)
     specs = batching.compute_batches(total, cfg.batch_size, 0, cfg.uniform_batch_size)
     inoise = InputNoise(cfg, runner.device, as_draws(noise).inputs)
-    final = None  # allocated at the first batch: RGB frames, or planes
+    copies = HostCopies(runner.device)
+    final = None  # allocated at the first flush: RGB frames, or planes
     write = 0
+
+    def flush(parts, ori):
+        nonlocal final, write
+        host = [(lo, hi, _landed(c)) for lo, hi, c in parts]
+        if is_planar(host[0][2]):
+            planes = host[0][2] if len(host) == 1 else PlanarYUV420(
+                *(np.concatenate([getattr(h, k) for _, _, h in host], axis=2) for k in "yuv"), host[0][2].depth)
+            planes = planes.to_numpy()
+            if packed:
+                if final is None:
+                    final = planes.tmap(lambda p: np.zeros((total,) + p.shape[1:], p.dtype))
+                for dst, src in zip((final.y, final.u, final.v), (planes.y, planes.u, planes.v)):
+                    dst[write : write + ori] = src
+            else:
+                if final is None:
+                    final = np.zeros((total, true_h, true_w, 3), np.float32)
+                final[write : write + ori] = yuv420_to_rgb01_np(planes)
+        else:
+            if final is None:
+                final = np.zeros((total, true_h, true_w, 3), _packed_dtype(cfg) if packed else np.float32)
+            for lo, hi, codes in host:
+                final[write : write + ori, :, lo:hi] = codes if packed else _unpack(codes, cfg)
+        write += ori
+
     debug.start_timer("streaming_pipeline")
     if progress_callback:
         # one chain covers the four phases of a batch: phases 1-2 are
@@ -111,34 +158,30 @@ def generate_streaming(
         # that a weighted progress bar only moves forward
         progress_callback(1, 1, 0, "Phase 1: Encoding")
         progress_callback(1, 1, 0, "Phase 2: Upscaling")
+    pending = None
     for bi, spec in enumerate(specs):
         if interrupt_fn is not None:
             interrupt_fn()
         debug.start_timer(f"batch_{bi+1}")
         video = batching.prepare_batch(images, spec)
         fr = upload_frames(video if is_planar(video) else video[..., :3], runner.device)
-        codes = runner.fused_batch(fr, true_h, true_w, cfg.seed, noise=noise, ori=spec.ori_length, input_noise=inoise)
         ori = spec.ori_length
-        if is_planar(codes) and packed:
-            host = codes.to_numpy()
-            if final is None:
-                final = host.tmap(lambda p: np.zeros((total,) + p.shape[1:], p.dtype))
-            for dst, src in zip((final.y, final.u, final.v), (host.y, host.u, host.v)):
-                dst[write : write + ori] = src
+        plan = runner.supports_chunked(fr.shape, true_h, true_w)
+        if plan is not None:
+            parts = [(lo, hi, _start_copy(copies, chunk)) for lo, hi, chunk in runner.fused_batch_chunks(
+                fr, true_h, true_w, cfg.seed, plan, noise=noise, ori=ori, input_noise=inoise)]
         else:
-            if is_planar(codes):
-                host = yuv420_to_rgb01_np(codes.to_numpy()).astype(np.float32)
-            else:
-                host = codes.cpu().numpy()
-                host = host.astype(_packed_dtype(cfg)) if packed else _unpack(host, cfg)
-            if final is None:
-                final = np.zeros((total, true_h, true_w, 3), host.dtype)
-            final[write : write + ori] = host
-        write += ori
-        debug.end_timer(f"batch_{bi+1}", f"Batch {bi+1}/{len(specs)} (fused)")
+            codes = runner.fused_batch(fr, true_h, true_w, cfg.seed, noise=noise, ori=ori, input_noise=inoise)
+            parts = [(0, true_w, _start_copy(copies, codes))]
+        if pending is not None:
+            flush(*pending)
+        pending = (parts, ori)
+        debug.end_timer(f"batch_{bi+1}", f"Batch {bi+1}/{len(specs)} ({'column chunks' if plan else 'fused'})")
         debug.log_memory_state(f"after batch {bi+1}")
         if progress_callback:
             progress_callback(bi + 1, len(specs), ori, "Phase 3: Decoding")
+    if pending is not None:
+        flush(*pending)
     if progress_callback:
         progress_callback(1, 1, 0, "Phase 4: Post-processing")
     debug.end_timer("streaming_pipeline", "Fused streaming pipeline complete", show_breakdown=True)
@@ -191,8 +234,8 @@ def _to_host_if(offload: bool, t: torch.Tensor) -> torch.Tensor:
 
 @torch.inference_mode()
 def encode_all_batches(runner: Runner, ctx: Dict[str, Any], images: np.ndarray,
-                       input_noise: Optional[InputNoise] = None,
-                       progress_callback: Optional[Callable] = None) -> Dict[str, Any]:
+                       progress_callback: Optional[Callable] = None, *,
+                       input_noise: Optional[InputNoise] = None) -> Dict[str, Any]:
     """Phase 1: prepend frames, batch math, transform and VAE-encode every
     batch; the transformed frames are stashed on the device as the colour
     reference when the run budget allows. RGBA frames leave their alpha on
@@ -236,8 +279,8 @@ def encode_all_batches(runner: Runner, ctx: Dict[str, Any], images: np.ndarray,
 
 
 @torch.inference_mode()
-def upscale_all_batches(runner: Runner, ctx: Dict[str, Any], noise=None,
-                        progress_callback: Optional[Callable] = None) -> Dict[str, Any]:
+def upscale_all_batches(runner: Runner, ctx: Dict[str, Any], progress_callback: Optional[Callable] = None, *,
+                        noise=None) -> Dict[str, Any]:
     """Phase 2: one DiT step per batch, each seeded alike (outputs do not
     depend on batch position); ``noise`` replaces every batch's draw. With
     phased_weights the DiT then leaves the device for the decode."""
@@ -390,26 +433,42 @@ def decode_and_postprocess_fused(runner: Runner, ctx: Dict[str, Any],
     return ctx
 
 
+def _chunked_was_in_play(runner: Runner, images, cfg: PipelineConfig) -> bool:
+    """Whether generate_streaming routes the clip's first batch through the
+    column-chunk path (runner.supports_chunked gives a plan for its frame
+    shape): only then is a monolithic retry a different attempt."""
+    specs = batching.compute_batches(len(images), cfg.batch_size, 0, cfg.uniform_batch_size)
+    if not specs:
+        return False
+    t = batching.frames_to_4n1(specs[0].ori_length + specs[0].uniform_padding)
+    true_h, true_w = true_target_dims(images.shape[1], images.shape[2], cfg.resolution, cfg.max_resolution)
+    return runner.supports_chunked((t, images.shape[1], images.shape[2], 3), true_h, true_w) is not None
+
+
 def generate(
     runner: Runner,
     images,  # [T, H, W, 3|4]: float in [0, 1], uint8 or uint16; or PlanarYUV420
     cfg: Optional[PipelineConfig] = None,
-    packed: bool = False,
-    noise=None,
     debug: Optional[Debug] = None,
     progress_callback: Optional[Callable] = None,
     interrupt_fn: Optional[Callable] = None,
+    packed: bool = False,
+    *,
+    noise=None,
 ):
     """Frames THWC -> upscaled frames THWC: float32 in [0, 1], or with
     ``packed=True`` the uint16 / uint8 codes (cfg.output_bits) where the
     route packs on the device (the fused path, and the 4-phase path without
     overlap or prepended frames; the others, and RGBA, return float32, as
     in the JAX package). With cfg.output_pixfmt "yuv420" a ``packed``
-    caller of the fused path gets a PlanarYUV420. ``noise``: a Draws (or
-    the DiT base noise [t, h, w, C] alone) replacing the generators' draws
-    (tests). ``debug``: the run log; ``progress_callback`` and
-    ``interrupt_fn`` as the module docstring says. A fused run that runs
-    out of device memory is rerun on the 4-phase path."""
+    caller of the fused path gets a PlanarYUV420. The positional order is
+    the JAX package's. ``debug``: the run log; ``progress_callback`` and
+    ``interrupt_fn`` as the module docstring says. ``noise`` (keyword
+    only): a Draws (or the DiT base noise [t, h, w, C] alone) replacing the
+    generators' draws (tests). Out of memory: a run on the column-chunk
+    route is rerun with one fused_batch a batch; a fused run that runs out
+    of memory again, or that never used column chunks, is rerun on the
+    4-phase path."""
     cfg = cfg or runner.cfg
     check_supported(cfg)
     debug = debug or Debug()
@@ -423,9 +482,9 @@ def generate(
         and cfg.tensor_offload != "always"
         and len(images) > 0
     )
-    if can_stream:
+    while can_stream:
         try:
-            out = generate_streaming(runner, images, cfg, packed, noise, debug, progress_callback, interrupt_fn)
+            out = generate_streaming(runner, images, cfg, debug, progress_callback, interrupt_fn, packed, noise=noise)
         except torch.cuda.OutOfMemoryError:
             pass  # retried below, once this block has let go of the failed batch's tensors
         else:
@@ -434,16 +493,23 @@ def generate(
         if runner.device.type == "cuda":
             gc.collect()
             torch.cuda.empty_cache()
+        if _chunked_was_in_play(runner, images, cfg):
+            runner._disable_chunked = True
+            debug.log("HBM exhausted in the streamed column-chunk path; retrying the fused pipeline with one "
+                      "fused_batch a batch", category="memory", force=True)
+            continue
         debug.log("HBM exhausted in the fused pipeline; falling back to the phase-wise path with the tiling ladder",
                   category="memory", force=True)
+        break
     if is_planar(images):
         # the 4-phase path works on RGB frames on the host: convert once here
         images = yuv420_to_rgb01_np(images.to_numpy()).astype(np.float32)
     ctx = make_context(cfg, debug, interrupt_fn)
     ctx["packed"] = packed
     debug.start_timer("generation")
-    encode_all_batches(runner, ctx, images, InputNoise(cfg, runner.device, as_draws(noise).inputs), progress_callback)
-    upscale_all_batches(runner, ctx, noise, progress_callback)
+    encode_all_batches(runner, ctx, images, progress_callback,
+                       input_noise=InputNoise(cfg, runner.device, as_draws(noise).inputs))
+    upscale_all_batches(runner, ctx, progress_callback, noise=noise)
     if ctx["actual_overlap"] == 0 and cfg.prepend_frames == 0 and not ctx["is_rgba"]:
         decode_and_postprocess_fused(runner, ctx, progress_callback)
     else:

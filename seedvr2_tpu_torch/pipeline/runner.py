@@ -30,7 +30,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,11 +41,12 @@ from ..models.dit.nadit import NaDiT, build_attn_plans, device_plans
 from ..models.vae import tiling
 from ..models.vae.model import VAE
 from ..ops import color as color_ops
-from ..ops.resize import pipeline_transform, to_f01
-from ..ops.yuv import rgb01_to_yuv420
+from ..ops.resize import pipeline_transform, side_resize_dims, to_f01
+from ..ops.yuv import PlanarYUV420, is_planar, rgb01_to_yuv420
 from ..parallel.mesh import Mesh
 from ..parallel.sp import sharded_dit
 from ..utils.debug import Debug
+from ..utils.transfer import to_device
 from . import diffusion as dm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -141,6 +142,7 @@ class Runner:
         self.text_neg = (None if text_neg is None
                          else torch.as_tensor(np.asarray(text_neg, np.float32), device=self.device)[None])
         self._plans: Dict[Tuple, tuple] = {}
+        self._disable_chunked = False  # set by phases.generate after the chunk route ran out of memory
 
     def with_config(self, cfg: PipelineConfig) -> "Runner":
         """A runner for another config over the same modules, text and
@@ -166,10 +168,20 @@ class Runner:
 
     @staticmethod
     def get_condition(noise: torch.Tensor, latent_blur: torch.Tensor, task: str = "sr") -> torch.Tensor:
-        """Conditioning channels [cond latent | mask]; the upscaler uses 'sr'."""
-        if task != "sr":
-            raise NotImplementedError(task)
-        return torch.cat([latent_blur, torch.ones_like(noise[..., :1])], dim=-1)
+        """Conditioning channels [cond latent | mask] of a [B, t, h, w, C]
+        latent. Tasks: 'sr' (every frame conditioned on latent_blur, the
+        upscaler's), 'i2v' (the first frame), 'v2v' (the first two), 't2v'
+        (none); for i2v / v2v pass the clean latent as ``latent_blur``."""
+        mask0 = torch.zeros(noise.shape[:-1] + (1,), dtype=noise.dtype, device=noise.device)
+        if task == "sr":
+            return torch.cat([latent_blur, mask0 + 1.0], dim=-1)
+        if task == "t2v":
+            return torch.cat([torch.zeros_like(noise), mask0], dim=-1)
+        if task in ("i2v", "v2v"):
+            n = 1 if task == "i2v" else 2
+            keep = (torch.arange(noise.shape[1], device=noise.device) < n).to(noise.dtype).reshape(1, -1, 1, 1, 1)
+            return torch.cat([latent_blur * keep, mask0 + keep], dim=-1)
+        raise NotImplementedError(task)
 
     # ------------------------------- VAE ----------------------------------- #
 
@@ -326,6 +338,23 @@ class Runner:
 
     # --------------------------- the batch chain --------------------------- #
 
+    def _head(self, frames: torch.Tensor, seed: int, noise, input_noise: Optional[InputNoise],
+              tile_parallel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The first three stages of the batch chain: transform (and input
+        noise), VAE encode, one DiT step. Returns the upscaled latent and
+        the clean transformed frames (fp32 [-1, 1], the colour fix's
+        style)."""
+        c = self.cfg
+        with record_function("runner.transform"):
+            tv = pipeline_transform(to_f01(frames), c.resolution, c.max_resolution)  # fp32 [-1, 1]
+            video = tv if input_noise is None else input_noise.apply(tv)
+        with record_function("runner.vae_encode"):
+            latent = self._encode(video[None].to(self.compute_dtype), c.encode_tiled, c.encode_tile_size,
+                                  c.encode_tile_overlap, tile_parallel)
+        with record_function("runner.dit_step"):
+            up = self.upscale(latent, seed, noise)
+        return up, tv
+
     @torch.inference_mode()
     def fused_batch(
         self,
@@ -348,18 +377,112 @@ class Runner:
         output_bits is 8 or 16). ``input_noise`` augments the encoder's
         input (cfg.input_noise_scale)."""
         c = self.cfg
-        with record_function("runner.transform"):
-            tv = pipeline_transform(to_f01(frames), c.resolution, c.max_resolution)  # fp32 [-1, 1]
-            video = tv if input_noise is None else input_noise.apply(tv)
-        with record_function("runner.vae_encode"):
-            latent = self._encode(video[None].to(self.compute_dtype), c.encode_tiled, c.encode_tile_size,
-                                  c.encode_tile_overlap, tile_parallel)
-        with record_function("runner.dit_step"):
-            up = self.upscale(latent, seed, noise)
+        up, tv = self._head(frames, seed, noise, input_noise, tile_parallel)
         with record_function("runner.vae_decode"):
             dec = self._decode(up, c.decode_tiled, c.decode_tile_size, c.decode_tile_overlap, tile_parallel)
         with record_function("runner.color_pack"):
             return self.finalize_batch(dec, tv, tv.shape[0] if ori is None else ori, true_h, true_w, True, planes)
+
+    # ----------------------- the streamed column chunks --------------------- #
+
+    def _latent_thw(self, frames_shape) -> Tuple[int, int, int]:
+        """The latent (t, h, w) of a batch of frames [T', h_in, w_in, 3]:
+        resized, padded to /16, then the VAE's downsampling."""
+        c = self.cfg
+        th, tw = side_resize_dims(frames_shape[1], frames_shape[2], c.resolution, c.max_resolution)
+        td, sf = c.vae.temporal_downsample_factor, c.vae.spatial_downsample_factor
+        return (frames_shape[0] - 1) // td + 1, -(-th // 16) * 16 // sf, -(-tw // 16) * 16 // sf
+
+    def supports_chunked(self, frames_shape, true_h: int, true_w: int) -> Optional[tiling.ColumnChunkPlan]:
+        """The ColumnChunkPlan of a batch shape, or None where the streamed
+        column-chunk route (fused_batch_chunks) would not give fused_batch's
+        result or is not asked for: cfg.chunked_output "off", the route
+        disabled after an out-of-memory error (``_disable_chunked``, set by
+        phases.generate), an untiled decode, decode_tile_batch != 1, a mesh
+        (its segments stream whole), or a colour method that is not
+        spatially local (wavelet, none)."""
+        c = self.cfg
+        if (c.chunked_output == "off" or self._disable_chunked or not c.decode_tiled or c.decode_tile_batch != 1
+                or self.mesh is not None or c.color_correction not in ("none", "wavelet")):
+            return None
+        _, h, w = self._latent_thw(frames_shape)
+        halo = 32 if c.color_correction == "wavelet" else 0
+        return tiling.column_chunk_plan(c.vae, h, w, c.decode_tile_size, c.decode_tile_overlap, true_h, true_w, halo)
+
+    def _yuv_chunks_ok(self, plan: tiling.ColumnChunkPlan, true_h: int) -> bool:
+        """Whether the chunks can be the sink's yuv420 planes: every chunk
+        boundary even (the chroma is 2x2-subsampled, so chunks then share no
+        chroma block) and an even frame height; otherwise they stay RGB
+        codes."""
+        return self.cfg.output_pixfmt == "yuv420" and true_h % 2 == 0 and all(e % 2 == 0 for e in plan.emit)
+
+    @torch.inference_mode()
+    def fused_batch_chunks(
+        self,
+        frames: torch.Tensor,  # as fused_batch takes them
+        true_h: int,
+        true_w: int,
+        seed: int,
+        plan: tiling.ColumnChunkPlan,
+        noise=None,
+        ori: Optional[int] = None,
+        input_noise: Optional[InputNoise] = None,
+    ) -> Iterator[Tuple[int, int, object]]:
+        """The streamed sibling of fused_batch: the head (_head), then the
+        decode one column tile at a time, left to right. Tile i is decoded,
+        weighted into an fp32 (acc, cnt) strip that starts with the carry of
+        tile i-1, divided and cast to the compute dtype, as tiled_decode
+        blends; the columns that no later tile touches, with the colour
+        halo, go through finalize_batch's chain (trim to ``ori`` frames,
+        colour fix against the transformed frames, clamp, pack), and the
+        chunk [lo, hi) of them is yielded as soon as its kernels are queued:
+        int32 codes [ori, true_h, hi - lo, 3], or the sink's yuv420 planes
+        where _yuv_chunks_ok. The caller can copy chunk i to the host while
+        tile i+1 computes. The decode calls the VAE without the OOM ladder,
+        as fused_batch does."""
+        vc = self.cfg.vae
+        up, tv = self._head(frames, seed, noise, input_noise)
+        ori = tv.shape[0] if ori is None else ori
+        planes = self._yuv_chunks_ok(plan, true_h)
+        n = len(plan.cols)
+        acc = cnt = None  # the carry: columns [emit[i-1] - halo, strip end of tile i-1)
+        for i, col in enumerate(plan.cols):
+            last = i == n - 1
+            p_i = col * plan.sf
+            strip_lo = 0 if i == 0 else plan.emit[i - 1] - plan.halo
+            emit_lo, emit_hi = (0 if i == 0 else plan.emit[i - 1]), plan.emit[i]
+            cin_lo = max(0, emit_lo - (plan.halo if i else 0))
+            cin_hi = min(true_w, emit_hi + (0 if last else plan.halo))
+            with record_function("runner.vae_decode"):
+                z = up[:, :, :, col : col + plan.lt_w] / vc.scaling_factor + vc.shifting_factor
+                dec = tiling.slicing_decode(self.vae, z)
+                w = to_device(plan.tile_weights(i), self.device)[None, None, None, :, None]
+                width = p_i + plan.tw - strip_lo
+                strip = torch.zeros((1, dec.shape[1], plan.th, width, dec.shape[-1]), dtype=torch.float32,
+                                    device=self.device)
+                weight = torch.zeros((1, 1, plan.th, width, 1), dtype=torch.float32, device=self.device)
+                if acc is not None:
+                    strip[:, :, :, : acc.shape[3]] = acc
+                    weight[:, :, :, : cnt.shape[3]] = cnt
+                off = p_i - strip_lo
+                strip[:, :, :, off : off + plan.tw] += dec.float() * w
+                weight[:, :, :, off : off + plan.tw] += w
+                del dec
+                blended = (strip[:, :, :, cin_lo - strip_lo : cin_hi - strip_lo]
+                           / weight[:, :, :, cin_lo - strip_lo : cin_hi - strip_lo].clamp_min(1e-6))
+            with record_function("runner.color_pack"):
+                out = self.finalize_batch(blended.to(self.compute_dtype), tv[:, :, cin_lo:cin_hi], ori, true_h,
+                                          cin_hi - cin_lo, True, planes)
+                a, b = emit_lo - cin_lo, emit_hi - cin_lo
+                if is_planar(out):
+                    chunk = PlanarYUV420(out.y[:, :, a:b], out.u[:, :, a // 2 : b // 2],
+                                         out.v[:, :, a // 2 : b // 2], out.depth)
+                else:
+                    chunk = out[:, :, a:b]
+            yield emit_lo, emit_hi, chunk
+            if not last:
+                klo = plan.emit[i] - plan.halo - strip_lo
+                acc, cnt = strip[:, :, :, klo:], weight[:, :, :, klo:]
 
     def fused_segment(
         self,

@@ -126,6 +126,59 @@ class Debug:
         if rss:
             self.log(f"Host RSS: {rss / 2**20:.2f} GiB", category="memory", force=force)
 
+    def tensor_census(self, top: int = 10) -> list:
+        """A gc walk of the live tensors on the run's device (``device``; the
+        CPU when none is set), grouped by (shape, dtype): [(bytes, count,
+        shape, dtype)], largest first; the ``top`` largest groups are
+        logged when the log is enabled. A view counts its own size beside
+        its base's."""
+        import gc
+        import warnings
+
+        device = self.device or torch.device("cpu")
+        groups: Dict[tuple, list] = {}
+        with warnings.catch_warnings():  # isinstance() wakes deprecated module proxies
+            warnings.simplefilter("ignore")
+            for obj in gc.get_objects():
+                try:
+                    if not isinstance(obj, torch.Tensor) or obj.device.type != device.type:
+                        continue
+                    if device.index is not None and obj.device.index != device.index:
+                        continue
+                    g = groups.setdefault((tuple(obj.shape), str(obj.dtype)), [0, 0])
+                    g[0] += obj.numel() * obj.element_size()
+                    g[1] += 1
+                except Exception:  # an object that fails isinstance or shape queries mid-collection
+                    continue
+        rows = sorted(((b, n, shape, dt) for (shape, dt), (b, n) in groups.items()), reverse=True)
+        if self.enabled and rows:
+            total = sum(r[0] for r in rows)
+            self.log(f"Live tensors on {device}: {sum(r[1] for r in rows)} ({total / 2**30:.2f} GiB)",
+                     category="memory")
+            for b, n, shape, dt in rows[:top]:
+                self.log(f"{n}x {dt}{list(shape)}: {b / 2**30:.3f} GiB", category="memory", indent_level=1)
+        return rows
+
+    @contextmanager
+    def profile(self, logdir: Optional[str] = None):
+        """A torch.profiler trace (CPU and CUDA activities) of the region,
+        written as a Chrome trace (``trace.json``) under ``logdir`` (default
+        the temporary directory's ``seedvr2_profile``); open it in
+        chrome://tracing or Perfetto."""
+        import os
+        import tempfile
+
+        logdir = logdir or os.path.join(tempfile.gettempdir(), "seedvr2_profile")
+        os.makedirs(logdir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            yield prof
+        path = os.path.join(logdir, "trace.json")
+        prof.export_chrome_trace(path)
+        self.log(f"Profiler trace written to {path}", category="timing", force=True)
+
     def environment_report(self, attention_mode: str = "fused") -> None:
         """OS, Python, torch and CUDA, the card with its power limit, the
         attention mode and whether the native frame conversions built."""

@@ -323,6 +323,33 @@ def test_v3_workflow_equals_phases_generate(comfy, models, clean_cache, monkeypa
     assert ups == sorted(ups) and ups[-1] == 100
 
 
+@pytest.mark.parametrize("path", WF_FILES, ids=os.path.basename)
+def test_bundled_workflow_with_its_saved_tpu_device_runs(path, comfy, models, clean_cache, monkeypatch, capsys):
+    """Each bundled workflow's widgets as saved (the loaders' device "tpu"),
+    with the tiny checkpoints and a small resolution: the saved "tpu" runs
+    on SAVED_TPU_DEVICE (here the CPU) with a log line, and the upscaler's
+    output equals phases.generate's on the runner it loaded."""
+    monkeypatch.setattr(I, "SAVED_TPU_DEVICE", "cpu")
+    loaded = []
+    real = loader.load_runner
+    monkeypatch.setattr(loader, "load_runner", lambda **kw: loaded.append(real(**kw)) or loaded[-1])
+    nodes, wf = _v3_nodes(), json.load(open(path))
+    widgets = {n["type"]: _widgets_to_kwargs(n["type"], n["widgets_values"]) for n in wf["nodes"]
+               if n["type"] in I.NODE_CLASS_MAPPINGS}
+    assert widgets["SeedVR2LoadDiTModel"]["device"] == widgets["SeedVR2LoadVAEModel"]["device"] == "tpu"
+    dit = nodes["SeedVR2LoadDiTModel"].execute(**dict(widgets["SeedVR2LoadDiTModel"], model="tiny_dit.safetensors"))
+    vae = nodes["SeedVR2LoadVAEModel"].execute(**dict(widgets["SeedVR2LoadVAEModel"], model="tiny_vae.safetensors"))
+    assert dit.values[0]["device"] == vae.values[0]["device"] == "cpu"
+    assert 'device "tpu"' in capsys.readouterr().out
+    up = dict(widgets["SeedVR2VideoUpscaler"], resolution=32, max_resolution=0, model_dir=str(models))
+    frames = np.random.RandomState(3).rand(5 if up["batch_size"] > 1 else 1, 20, 24, 3).astype(np.float32)
+    out = nodes["SeedVR2VideoUpscaler"].execute(image=torch.from_numpy(frames), dit=dit.values[0], vae=vae.values[0],
+                                                **up).values[0]
+    (runner,) = loaded
+    assert runner.device.type == "cpu" and tuple(out.shape) == (len(frames), 32, 38, 3)
+    np.testing.assert_array_equal(out.numpy(), phases.generate(runner, frames))
+
+
 def test_v3_interrupt_propagates(comfy, models, clean_cache):
     nodes = _v3_nodes()
     dit = nodes["SeedVR2LoadDiTModel"].execute(model="tiny_dit.safetensors", device="cpu").values[0]
@@ -356,6 +383,9 @@ class _PortStandIn:
     def __init__(self, events):
         self.events = events
 
+    def supports_chunked(self, *args):
+        return None
+
     def fused_batch(self, frames, true_h, true_w, seed, noise=None, ori=None, input_noise=None):
         self.events.append("batch")
         return torch.zeros((ori, true_h, true_w, 3), dtype=torch.int32)
@@ -387,9 +417,6 @@ class _PortStandIn:
 
 class _JaxStandIn(_PortStandIn):
     """The JAX runner as far as its phases.generate reads it."""
-
-    def supports_chunked(self, *args):
-        return None
 
     def fused_batch(self, frames, ori, true_h, true_w, key, seed):
         self.events.append("batch")

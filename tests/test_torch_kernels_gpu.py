@@ -459,3 +459,42 @@ def test_oom_ladder_reaches_a_tiled_rung_under_a_memory_cap(cuda, memory_cap, ca
     assert "host-staged" not in log
     assert k1.conv3d_3x3x3.launches > n0[0] and k2.fold_upsample_conv.launches > n0[1]
     assert torch.equal(out, ref)
+
+
+def test_chunk_copies_through_the_copy_stream_equal_synchronous_copies(cuda):
+    """The column chunks of a small bf16 batch (K1, K2 and K3 on the card)
+    copied on the side stream into pinned buffers, each started as its
+    chunk is yielded and its device tensor dropped at once while the card
+    overwrites fresh allocations: the same codes as a synchronous .cpu() of
+    the chunks."""
+    import numpy as np
+
+    from seedvr2_tpu_torch.config import DiTConfig, PipelineConfig, VAEConfig
+    from seedvr2_tpu_torch.io.weights import random_dit, random_vae
+    from seedvr2_tpu_torch.pipeline.phases import upload_frames
+    from seedvr2_tpu_torch.pipeline.runner import Runner
+    from seedvr2_tpu_torch.utils.transfer import HostCopies
+
+    vc = VAEConfig(block_out_channels=(128, 128, 256, 256), layers_per_block=1)
+    dc = DiTConfig(variant="small", vid_dim=256, txt_dim=256, emb_dim=6 * 256, heads=2, num_layers=2, mm_layers=1,
+                   swiglu_multiple_of=64, sinusoidal_dim=64)
+    cfg = PipelineConfig(dit=dc, vae=vc, resolution=128, decode_tiled=True, decode_tile_size=(128, 256),
+                         decode_tile_overlap=(0, 64))
+    g = torch.Generator(device=cuda).manual_seed(21)
+    text = np.random.RandomState(22).randn(8, dc.txt_in_dim).astype(np.float32) * 0.1
+    runner = Runner(cfg, random_dit(dc, g), random_vae(vc, g), text, device=cuda)
+    frames = upload_frames(np.random.RandomState(23).randint(0, 256, (5, 64, 192, 3)).astype(np.uint8), cuda)
+    plan = runner.supports_chunked(frames.shape, 128, 384)
+    assert plan is not None and plan.emit == (128, 384)
+    copies, refs, started = HostCopies(cuda), [], []
+    for lo, hi, chunk in runner.fused_batch_chunks(frames, 128, 384, 42, plan):
+        refs.append(chunk.cpu())
+        started.append(copies.start(chunk))
+        del chunk
+        for _ in range(4):  # fresh allocations the allocator could hand the dropped chunk's memory to
+            torch.full(refs[-1].shape, -7, dtype=torch.int32, device=cuda)
+    assert len(started) == 2
+    for ref, copy in zip(refs, started):
+        host = copy.wait()
+        assert host.is_pinned() and host.dtype == torch.int32 and host.shape == ref.shape
+        assert torch.equal(host, ref)
