@@ -93,9 +93,14 @@ Phases (any failure raises and the script exits non-zero without a result):
      phases.generate on the runner the CLI loaded (max |diff| 0 codes),
      K7 = int8_linear_calls (317) and phase 5's K1, K2, K3 a batch, block 0's
      qkv bit-equal to the file's weight quantized; the GGUF's write and
-     read + dequantize seconds. Phase 3 holds K7 against its plain version
-     at the 3B and 7B linears' shapes (video rows M 7200 and 24,480, text
-     rows M 58).
+     read + dequantize seconds. K7 runs in two regimes, chosen by its row
+     count (ops/quant.py:regime): wgmma for the video rows, split-K for the
+     text rows; the 7B batch must take both (K7_wgmma + K7_splitk = K7).
+     Phase 3 holds K7 against its plain version at the 3B and 7B linears'
+     shapes (video rows M 7200 and 24,480, text rows M 58), checks that two
+     launches on the same inputs give the same bits, and gives each row its
+     regime and its own shape's launches in its model's phase-10 batch
+     (read_counts' "K7_shapes"; the 24,480-row row none: no such run).
  11. the ComfyUI node layer (seedvr2_tpu_torch/interfaces.py) under the
      stub host of tests/comfy_stub.py (installed through a
      pytest.MonkeyPatch and undone at the end), 3B + VAE from phase 9's
@@ -130,7 +135,7 @@ Phases (any failure raises and the script exits non-zero without a result):
      1 code.
 Budgets (H100 80GB HBM3, 700 W; PERF.md): phases 1-8 ~180 s, phase 9
 ~100 s, phase 10 ~190 s, phase 11 ~100 s, phase 12 <= 60 s (the whole
-script ~630 s); it must end within 1200 s. K7 may
+script ~630-720 s); it must end within 1200 s. K7 may
 launch only in phases 3 and 10 (read_counts raises elsewhere).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
@@ -212,12 +217,21 @@ def kernel_counters():
         "K3s": (k3.fused_window_attention_sharded, "launches"),
         "K3s_int8": (k3.fused_window_attention_sharded, "launches_int8"),
         "K7": (quant.linear_apply, "launches"),
+        "K7_wgmma": (quant.linear_apply, "launches_wgmma"),
+        "K7_splitk": (quant.linear_apply, "launches_splitk"),
     }
 
 
+def k7_shape(M, K, N) -> str:
+    return f"M{M} K{K} N{N}"
+
+
 def reset_counts():
+    from seedvr2_tpu_torch.ops import quant
+
     for fn, attr in kernel_counters().values():
         setattr(fn, attr, 0)
+    quant.reset_launches()  # and K7's counts by shape
 
 
 # K7 runs int8 weights only: a driven run outside phase 10 that launches it leaks int8 into a bf16 path
@@ -225,9 +239,13 @@ INT8_RUNS = {"allowed": False}
 
 
 def read_counts():
+    """Every kernel's count, and K7's by shape under "K7_shapes" (k7_shape: n)."""
+    from seedvr2_tpu_torch.ops import quant
+
     counts = {kid: getattr(fn, attr) for kid, (fn, attr) in kernel_counters().items()}
     if counts["K7"] and not INT8_RUNS["allowed"]:
         raise RuntimeError(f"K7 launched {counts['K7']} times in a run of bf16 weights")
+    counts["K7_shapes"] = {k7_shape(*key): n for key, n in quant.linear_apply.launches_by_shape.items()}
     return counts
 
 
@@ -442,17 +460,6 @@ def _conv_rows(dev, g, c, T, H, W, k1_ms, path="main"):
     return rows
 
 
-def int8_linear_shapes(cfg):
-    """(name, K, N, bias) of the four kinds of int8 block linear of a DiT
-    config (qkv, attention out, MLP in (and gate), MLP out)."""
-    from seedvr2_tpu_torch.models.dit.nadit import mlp_hidden
-
-    D, inner, hidden, mlp_bias = cfg.vid_dim, cfg.inner_dim, mlp_hidden(cfg), cfg.mlp_type != "swiglu"
-    return [("qkv", D, 3 * inner, cfg.qk_bias), ("out", inner, D, True),
-            ("proj_in" + ("/proj_in_gate" if not mlp_bias else ""), D, hidden, mlp_bias),
-            ("proj_out", hidden, D, mlp_bias)]
-
-
 def int8_linear_calls(dit) -> int:
     """K7 launches in one forward of an int8 NaDiT: each layer's qkv and
     out projections run for the video and the text stream (a shared layer's
@@ -477,9 +484,11 @@ def _k7_rows(dev, g):
     weights quantized from normal draws, bf16 inputs. The library call is
     cuBLAS's bf16 x @ w on the weight dequantized beforehand (not timed);
     the plain version is the whole chain (widen, product, scale, bias).
-    No int8 run at 1080p is driven, so the 24,480-row row is timed alone and
-    its launches stay null."""
+    A row's launches are phase 10's count of its own shape in its model's
+    batch (``k7_shape``); no int8 run at 1080p is driven, so the
+    24,480-row row is timed alone and its launches stay null."""
     from seedvr2_tpu_torch.config import dit_3b, dit_7b
+    from seedvr2_tpu_torch.conv_ab import int8_linear_shapes
     from seedvr2_tpu_torch.ops import quant
 
     rows = []
@@ -492,17 +501,23 @@ def _k7_rows(dev, g):
         x = torch.randn(M, K, generator=g, device=dev).bfloat16()
         w_deq = quant.dequantize_weight(q, torch.bfloat16)
         stream = "video" if M != 58 else "text"
+        row_name = f"{cfg.variant} {name} {stream} M{M} K{K} N{N}" + (" +bias" if has_bias else "")
         rows.append(compare(
-            "K7", f"{cfg.variant} {name} {stream} M{M} K{K} N{N}" + (" +bias" if has_bias else ""),
-            "seedvr2_tpu_torch/csrc/w8a16_linear.cuh", "seedvr2_tpu/models/dit/nadit.py:277",
+            "K7", row_name, "seedvr2_tpu_torch/csrc/w8a16_linear.cuh", "seedvr2_tpu/models/dit/nadit.py:277",
             lambda: quant.linear_apply(x, w_q, w_s, b), lambda: quant.linear_apply_plain(x, w_q, w_s, b),
             nbytes(x, w_q, w_s, *((b,) if has_bias else ())) + M * N * 2, {"bf16": 2 * M * N * K},
             lambda: x @ w_deq, "cuBLAS bf16 x @ w on the weight dequantized beforehand (its bias and dequantization "
                                "not timed)",
-            extra_row={"path": f"int8_{cfg.variant}" if M != 24480 else None,
+            extra_row={"path": f"int8_{cfg.variant}" if M != 24480 else None, "k7_shape": k7_shape(M, K, N),
+                       "regime": quant.regime(M),
                        "not_a_tpu_kernel": "XLA's fused convert+dot"},
         ))
-        del x, w_q, w_deq
+        again = quant.linear_apply(x, w_q, w_s, b)
+        if not torch.equal(again, quant.linear_apply(x, w_q, w_s, b)):
+            raise RuntimeError(f"K7 {row_name}: two launches on the same inputs differ")
+        r = rows[-1]
+        print(f"    {r['regime']}; {r['bound_ms'] / r['ms']:.1%} of the bound", flush=True)
+        del x, w_q, w_deq, again
     return rows
 
 
@@ -1572,6 +1587,9 @@ def int8_phase(dev, text, frames, d, per_batch):
     launches, e2e = drive(runner, frames, "7B int8 sageattn_2")
     per_step = int8_linear_calls(dit)
     expect("7B int8 sageattn_2", launches, {"K7": per_step, "K3q": cfg.dit.num_layers, "K3": 0, "K5": 0})
+    if not (launches["K7_wgmma"] > 0 and launches["K7_splitk"] > 0
+            and launches["K7_wgmma"] + launches["K7_splitk"] == per_step):
+        raise RuntimeError(f"7B int8: K7's regimes {launches['K7_wgmma']} wgmma + {launches['K7_splitk']} split-K")
     vc = cfg.vae
     lat = torch.randn((1, 2, 720 // vc.spatial_downsample_factor, 1280 // vc.spatial_downsample_factor,
                        vc.latent_channels), generator=torch.Generator(device=dev).manual_seed(103), device=dev)
@@ -1667,7 +1685,8 @@ def int8_phase(dev, text, frames, d, per_batch):
             diff = _same_codes(label, got, ref)
             dit_gib = tree_bytes(runner.dit) / 2**30
             out[label] = {"frames": n, "wall_s": wall, "peak_gib": peak, "dit_gib": dit_gib,
-                          "launches": {k: counts[k] for k in ("K7", "K1", "K2", "K3")}, "max_abs_diff_codes": diff}
+                          "launches": {k: counts[k] for k in ("K7", "K7_wgmma", "K7_splitk", "K7_shapes", "K1",
+                                                              "K2", "K3")}, "max_abs_diff_codes": diff}
             print(f"  CLI {label}: {n} frames in {wall:.2f} s (the weights read, converted and quantized included), "
                   f"DiT {dit_gib:.2f} GiB, peak {peak:.2f} GiB, launches {out[label]['launches']}, max |diff| vs "
                   f"phases.generate {diff} codes", flush=True)
@@ -2208,7 +2227,13 @@ def main():
     for row in rows:
         if "path" in row and row["path"] is None:
             continue  # a shape that no driven run gives: timed alone, launches null
-        row["launches"] = path_counts.get(row.get("path"), launches)[row["kernel"]]
+        counts = path_counts.get(row.get("path"), launches)
+        if row["kernel"] == "K7":  # its own shape's count in its model's int8 batch
+            row["launches"] = counts["K7_shapes"].get(row["k7_shape"], 0)
+            if row["launches"] == 0:
+                raise RuntimeError(f"{row['name']}: phase 10's {row['path']} batch never ran K7 at this shape")
+        else:
+            row["launches"] = counts[row["kernel"]]
     rows += rank_rows
     e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long),
                multi_rank=e2e_multi, cli=e2e_cli, int8=e2e_int8, node=e2e_node, stream=e2e_stream)

@@ -237,3 +237,24 @@ def pipeline_3b(**kw) -> PipelineConfig:
 
 def pipeline_7b(**kw) -> PipelineConfig:
     return PipelineConfig(dit=dit_7b(), **kw)
+
+
+def load_yaml_config(path: str) -> PipelineConfig:
+    """A PipelineConfig from a YAML file (configs/3b.yaml, configs/7b.yaml),
+    as the JAX package builds it: ``dit.variant`` picks 3B or 7B, and the
+    flat ``diffusion`` and ``pipeline`` sections override the fields they
+    name (unknown keys are ignored; tile sizes and overlaps given as lists
+    become tuples). The model's architecture stays in code. ``yaml`` is
+    imported here, so the port runs where it is not installed."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    variant = str(raw.get("dit", {}).get("variant", "3b")).lower()
+    dit = dit_7b() if variant == "7b" else dit_3b()
+    diff_kw = {k: v for k, v in (raw.get("diffusion") or {}).items() if k in DiffusionConfig.__dataclass_fields__}
+    pipe_kw = {k: v for k, v in (raw.get("pipeline") or {}).items() if k in PipelineConfig.__dataclass_fields__}
+    for key in ("encode_tile_size", "encode_tile_overlap", "decode_tile_size", "decode_tile_overlap"):
+        if isinstance(pipe_kw.get(key), list):
+            pipe_kw[key] = tuple(pipe_kw[key])
+    return PipelineConfig(dit=dit, vae=vae_config(), diffusion=DiffusionConfig(**diff_kw), **pipe_kw)

@@ -2,7 +2,7 @@
 and K2 and the W8A16 linear K7 of this tree against the same kernels built
 from other source trees, and the library call (cuDNN; for K7 cuBLAS's bf16
 product on the weight dequantized beforehand), at the shapes of the main
-paths (K6: of chip_smoke.py's phase 3; K7: its 7B video and text rows), in
+paths (K6 and K7: those of chip_smoke.py's phase 3), in
 turns within one process.
 
     python -m seedvr2_tpu_torch.conv_ab --against DIR [--against DIR ...] [--rounds 4] [--kernels K6]
@@ -18,13 +18,17 @@ whose kernel has the design they were written for and for each picked
 kernel, copies of it with one part taken out (ABLATIONS). K6 (the TMA +
 wgmma pipeline): the products (what the loads alone take) and the TMA
 loads (the products and the epilogue alone, on whatever shared memory
-holds). K7: the widening (the int8 bytes read as if they were bf16
-pairs), the x fragment loads (one shared load a 16-step, reused), the
-global loads (the ring stops after its prologue) and all three (the
-mma.sync products and the epilogue alone). Their outputs are garbage,
-their times say which part sets the pace. (Taking out the epilogue is no
-such measure: ptxas then drops the products whose accumulators nothing
-reads.)
+holds). K7 (wgmma on register-widened int8 for the video rows, split-K for
+the text rows): the widening (the int8 bytes used as they are), the
+products (wgmma and mma.sync replaced by a no-op that keeps their
+operands live: loads, widening and epilogue alone), the video regime's
+TMA loads, and the split-K reduce (the partial products alone). Their
+outputs are garbage, their times say which part sets the pace. (Taking out
+the epilogue is no such measure: ptxas then drops the products whose
+accumulators nothing reads.) K7 runs at every row of chip_smoke.py's phase
+3 (3B and 7B, video M 7200 and 24,480, text M 58), each tree through its
+own entry points: this one through ops/quant.py:launch (its regime of M),
+an older tree through its single entry.
 Prints ptxas's register and spill report of every build, then per shape
 each build's rel L2 against the plain version and, for ``--rounds`` rounds,
 ms per call (CUDA events over 10 calls after a warm-up) of the library
@@ -46,6 +50,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from .config import DiTConfig, dit_3b, dit_7b
+from .models.dit.nadit import mlp_hidden
 from .ops import conv3d_kernel as k1
 from .ops import cuda_lib
 from .ops import fold_upsample_kernel as k2
@@ -55,31 +61,40 @@ CONV_SHAPES = ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280), (128
 K6_SHAPES = CONV_SHAPES[:3]
 SOURCES = ("conv3d.cu", "conv3d_im2col.cu", "fold_upsample.cu", "w8a16_linear.cu")  # the last where a tree has it
 FOLD_SHAPES = ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7, 360, 640))  # C, kt, A, frames, H, W
-K7_SHAPES = ((7200, 3072, 9216), (7200, 12288, 3072), (58, 3072, 9216))  # M, K, N: 7B qkv / proj_out video, qkv text
 
 # kernel -> (header, a string of the design the ablations were written for)
-ABLATED = {"K6": ("conv3d_im2col.cuh", "sm90::wgmma"), "K7": ("w8a16_linear.cuh", "widen_s8x4")}
-_WIDEN = (r"widen_s8x4\((\*reinterpret_cast<const uint32_t\*>\(ws \+ n \* kWPitch \+ kk \+ 4 \* t\)), "
-          r"b\[j\]\[0\], b\[j\]\[1\]\);", r"b[j][0] = b[j][1] = \1;")
-_XLOAD = ((r"const uint2 r0 = \*reinterpret_cast<const uint2\*>\(xs \+ m \* kXPitch",
-           "const uint2 r0 = *reinterpret_cast<const uint2*>(xs + g * kXPitch"),
-          (r"const uint2 r8 = [^;]*;", "const uint2 r8 = r0;"))
-_GLOAD = (r"if \(next < KT\)", "if (false)")
-# name -> (kernel, (pattern, replacement) substitutions on its header, each
-# of which must match at least once)
+ABLATED = {"K6": ("conv3d_im2col.cuh", "sm90::wgmma"), "K7": ("w8a16_linear.cuh", "k16_rs_bf16(")}
+_TMA = (r"sm90::mbar_arrive_expect_tx\((\w+) \+ (\w+), [^;]*\);", r"sm90::mbar_arrive(\1 + \2);")
+_TMA_LOADS = (r"sm90::tma_load_\dd\(.*?\);", ";")
+# name -> (kernel, (file, pattern, replacement) substitutions in its csrc
+# copy, each of which must match at least once)
 ABLATIONS = {
-    "-products": ("K6", ((r"sm90::wgmma_m64n128k16_bf16\(.*?\);", ";"),)),
-    "-loads": ("K6", ((r"sm90::mbar_arrive_expect_tx\((\w+) \+ (\w+), [^;]*\);", r"sm90::mbar_arrive(\1 + \2);"),
-                      (r"sm90::tma_load_\dd\(.*?\);", ";"))),
-    "-widen": ("K7", (_WIDEN,)),
-    "-xload": ("K7", _XLOAD),
-    "-gload": ("K7", (_GLOAD,)),
-    "-all": ("K7", (_WIDEN, *_XLOAD, _GLOAD)),
+    "K6-products": ("K6", (("conv3d_im2col.cuh", r"sm90::wgmma_m64n128k16_bf16\(.*?\);", ";"),)),
+    "K6-loads": ("K6", (("conv3d_im2col.cuh", *_TMA), ("conv3d_im2col.cuh", *_TMA_LOADS))),
+    "K7-widen": ("K7", (("w8a16_linear.cuh", r"(void widen_s8x4\(uint32_t q, uint32_t& lo, uint32_t& hi\) \{).*?\n\}",
+                         r"\1\n  lo = hi = q;\n}"),)),
+    "K7-products": ("K7", (("w8a16_linear.cuh", r"sm90::wgmma_m64n\d+k16_rs_bf16\(acc, cur\[kk\], .*?\);",
+                            r'asm volatile("" ::"r"(cur[kk][0]), "r"(cur[kk][1]), "r"(cur[kk][2]), "r"(cur[kk][3]));'),
+                           ("w8a16_linear.cuh", r"mma_bf16\(acc\[i\]\[j\], af, b\[j\]\[0\], b\[j\]\[1\]\);",
+                            r'asm volatile("" ::"r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]), "r"(b[j][0]), '
+                            r'"r"(b[j][1]));'))),
+    "K7-loads": ("K7", (("w8a16_linear.cuh", *_TMA), ("w8a16_linear.cuh", *_TMA_LOADS))),
+    "K7-reduce": ("K7", (("w8a16_linear.cu", r"w8a16_splitk_reduce_kernel<<<.*?>>>\(.*?\);", ";"),)),
 }
 
 
+def int8_linear_shapes(cfg: DiTConfig) -> list:
+    """(name, K, N, bias) of the four kinds of int8 block linear of a DiT
+    config, unsplit: qkv, attention out, MLP in (and gate), MLP out (K7's
+    rows here and in chip_smoke.py's phase 3)."""
+    D, inner, hidden, mlp_bias = cfg.vid_dim, cfg.inner_dim, mlp_hidden(cfg), cfg.mlp_type != "swiglu"
+    return [("qkv", D, 3 * inner, cfg.qk_bias), ("out", inner, D, True),
+            ("proj_in" + ("/proj_in_gate" if not mlp_bias else ""), D, hidden, mlp_bias),
+            ("proj_out", hidden, D, mlp_bias)]
+
+
 def ablated(csrc: Path, out: Path, kernels) -> dict:
-    """{suffix: (kernel, csrc copy)} with each of ABLATIONS of ``kernels``
+    """{name: (kernel, csrc copy)} with each of ABLATIONS of ``kernels``
     applied, for each kernel whose header in csrc has the design of
     ABLATED."""
     trees = {}
@@ -87,15 +102,14 @@ def ablated(csrc: Path, out: Path, kernels) -> dict:
         header, design = ABLATED[kernel]
         if kernel not in kernels or not (csrc / header).exists() or design not in (csrc / header).read_text():
             continue
-        text = (csrc / header).read_text()
-        for pat, rep in subs:
-            text, n = re.subn(pat, rep, text, flags=re.S)
-            if n == 0:
-                raise RuntimeError(f"ablation {name}: {pat!r} matches nothing in {csrc}")
-        tree = out / name.lstrip("-")
+        tree = out / name
         shutil.rmtree(tree, ignore_errors=True)
         shutil.copytree(csrc, tree)
-        (tree / header).write_text(text)
+        for file, pat, rep in subs:
+            text, n = re.subn(pat, rep, (tree / file).read_text(), flags=re.S)
+            if n == 0:
+                raise RuntimeError(f"ablation {name}: {pat!r} matches nothing in {csrc / file}")
+            (tree / file).write_text(text)
         trees[name] = (kernel, tree)
     return trees
 
@@ -110,9 +124,9 @@ def build_other(csrc: Path, out: Path):
     if p.returncode != 0:
         raise RuntimeError(f"nvcc failed for {csrc}:\n{p.stdout}{p.stderr}")
     lib = ctypes.CDLL(str(so))
-    for fn in ("seedvr2_conv3d_3x3x3", "seedvr2_conv3d_im2col", "seedvr2_fold_upsample", "seedvr2_w8a16_linear"):
+    for fn, args in cuda_lib._SIGNATURES.items():
         if hasattr(lib, fn):
-            getattr(lib, fn).argtypes = cuda_lib._SIGNATURES[fn]
+            getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
     return lib, ptxas_report(p.stdout + p.stderr)
 
@@ -170,7 +184,7 @@ def main():
     if args.ablate:
         for i, (name, csrc) in enumerate([("this", cuda_lib.CSRC), *others.items()]):
             for k, (kernel, tree) in ablated(csrc, work / f"ablate{i}", kernels).items():
-                others[name + k], ablation_of[name + k] = tree, kernel
+                others[f"{name} {k}"], ablation_of[f"{name} {k}"] = tree, kernel
     with ThreadPoolExecutor(len(others) or 1) as pool:
         outs = [work / str(i) for i in range(len(others))]
         for d, (lib, report) in zip(others, pool.map(build_other, others.values(), outs)):
@@ -245,19 +259,26 @@ def main():
         del x, K, y, ref, xc, Ko
 
     libs7 = {n: L for n, L in libs.items() if ablation_of.get(n, "K7") == "K7" and hasattr(L, "seedvr2_w8a16_linear")}
-    for M, K, N in K7_SHAPES if "K7" in kernels else ():
+    k7_rows = [(cfg.variant, name, M, K, N) for cfg in (dit_3b(), dit_7b()) for M in (7200, 58)
+               for name, K, N, _ in int8_linear_shapes(cfg)]
+    k7_rows.append(("3b", "qkv", 24480, *int8_linear_shapes(dit_3b())[0][1:3]))
+    for variant, name, M, K, N in k7_rows if "K7" in kernels else ():
         q = quant.quantize_linear(torch.randn(K, N, generator=g, device=dev) * K**-0.5)
         w_q, w_s, w_deq = q["w_q"].t().contiguous(), q["w_s"], quant.dequantize_weight(q)
         x, y = randn(M, K), torch.empty((M, N), dtype=torch.bfloat16, device=dev)
         ref = quant.linear_apply_plain(x, w_q, w_s)
 
         def run7(lib):
-            cuda_lib.check(lib.seedvr2_w8a16_linear(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), None, y.data_ptr(),
-                                                     M, N, K, stream()), "w8a16_linear")
+            if hasattr(lib, "seedvr2_w8a16_linear_splitk"):
+                quant.launch(lib, x, w_q, w_s, None, y)
+            else:
+                cuda_lib.check(lib.seedvr2_w8a16_linear(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), None,
+                                                         y.data_ptr(), M, N, K, stream()), "w8a16_linear")
             return y
 
         errs = " ".join(f"{n} {rel_l2(run7(L), ref):.2e}" for n, L in libs7.items())
-        print(f"K7 M{M} K{K} N{N} ({2 * M * N * K / 1e9:.1f} GFLOP): rel L2 {errs}", flush=True)
+        print(f"K7 {variant} {name} M{M} K{K} N{N} ({quant.regime(M)}, {2 * M * N * K / 1e9:.1f} GFLOP): rel L2 {errs}",
+              flush=True)
         calls = {"cublas": lambda: x @ w_deq}
         calls.update({f"{n} K7": (lambda L=L: run7(L)) for n, L in libs7.items()})
         timed_rounds(calls, args.rounds)

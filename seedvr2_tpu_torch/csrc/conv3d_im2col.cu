@@ -1,11 +1,8 @@
 // Plain C entry point of K6 (conv3d_im2col.cuh); see conv3d.cu for the
 // conventions every entry follows. The two tensor maps hold the data
 // pointers, so they are encoded on each call (microseconds), by
-// cuTensorMapEncodeTiled reached through cudaGetDriverEntryPointByVersion:
-// the library needs no link against libcuda. A failed encode returns
+// cuTensorMapEncodeTiled (hopper.cuh:tensor_map_encoder). A failed encode returns
 // kEncodeError + its CUresult (ops/cuda_lib.py raises on it).
-#include <cudaTypedefs.h>
-
 #include "conv3d_im2col.cuh"
 
 using namespace seedvr2;
@@ -14,18 +11,6 @@ namespace {
 
 constexpr int kEncodeError = 1 << 20;  // + CUresult of a failed cuTensorMapEncodeTiled
 constexpr int kMaxDevices = 64;
-
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn(cudaError_t* err) {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    *err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-    if (*err == cudaSuccess && q != cudaDriverEntryPointSuccess) *err = cudaErrorSymbolNotFound;
-    if (*err == cudaSuccess) fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
 
 // The patch (ph, pw), ph * pw == 256, with the fewest tiles over H x W;
 // ties go to the first, the squarest (the smallest slab).
@@ -55,7 +40,7 @@ int seedvr2_conv3d_im2col(const void* x, const void* wf, const void* bias, void*
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wf)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  const auto encode = encode_fn(&err);
+  const auto encode = sm90::tensor_map_encoder(&err);
   if (encode == nullptr) return (int)err;
 
   Args a{(const float*)bias, (bf16*)y, T, H, W, cin, cout, 0, 0, 0, 0, 0, 0};

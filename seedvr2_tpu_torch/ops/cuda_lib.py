@@ -52,6 +52,8 @@ _SIGNATURES = {
     "seedvr2_window_attention": [_vp] * 10 + [_i] * 8 + [_f] * 2 + [_vp],
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
     "seedvr2_w8a16_linear": [_vp] * 5 + [_i] * 3 + [_vp],
+    "seedvr2_w8a16_linear_splitk": [_vp] * 6 + [_i] * 4 + [_vp],
+    "seedvr2_w8a16_splitk_splits": [_i, _i, ctypes.POINTER(_i)],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -146,7 +148,7 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-ENCODE_ERROR = 1 << 20  # + CUresult: a failed cuTensorMapEncodeTiled (csrc/conv3d_im2col.cu)
+ENCODE_ERROR = 1 << 20  # + CUresult: a failed cuTensorMapEncodeTiled (csrc/conv3d_im2col.cu, w8a16_linear.cu)
 
 
 def check(code: int, what: str) -> None:
@@ -158,9 +160,11 @@ def check(code: int, what: str) -> None:
 
 
 def stream_ptr(t) -> int:
+    """The current CUDA stream of t's device, as the integer a C entry
+    takes (PyTorch's raw-stream query: no Stream object is made)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require(cond: bool, what: str) -> None:
@@ -173,10 +177,19 @@ MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 MAX_GRID_X = 2**31 - 1  # and on gridDim.x
 
 
-def require_cuda_tensor(t, name: str, dtype, shape=None) -> None:
-    require(t.is_cuda, f"{name}: expected a CUDA tensor, got {t.device}")
-    require(t.dtype == dtype, f"{name}: expected {dtype}, got {t.dtype}")
-    require(t.is_contiguous(), f"{name}: expected a contiguous tensor")
-    require(t.data_ptr() % 16 == 0, f"{name}: expected 16-byte alignment")
-    if shape is not None:
-        require(tuple(t.shape) == tuple(shape), f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+def require_cuda_tensor(t, name: str, dtype, shape=None, device=None) -> None:
+    """Reject a tensor a kernel does not take: off the card (or off
+    ``device``), of another dtype, strided, unaligned or (where given) of
+    another shape. Each message is built only when its check fails."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, the other tensors on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected 16-byte alignment")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

@@ -9,7 +9,8 @@ result. In the JAX package XLA fuses the int8 -> bf16 widening into the
 product, so no dequantized copy of the weight ever exists; eager PyTorch
 would write one on every call, so on the card the product is K7
 (csrc/w8a16_linear.cuh), which reads the int8 weight and widens it in
-registers.
+registers, in the regime of the row count (``regime``): wgmma for the
+video rows, split-K with a fixed-order reduce for the text rows.
 
 K7's layout: ``w_q`` is stored [N, K] (each output column's K weights
 contiguous, the transpose of the JAX package's [K, N]); models/params.py
@@ -19,6 +20,9 @@ converts it once at load. ``w_s`` and ``b`` keep their JAX shapes ([N], or
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import functools
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -109,7 +113,52 @@ def check_shape(N: int, K: int) -> None:
     """K7 takes N and K multiples of 64: every int8 linear of NaDiT-3B and
     7B, whole or split over a tensor axis of 2 or 4 (3B's MLP at tensor=4:
     N = 6912 / 4 = 1728)."""
-    cuda_lib.require(N % 64 == 0 and K % 64 == 0, f"linear_apply: N={N}, K={K} (K7 needs both % 64)")
+    if N % 64 or K % 64:
+        raise ValueError(f"linear_apply: N={N}, K={K} (K7 needs both % 64)")
+
+
+TEXT_ROWS = 64  # K7 takes M <= TEXT_ROWS by split-K (csrc/w8a16_linear.cuh: kTextRows)
+
+
+def regime(M: int) -> str:
+    """K7's regime for M rows: "splitk" (the text rows, bound by the
+    weight's bytes) or "wgmma" (the video rows, bound by operations)."""
+    return "splitk" if M <= TEXT_ROWS else "wgmma"
+
+
+@functools.lru_cache(maxsize=None)
+def splits(lib, index: int, N: int, K: int) -> int:
+    """The split-K regime's K splits for a weight [N, K] on card ``index``,
+    from ``lib``'s own tile sizes and SM count
+    (csrc/w8a16_linear.cu: seedvr2_w8a16_splitk_splits)."""
+    s = ctypes.c_int()
+    with torch.cuda.device(index):
+        cuda_lib.check(lib.seedvr2_w8a16_splitk_splits(N, K, ctypes.byref(s)), "linear_apply")
+    return s.value
+
+
+def launch(lib, x2: torch.Tensor, w_q: torch.Tensor, ws: torch.Tensor, bias: Optional[torch.Tensor],
+           y: torch.Tensor) -> str:
+    """Run K7 from ``lib`` on checked CUDA tensors (x2 [M, K], w_q [N, K],
+    ws [N], bias [N] or None, y [M, N]) in the regime of M; the split-K
+    workspace [splits, M, N] fp32 comes from torch.empty. Returns the
+    regime."""
+    (M, K), N = x2.shape, w_q.shape[0]
+    dev = x2.device
+    stream = cuda_lib.stream_ptr(x2)
+    b = None if bias is None else bias.data_ptr()
+    kind = regime(M)
+    with contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev):
+        if kind == "splitk":
+            s = splits(lib, dev.index, N, K)
+            part = torch.empty((s, M, N), dtype=torch.float32, device=dev)
+            code = lib.seedvr2_w8a16_linear_splitk(x2.data_ptr(), w_q.data_ptr(), ws.data_ptr(), b, y.data_ptr(),
+                                                   part.data_ptr(), M, N, K, s, stream)
+        else:
+            code = lib.seedvr2_w8a16_linear(x2.data_ptr(), w_q.data_ptr(), ws.data_ptr(), b, y.data_ptr(), M, N, K,
+                                            stream)
+    cuda_lib.check(code, "linear_apply")
+    return kind
 
 
 def linear_apply(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
@@ -118,36 +167,47 @@ def linear_apply(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
     K] int8 (K7's layout), w_s fp32 [N] (any shape of N elements), b in x's
     type or None (a row-parallel layer adds its bias after the sum over its
     tensor group). On the card K7 computes the product in fp32, applies the
-    scale and the bias in fp32 and rounds once to bf16."""
+    scale and the bias in fp32 and rounds once to bf16, in the regime of
+    its row count (``regime``). Counts: ``launches``, ``launches_wgmma``,
+    ``launches_splitk`` and ``launches_by_shape[(M, K, N)]``."""
     if x.device.type == "cpu":
         return linear_apply_plain(x, w_q, w_s, b)
     N, K = w_q.shape
-    cuda_lib.require(x.shape[-1] == K, f"linear_apply: x has {x.shape[-1]} features, the weight {K}")
+    if x.shape[-1] != K:
+        raise ValueError(f"linear_apply: x has {x.shape[-1]} features, the weight {K}")
     check_shape(N, K)
-    x2 = x.reshape(-1, K)
+    x2 = x if x.dim() == 2 else x.reshape(-1, K)
     M = x2.shape[0]
-    cuda_lib.require(0 < M <= 128 * cuda_lib.MAX_GRID_YZ, f"linear_apply: M={M}")
+    if not 0 < M <= cuda_lib.MAX_GRID_X:  # the C entries take M as an int
+        raise ValueError(f"linear_apply: M={M}")
+    ws = w_s if w_s.dim() == 1 else w_s.reshape(-1)
+    if ws.numel() != N:
+        raise ValueError(f"linear_apply: w_s has {ws.numel()} elements, N={N}")
+    bias = b if b is None or b.dim() == 1 else b.reshape(-1)
+    if bias is not None and bias.numel() != N:
+        raise ValueError(f"linear_apply: b has {bias.numel()} elements, N={N}")
+    dev = x.device
     cuda_lib.require_cuda_tensor(x2, "x", torch.bfloat16)
-    cuda_lib.require_cuda_tensor(w_q, "w_q", torch.int8, (N, K))
-    cuda_lib.require(w_s.numel() == N, f"linear_apply: w_s has {w_s.numel()} elements, N={N}")
-    ws = w_s.reshape(-1)
-    cuda_lib.require_cuda_tensor(ws, "w_s", torch.float32)
-    bias = None if b is None else b.reshape(-1)
+    cuda_lib.require_cuda_tensor(w_q, "w_q", torch.int8, device=dev)
+    cuda_lib.require_cuda_tensor(ws, "w_s", torch.float32, device=dev)
     if bias is not None:
-        cuda_lib.require(bias.numel() == N, f"linear_apply: b has {bias.numel()} elements, N={N}")
-        cuda_lib.require_cuda_tensor(bias, "b", torch.bfloat16)
-    cuda_lib.require(all(t.device == x.device for t in (w_q, ws) + ((bias,) if bias is not None else ())),
-                     "linear_apply: tensors on different devices")
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    lib = cuda_lib.library()
-    with torch.cuda.device(x.device):
-        code = lib.seedvr2_w8a16_linear(
-            x2.data_ptr(), w_q.data_ptr(), ws.data_ptr(), None if bias is None else bias.data_ptr(), y.data_ptr(),
-            M, N, K, cuda_lib.stream_ptr(x),
-        )
-    cuda_lib.check(code, "linear_apply")
+        cuda_lib.require_cuda_tensor(bias, "b", torch.bfloat16, device=dev)
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    kind = launch(cuda_lib.library(), x2, w_q, ws, bias, y)
     linear_apply.launches += 1
-    return y.reshape(*x.shape[:-1], N)
+    if kind == "splitk":
+        linear_apply.launches_splitk += 1
+    else:
+        linear_apply.launches_wgmma += 1
+    shapes = linear_apply.launches_by_shape
+    shapes[(M, K, N)] = shapes.get((M, K, N), 0) + 1
+    return y if x.dim() == 2 else y.reshape(*x.shape[:-1], N)
 
 
-linear_apply.launches = 0
+def reset_launches() -> None:
+    """Every K7 count to 0 (the per-shape counts emptied)."""
+    linear_apply.launches = linear_apply.launches_wgmma = linear_apply.launches_splitk = 0
+    linear_apply.launches_by_shape = {}
+
+
+reset_launches()

@@ -15,7 +15,10 @@ K3, the softmax numerators) to bf16, which is ~4e-3 relative.
 import pytest
 import torch
 
+from seedvr2_tpu_torch import conv_ab
+from seedvr2_tpu_torch.config import dit_3b, dit_7b
 from seedvr2_tpu_torch.ops import conv3d_kernel as k1
+from seedvr2_tpu_torch.ops import cuda_lib
 from seedvr2_tpu_torch.ops import flash_attention as k5
 from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
 from seedvr2_tpu_torch.ops import fused_window_attention as k3
@@ -353,12 +356,18 @@ def test_conv_kernels_reject_what_they_do_not_take(cuda):
     assert k1.conv3d_3x3x3_im2col(x, w, b).shape == (1, 1, 4, 4, 128)  # the same tensors, owned, are taken
 
 
-# K7: M ragged against the 128-row tile (1, 58, 130, 300), several N tiles
-# and K steps, with and without a bias; the row-parallel call leaves it out.
-# N a multiple of 64 only leaves the last 128-column tile half full (64,
-# 192, and 1728 = 6912 / 4: 3B's MLP on a rank of a tensor axis of 4).
+# K7: both regimes on each side of the row threshold (quant.TEXT_ROWS = 64:
+# split-K at M 1, 5, 58, 64; wgmma from 65), M ragged against the 240-row
+# tile (65, 128, 129, 130, 300, 7200), several N tiles and K steps, with and
+# without a bias (the row-parallel call leaves it out). N a multiple of 64
+# only leaves the last 128-column tile half full (64, 192, and 1728 = 6912
+# / 4: 3B's MLP on a rank of a tensor axis of 4, whose proj_out has K 1728);
+# the full-width 7B proj_out (K 12288, N 3072) at the text and video rows.
 K7_CASES = [(1, 128, 64, True), (58, 256, 128, False), (130, 384, 192, True), (300, 128, 640, False),
-            (58, 1024, 3072, True), (5, 64, 64, True), (58, 192, 128, False), (300, 1728, 2560, False)]
+            (58, 1024, 3072, True), (5, 64, 64, True), (58, 192, 128, False), (300, 1728, 2560, False),
+            (64, 256, 128, True), (65, 256, 128, False), (128, 384, 192, True), (129, 192, 256, False),
+            (7200, 2560, 2560, True), (58, 3072, 12288, True), (7200, 3072, 12288, True), (1, 3072, 12288, False),
+            (58, 1728, 1728, False), (7200, 1728, 1728, True), (7200, 2560, 1728, False)]
 
 
 @pytest.mark.parametrize("M,N,K,bias", K7_CASES)
@@ -368,15 +377,43 @@ def test_w8a16_linear_matches_plain(cuda, M, N, K, bias):
     w_q, w_s = q["w_q"].t().contiguous(), q["w_s"]
     b = torch.randn(N, generator=g, device=cuda).bfloat16() if bias else None
     x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
-    n0 = quant.linear_apply.launches
+    kind = quant.regime(M)
+    assert kind == ("splitk" if M <= 64 else "wgmma")
+    n0, r0 = quant.linear_apply.launches, getattr(quant.linear_apply, f"launches_{kind}")
+    s0 = quant.linear_apply.launches_by_shape.get((M, K, N), 0)
     y = quant.linear_apply(x, w_q, w_s, b)
     torch.cuda.synchronize()
     assert quant.linear_apply.launches == n0 + 1 and y.shape == (M, N) and y.dtype == torch.bfloat16
+    assert getattr(quant.linear_apply, f"launches_{kind}") == r0 + 1  # the regime of M was taken
+    assert quant.linear_apply.launches_by_shape[(M, K, N)] == s0 + 1
     assert _rel(y, quant.linear_apply_plain(x, w_q, w_s, b)) <= REL_BOUND
     exact = (x.float() @ w_q.t().float()) * w_s + (b.float() if bias else 0.0)
     assert _rel(y, exact) <= 4e-3  # one bf16 rounding of the fp32 result
+    assert torch.equal(quant.linear_apply(x, w_q, w_s, b), y)  # the same bits on a second launch
     y3 = quant.linear_apply(x.reshape(1, M, K), w_q, w_s, b)  # leading dims are flattened
     assert torch.equal(y3.reshape(M, N), y)
+
+
+@pytest.mark.parametrize("variant", ["3b", "7b"])
+def test_k7_splits_fill_the_card_with_the_fewest_splits(cuda, variant):
+    """Every int8 linear of each tensor split: N / 128 x splits reaches two
+    blocks an SM with the fewest splits, or K has no more 64-deep steps to
+    split; every split has at least one step. On a 132-SM card: 7B
+    proj_out 24 n-tiles x 11, 3B out 20 x 14, 7B proj_in 96 x 3, and K of
+    one step (64) unsplit."""
+    lib, index = cuda_lib.library(), torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    cfg = dit_3b() if variant == "3b" else dit_7b()
+    for name, K, N, _ in conv_ab.int8_linear_shapes(cfg):
+        for tensor in (1, 2, 4):
+            n, k = (N, K // tensor) if name in ("out", "proj_out") else (N // tensor, K)
+            s, tiles = quant.splits(lib, index, n, k), -(-n // 128)
+            assert 1 <= s <= k // 64, (name, tensor)
+            assert tiles * s >= 2 * sms or s == k // 64, (name, tensor, s)
+            assert s == 1 or tiles * (s - 1) < 2 * sms, (name, tensor, s)
+    if sms == 132:
+        got = [quant.splits(lib, index, n, k) for n, k in ((3072, 12288), (2560, 2560), (12288, 3072), (128, 64))]
+        assert got == [11, 14, 3, 1]
 
 
 def test_w8a16_linear_rejects_what_it_does_not_take(cuda):

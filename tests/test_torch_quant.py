@@ -12,6 +12,8 @@ another order. The tiny configs' block linears are far below the
 
 import dataclasses
 import json
+import re
+from pathlib import Path
 from unittest import mock
 
 import jax
@@ -26,7 +28,7 @@ from seedvr2_tpu.io.weights import flatten_tree as j_flatten_tree
 from seedvr2_tpu.models.dit import nadit as jnadit
 from seedvr2_tpu.ops import quant as jquant
 from seedvr2_tpu.ops.attention import get_attention_backend, set_attention_backend
-from seedvr2_tpu_torch import config
+from seedvr2_tpu_torch import config, conv_ab
 from seedvr2_tpu_torch.io.checkpoint import flatten_tree
 from seedvr2_tpu_torch.io.weights import dit_from_flat, dit_from_jax, random_dit
 from seedvr2_tpu_torch.models.dit import nadit
@@ -83,9 +85,51 @@ def test_linear_apply_plain_matches_jax(bias):
 
 
 def test_linear_apply_on_the_cpu_counts_no_launch():
-    n0 = quant.linear_apply.launches
+    counts = lambda: (quant.linear_apply.launches, quant.linear_apply.launches_wgmma,  # noqa: E731
+                      quant.linear_apply.launches_splitk, dict(quant.linear_apply.launches_by_shape))
+    n0 = counts()
     quant.linear_apply(torch.ones(3, 64), torch.ones(128, 64, dtype=torch.int8), torch.ones(128))
-    assert quant.linear_apply.launches == n0
+    assert counts() == n0
+
+
+@pytest.mark.parametrize("M,kind", [(1, "splitk"), (58, "splitk"), (64, "splitk"), (65, "wgmma"), (128, "wgmma"),
+                                    (129, "wgmma"), (7200, "wgmma"), (24480, "wgmma")])
+def test_k7_regime_by_rows(M, kind):
+    """The text rows (M <= 64: 58 in every run) take split-K, the video
+    rows wgmma; a pure function of M."""
+    assert quant.regime(M) == kind
+
+
+def test_k7_text_rows_are_the_kernel_headers():
+    """The wrapper's row threshold is the split-K kernel's kTextRows
+    (csrc/w8a16_linear.cuh), which the C entry checks M against."""
+    header = (Path(quant.__file__).parent.parent / "csrc" / "w8a16_linear.cuh").read_text()
+    assert int(re.search(r"constexpr int kTextRows = (\d+);", header).group(1)) == quant.TEXT_ROWS
+
+
+@pytest.mark.parametrize("variant", ["3b", "7b"])
+def test_k7_row_shapes_are_the_int8_linears(variant):
+    """conv_ab.int8_linear_shapes (K7's rows there and in chip_smoke.py's
+    phase 3) gives exactly the (K, N) of the block linears that
+    quantize="int8" stores as int8, N flattened as K7 reads it."""
+    cfg = config.dit_3b() if variant == "3b" else config.dit_7b()
+    dense = nadit.NaDiT(cfg, "meta", torch.bfloat16)
+    got = set()
+    for p, m, leaf in leaf_paths(dense):
+        shape = tuple(m.spec[leaf][0])
+        if quant.quantizes(p, shape):
+            got.add((shape[0], int(np.prod(shape[1:]))))
+    assert got == {(K, N) for _, K, N, _ in conv_ab.int8_linear_shapes(cfg)}
+
+
+def test_k7_reset_launches_zeroes_every_count(monkeypatch):
+    monkeypatch.setattr(quant.linear_apply, "launches", 5)
+    monkeypatch.setattr(quant.linear_apply, "launches_wgmma", 3)
+    monkeypatch.setattr(quant.linear_apply, "launches_splitk", 2)
+    monkeypatch.setattr(quant.linear_apply, "launches_by_shape", {(58, 64, 128): 2})
+    quant.reset_launches()
+    assert (quant.linear_apply.launches, quant.linear_apply.launches_wgmma, quant.linear_apply.launches_splitk,
+            quant.linear_apply.launches_by_shape) == (0, 0, 0, {})
 
 
 @pytest.mark.parametrize("rope_type", ["mmrope3d", "window_pixel"])
