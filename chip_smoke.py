@@ -133,9 +133,24 @@ Phases (any failure raises and the script exits non-zero without a result):
      idle share, and the synchronizing calls of each route
      (torch.cuda.set_sync_debug_mode); (d) (a) with yuv420 planes, within
      1 code.
+ 13. the load path's cold start: load_runner through the weights cache
+     (io/native_ckpt.py; the streamed conversion of io/weights.py) on
+     phase 9's 3B fp16 safetensors and VAE, linked into a fresh directory:
+     (a) a cold load (converted, the cache written) and (b) a warm one
+     (the cache read), each in a child process that imports only
+     seedvr2_tpu_torch (seedvr2_tpu_torch/load_probe.py): wall,
+     ru_maxrss, peak RssAnon, the cache's bytes; (d) os.utime on the
+     source makes the next load cold again: (c) in this process that cold
+     load and a warm one, every DiT and VAE tensor bit-equal (buffers, K1's
+     layout, K2's folds), one phases.generate batch of the main path's
+     clip from each, 0 codes apart, K1, K2 and K3 = phase 5's a batch.
+     Phase 10 holds its two int8 DiTs (--quantize int8, the .gguf) the
+     same way, cold against warm. Phase 9's first CLI run is the cold load
+     of its files; phases 10 (the VAE) and 11 load them warm.
 Budgets (H100 80GB HBM3, 700 W; PERF.md): phases 1-8 ~180 s, phase 9
-~100 s, phase 10 ~190 s, phase 11 ~100 s, phase 12 <= 60 s (the whole
-script ~630-720 s); it must end within 1200 s. K7 may
+~115-130 s (its first run converts), phase 10 ~190-240 s, phase 11 ~40 s
+(warm loads), phase 12 ~60 s, phase 13 ~135-140 s (the whole script
+~750-830 s); it must end within 1200 s. K7 may
 launch only in phases 3 and 10 (read_counts raises elsewhere).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
@@ -157,6 +172,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1250,9 +1266,11 @@ def _same_codes(label, got, ref):
 
 
 def scratch_dir():
-    """A temporary directory for phases 9 and 10's checkpoints (6.6 GB of
-    safetensors, 3.5 GB of GGUF), in whichever of the system's temp
-    directory and the repository's build/ has the most free space."""
+    """A temporary directory for phases 9, 10 and 13's checkpoints and
+    their weights caches (6.6 GiB of safetensors and a 6.8 GiB bf16 cache,
+    3.5 GiB of GGUF and two 3.6 GiB int8 caches in phase 10, another bf16
+    cache in phase 13), in whichever of the system's temp directory and
+    the repository's build/ has the most free space."""
     import tempfile
     from pathlib import Path
 
@@ -1260,8 +1278,8 @@ def scratch_dir():
     Path(roots[1]).mkdir(exist_ok=True)
     root = max(roots, key=lambda r: shutil.disk_usage(r).free)
     free = shutil.disk_usage(root).free / 2**30
-    if free < 24:
-        raise RuntimeError(f"phases 9 and 10 write 10 GB of weights; {free:.1f} GiB free under {root}")
+    if free < 32:
+        raise RuntimeError(f"phases 9-13 write up to 25 GiB of weights and caches; {free:.1f} GiB free under {root}")
     return tempfile.TemporaryDirectory(dir=root)
 
 
@@ -1345,6 +1363,7 @@ def cli_phase(dev, per_batch, d):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        cold = runner is None  # the first run loads the weights: converted, and the cache written
         t = time.perf_counter()
         n, runner = cli.run(argv + base, runner)
         torch.cuda.synchronize()
@@ -1356,6 +1375,11 @@ def cli_phase(dev, per_batch, d):
         n = n if processed is None else processed
         runs[label] = {"frames": n, "wall_s": wall, "fps": n / wall, "peak_gib": peak,
                        "launches": {k: counts[k] for k in ("K1", "K2", "K3", "K3q", "K4", "K5")}}
+        if cold:
+            cache = sum(f.stat().st_size for f in Path(d, "torch_cache").iterdir()) / 2**30
+            runs[label]["cache_gib"] = cache
+            print(f"  CLI {label}: the cold load converted both files and wrote {cache:.2f} GiB of weights cache",
+                  flush=True)
         print(f"  CLI {label}: {n} frames upscaled in {wall:.2f} s ({n / wall:.2f} fps), peak {peak:.2f} GiB, "
               f"launches {runs[label]['launches']}", flush=True)
         return cli.build_config(cli.parse_arguments(argv + base))
@@ -1375,7 +1399,8 @@ def cli_phase(dev, per_batch, d):
         return ref
 
     if have_cv2:
-        # an image: the run that reads the weights (its wall includes the load)
+        # an image: the run that reads the weights (its wall includes the cold load: the conversion and the
+        # cache write)
         cfg = drive("image (weights read)", [f"{d}/still.png", "--output", f"{d}/still_up.png", "--debug"])
         ref = image_reference("image (weights read)", cfg, f"{d}/still.png")
         runs["image (weights read)"]["max_abs_diff_codes"] = _same_codes(
@@ -1660,6 +1685,19 @@ def int8_phase(dev, text, frames, d, per_batch):
             ("3B --quantize int8 (safetensors)", ["--quantize", "int8"], "safetensors"),
             ("3B .gguf", ["--dit_model", "seedvr2_ema_3b-Q8_0.gguf"], "gguf"),
         ):
+            # the load path's cold and warm start for this int8 DiT (phase 13 (c)'s checks): its cache removed,
+            # load_runner converts and writes it, a second load reads it back; every tensor of the two equal
+            dit_file = "seedvr2_ema_3b-Q8_0.gguf" if source == "gguf" else "seedvr2_ema_3b_fp16.safetensors"
+            quantize = "int8" if source == "safetensors" else None
+            for f in Path(d, "torch_cache").glob(f"{dit_file}.*int8*"):
+                f.unlink()
+            cold, cold_s = _timed_load(dev, d, dit_file, "converted", quantize)
+            warm, warm_s = _timed_load(dev, d, dit_file, "read", quantize)
+            n_equal = _same_tensors(f"{label} cold vs warm", cold, warm)
+            del cold, warm
+            out[f"{label} load"] = {"cold_s": cold_s, "warm_s": warm_s, "tensors_equal": n_equal}
+            print(f"  {label}: cold load (converted, cache written) {cold_s:.2f} s, warm load (cache read) "
+                  f"{warm_s:.2f} s, {n_equal} DiT and VAE tensors equal", flush=True)
             out_path = f"{d}/int8_{source}.mp4"
             gc.collect()
             torch.cuda.synchronize()
@@ -1687,16 +1725,114 @@ def int8_phase(dev, text, frames, d, per_batch):
             out[label] = {"frames": n, "wall_s": wall, "peak_gib": peak, "dit_gib": dit_gib,
                           "launches": {k: counts[k] for k in ("K7", "K7_wgmma", "K7_splitk", "K7_shapes", "K1",
                                                               "K2", "K3")}, "max_abs_diff_codes": diff}
-            print(f"  CLI {label}: {n} frames in {wall:.2f} s (the weights read, converted and quantized included), "
+            print(f"  CLI {label}: {n} frames in {wall:.2f} s (the warm load from the cache included), "
                   f"DiT {dit_gib:.2f} GiB, peak {peak:.2f} GiB, launches {out[label]['launches']}, max |diff| vs "
                   f"phases.generate {diff} codes", flush=True)
             del runner
             gc.collect()
             torch.cuda.empty_cache()
+        for f in [Path(d, "seedvr2_ema_3b-Q8_0.gguf"), *Path(d, "torch_cache").glob("*int8*")]:
+            f.unlink()  # room on disk for phase 13's cache
     finally:
         video.make_video_reader, video.make_video_writer = files
         INT8_RUNS["allowed"] = False
     return out, launches
+
+
+def _timed_load(dev, d, dit_file, want, quantize=None):
+    """load_runner on the card from ``d`` (3B, the VAE of phase 9, at
+    phase 9's resolution), timed to its last copy; ``want``: "converted"
+    or "read", what the weights cache must have done for this DiT file
+    (its forced log line)."""
+    from seedvr2_tpu_torch.pipeline.loader import load_runner, pick_config
+
+    log = _recorded_log()
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = load_runner(dit_file, "ema_vae_fp16.safetensors", str(d),
+                         pick_config(dit_file).replace(resolution=PHASE9_RESOLUTION), device=dev, quantize=quantize,
+                         debug=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not any(f"Weights cache: {want}" in ln and dit_file in ln for ln in log.lines):
+        raise RuntimeError(f"load of {dit_file}: the weights cache did not report '{want}': {log.lines}")
+    return runner, wall
+
+
+def _same_tensors(label, a, b) -> int:
+    """Every DiT and VAE tensor of runners ``a`` and ``b`` (buffers, K1's
+    stored layout and K2's folds: models/params.py:loaded_tensors) of the
+    same type and bit-equal; their count."""
+    from seedvr2_tpu_torch.models.params import loaded_tensors
+
+    n = 0
+    for part in ("dit", "vae"):
+        ta, tb = loaded_tensors(getattr(a, part)), loaded_tensors(getattr(b, part))
+        if ta.keys() != tb.keys():
+            raise RuntimeError(f"{label}: the {part}s hold different tensors")
+        bad = [k for k in ta if ta[k].dtype != tb[k].dtype or not torch.equal(ta[k], tb[k])]
+        if bad:
+            raise RuntimeError(f"{label}: {len(bad)} {part} tensors differ, e.g. {bad[:3]}")
+        n += len(ta)
+    return n
+
+
+# --------------------------------------------------------------------------- #
+# Phase 13: the load path's cold start
+# --------------------------------------------------------------------------- #
+
+
+def load_phase(dev, frames, d, per_batch):
+    """Phase 13: load_runner through the weights cache (io/native_ckpt.py)
+    on phase 9's 3B fp16 safetensors and VAE, linked into a fresh
+    directory so that the first load is cold. (a) A cold load in a child
+    process that imports only seedvr2_tpu_torch (load_probe.run_child):
+    the streamed conversion and the cache write; its wall, ru_maxrss, peak
+    RssAnon and the cache's bytes. (b) A warm one, the same numbers. (d)
+    os.utime on the source: (c)'s first load in this process is cold
+    again (the cache stale), its second warm: every DiT and VAE tensor
+    equal, one phases.generate batch of the main path's clip from each, 0
+    codes apart, K1, K2 and K3 = phase 5's counts a batch."""
+    from seedvr2_tpu_torch import load_probe
+    from seedvr2_tpu_torch.pipeline import phases
+
+    dit_file, out = "seedvr2_ema_3b_fp16.safetensors", {}
+    fresh = Path(d) / "phase13"
+    fresh.mkdir()
+    for name in (dit_file, "ema_vae_fp16.safetensors"):
+        (fresh / name).symlink_to(Path(d) / name)
+    for load, want in (("cold", "converted"), ("warm", "read")):
+        rec = load_probe.run_child(Path(load_probe.ROOT), fresh, dit_file, None)
+        rec["cache_gib"] = load_probe.cache_bytes(fresh) / 2**30
+        if not any(f"Weights cache: {want}" in ln and dit_file in ln for ln in rec["cache_log"]):
+            raise RuntimeError(f"(a)/(b) {load} load in a child: the cache did not report '{want}': {rec['cache_log']}")
+        out[load] = rec
+        print(f"  ({'a' if load == 'cold' else 'b'}) {load} load in a child process: {rec['wall_s']:.2f} s, ru_maxrss "
+              f"{rec['ru_maxrss_gib']:.2f} GiB ({rec['ru_maxrss_before_gib']:.2f} before the load), RssAnon peak "
+              f"{rec['rss_anon_peak_gib']:.2f} GiB ({rec['rss_anon_before_gib']:.2f} before), cache "
+              f"{rec['cache_gib']:.2f} GiB on disk", flush=True)
+    st = os.stat(fresh / dit_file)
+    os.utime(fresh / dit_file, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))  # (d): the source touched
+    cold, cold_s = _timed_load(dev, fresh, dit_file, "converted")
+    warm, warm_s = _timed_load(dev, fresh, dit_file, "read")
+    n_equal = _same_tensors("phase 13 cold vs warm", cold, warm)
+    outs = []
+    for runner in (cold, warm):
+        reset_counts()
+        outs.append(phases.generate(runner, frames))
+        expect("phase 13 batch", read_counts(), {k: per_batch[k] for k in ("K1", "K2", "K3")})
+    diff = _max_code_diff(*outs)
+    if diff != 0 or len(outs[0]) != len(frames) or not np.isfinite(outs[0]).all():
+        raise RuntimeError(f"phase 13: the cold and warm runners' batches are {diff} codes apart ({outs[0].shape})")
+    out["in_process"] = {"cold_after_utime_s": cold_s, "warm_s": warm_s, "tensors_equal": n_equal,
+                         "max_abs_diff_codes": diff}
+    print(f"  (d) source touched: the next load converts again; (c) in this process: cold {cold_s:.2f} s, warm "
+          f"{warm_s:.2f} s, {n_equal} DiT and VAE tensors equal, one batch from each {diff} codes apart, K1 / K2 / "
+          f"K3 = phase 5's a batch", flush=True)
+    del cold, warm
+    shutil.rmtree(fresh)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1845,8 +1981,8 @@ def node_phase(dev, per_batch, d, frames):
             raise RuntimeError(f"node (a): max |diff| {diff} from phases.generate, progress {ups}")
         out["a"] = {"wall_s": wall, "peak_gib": peak, "launches": {k: counts[k] for k in ("K1", "K2", "K3")},
                     "max_abs_diff": diff, "progress": ups}
-        print(f"  (a) V3 workflow, {frames.shape} -> {shape}: first execute {wall:.2f} s (the 3B and VAE safetensors "
-              f"read included), peak {peak:.2f} GiB, launches {out['a']['launches']}, max |diff| vs phases.generate "
+        print(f"  (a) V3 workflow, {frames.shape} -> {shape}: first execute {wall:.2f} s (the 3B and VAE loaded "
+              f"warm from phase 9's weights cache, not converted), peak {peak:.2f} GiB, launches {out['a']['launches']}, max |diff| vs phases.generate "
               f"{diff}, progress {ups}", flush=True)
 
         # (b) the cache: another colour fix, no load
@@ -2212,15 +2348,26 @@ def main():
         e2e_node = node_phase(dev, launches, d, frames)
         e2e_node["wall_s"] = time.perf_counter() - t0
         print(f"  phase 11: {e2e_node['wall_s']:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("[12] the streamed output path: 3B + VAE, the column-chunk route against one fused_batch a batch "
+              "(720p, 1080p, three batches under the profiler, yuv420)", flush=True)
+        t0 = time.perf_counter()
+        e2e_stream = stream_phase(dev, text, frames)
+        e2e_stream["wall_s"] = time.perf_counter() - t0
+        print(f"  phase 12: {e2e_stream['wall_s']:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("[13] the load path's cold start: phase 9's 3B safetensors and VAE in a fresh directory, cold and "
+              "warm loads in child processes, then in this process after the source is touched", flush=True)
+        t0 = time.perf_counter()
+        e2e_load = load_phase(dev, frames, d, launches)
+        e2e_load["wall_s"] = time.perf_counter() - t0
+        print(f"  phase 13: {e2e_load['wall_s']:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-
-    print("[12] the streamed output path: 3B + VAE, the column-chunk route against one fused_batch a batch "
-          "(720p, 1080p, three batches under the profiler, yuv420)", flush=True)
-    t0 = time.perf_counter()
-    e2e_stream = stream_phase(dev, text, frames)
-    e2e_stream["wall_s"] = time.perf_counter() - t0
-    print(f"  phase 12: {e2e_stream['wall_s']:.1f} s", flush=True)
     launches_3b_int8 = e2e_int8["3B --quantize int8 (safetensors)"]["launches"]
     launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
     path_counts = {"long_clip": launches_long, "int8_7b": launches_int8, "int8_3b": launches_3b_int8}
@@ -2236,7 +2383,7 @@ def main():
             row["launches"] = counts[row["kernel"]]
     rows += rank_rows
     e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long),
-               multi_rank=e2e_multi, cli=e2e_cli, int8=e2e_int8, node=e2e_node, stream=e2e_stream)
+               multi_rank=e2e_multi, cli=e2e_cli, int8=e2e_int8, node=e2e_node, stream=e2e_stream, load=e2e_load)
     print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,
                       "build_nvcc_s": b.compile_seconds}))
     print(card)

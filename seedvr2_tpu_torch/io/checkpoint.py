@@ -2,7 +2,9 @@
 (the port's copy of seedvr2_tpu/io/weights.py: the safetensors and .pth
 reads, the format dispatch load_state_dict_any, the DiT and VAE key maps,
 convert_state_dict and its inverse export_state_dict, flatten_tree and
-load_text_embeddings; same keys, same transforms).
+load_text_embeddings; same keys, same transforms). ``CheckpointReader``
+and ``converted_tensors`` give the same arrays one tensor at a time, for
+the streamed load of io/weights.py.
 
 A flat dict maps a '/'-joined path of the JAX parameter tree
 (``blocks/3/attn/qkv/vid/w``) to an array; io/weights.py fills the port's
@@ -24,58 +26,123 @@ from ..config import DiTConfig, VAEConfig
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
 
 
+def _safetensors_tensors(path: str):
+    """(keys, get, close) of a safetensors file (memory-mapped); dtypes
+    numpy cannot hold (bf16, fp8_e4m3fn) are read through torch and
+    widened to fp32."""
+    from safetensors import safe_open
+
+    handles = [safe_open(path, framework="np")]
+
+    def get(k):
+        try:
+            return handles[0].get_tensor(k)
+        except (TypeError, ValueError):
+            if len(handles) == 1:
+                handles.append(safe_open(path, framework="pt"))
+            return handles[1].get_tensor(k).float().numpy()
+
+    def close():
+        for h in handles:
+            h.__exit__(None, None, None)
+
+    return list(handles[0].keys()), get, close
+
+
+def _pth_tensors(path: str):
+    """(keys, get, close) of a torch .pth / .pt file (memory-mapped,
+    ``weights_only``): a ``state_dict`` entry is unwrapped, floats are
+    widened to fp32, entries that are not tensors are dropped."""
+    import torch
+
+    state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    if isinstance(state, dict) and "state_dict" in state and isinstance(state["state_dict"], dict):
+        state = state["state_dict"]
+    state = {k: v for k, v in state.items() if hasattr(v, "numpy")}
+
+    def get(k):
+        v = state[k]
+        if v.dtype in (torch.bfloat16, torch.float16, torch.float32, torch.float64):
+            return v.to(torch.float32).numpy()
+        return v.numpy()
+
+    return list(state), get, state.clear
+
+
+def _gguf_tensors(path: str, dtype):
+    """(keys, get, close) of a GGUF file: the header is read once, each
+    tensor is read and dequantized to ``dtype`` when asked for."""
+    from .gguf import read_gguf
+
+    g = read_gguf(path)
+    return list(g.tensors), lambda k: g.load_tensor(k, dtype), lambda: None
+
+
+class CheckpointReader:
+    """A checkpoint's tensors one at a time, each read only when asked for:
+    ``keys()``, ``key in reader``, ``get(key)`` and iteration over (key,
+    array) in the file's order; a context manager. By extension: .gguf
+    (dequantized to ``dtype``), .pth / .pt, else safetensors, each tensor
+    as the whole-file readers below give it."""
+
+    def __init__(self, path: str, dtype=np.float32):
+        if path.endswith(".gguf"):
+            self._keys, self._get, self._close = _gguf_tensors(path, dtype)
+        elif path.endswith((".pth", ".pt")):
+            self._keys, self._get, self._close = _pth_tensors(path)
+        else:
+            self._keys, self._get, self._close = _safetensors_tensors(path)
+        self._key_set = set(self._keys)
+
+    def keys(self):
+        return list(self._keys)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._key_set
+
+    def get(self, key: str) -> np.ndarray:
+        return self._get(key)
+
+    def __iter__(self):
+        for k in self._keys:
+            yield k, self._get(k)
+
+    def close(self) -> None:
+        self._close()
+
+    def __enter__(self) -> "CheckpointReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _whole(tensors) -> Dict[str, np.ndarray]:
+    keys, get, close = tensors
+    try:
+        return {k: get(k) for k in keys}
+    finally:
+        close()
+
+
 def load_safetensors(path: str) -> Dict[str, np.ndarray]:
     """A safetensors file as host numpy arrays; dtypes numpy cannot hold
     (bf16, fp8_e4m3fn) are read through torch and widened to fp32."""
-    from safetensors import safe_open
-
-    out = {}
-    needs_torch = []
-    with safe_open(path, framework="np") as f:
-        for k in f.keys():
-            try:
-                out[k] = f.get_tensor(k)
-            except (TypeError, ValueError):
-                needs_torch.append(k)
-    if needs_torch:
-        import torch
-
-        with safe_open(path, framework="pt") as f:
-            for k in needs_torch:
-                out[k] = f.get_tensor(k).to(torch.float32).numpy()
-    return out
+    return _whole(_safetensors_tensors(path))
 
 
 def load_pth(path: str) -> Dict[str, np.ndarray]:
     """A torch .pth / .pt checkpoint as host numpy arrays (memory-mapped,
     ``weights_only``): a ``state_dict`` entry is unwrapped, floats are widened
     to fp32, entries that are not tensors are dropped."""
-    import torch
-
-    state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-    if isinstance(state, dict) and "state_dict" in state and isinstance(state["state_dict"], dict):
-        state = state["state_dict"]
-    out = {}
-    for k, v in state.items():
-        if not hasattr(v, "numpy"):
-            continue
-        if v.dtype in (torch.bfloat16, torch.float16, torch.float32, torch.float64):
-            out[k] = v.to(torch.float32).numpy()
-        else:
-            out[k] = v.numpy()
-    return out
+    return _whole(_pth_tensors(path))
 
 
 def load_state_dict_any(path: str, dtype=np.float32) -> Dict[str, np.ndarray]:
     """By extension: .gguf (every tensor dequantized to ``dtype``, io/gguf.py),
-    .pth / .pt, else safetensors."""
-    if path.endswith(".gguf"):
-        from .gguf import load_gguf_state_dict
-
-        return load_gguf_state_dict(path, dtype)
-    if path.endswith((".pth", ".pt")):
-        return load_pth(path)
-    return load_safetensors(path)
+    .pth / .pt, else safetensors: the whole file."""
+    with CheckpointReader(path, dtype) as reader:
+        return dict(iter(reader))
 
 
 # --------------------------------------------------------------------------- #
@@ -237,23 +304,24 @@ _TRANSFORMS = {
 }
 
 
+def converted_tensors(state, key_map: Dict[str, Tuple[str, str]]):
+    """(flat path, array in the JAX layout) for each entry of ``key_map``,
+    in its order, one at a time: ``state`` is a state dict or a
+    CheckpointReader (each tensor read when its turn comes). Raises on
+    missing keys before anything is read."""
+    missing = [theirs for theirs, _ in key_map.values() if theirs not in state]
+    if missing:
+        raise KeyError(f"Checkpoint missing {len(missing)} keys, e.g. {missing[:5]}")
+    return ((ours, _TRANSFORMS[kind](np.asarray(state.get(theirs)))) for ours, (theirs, kind) in key_map.items())
+
+
 def convert_state_dict(
     state: Dict[str, np.ndarray], key_map: Dict[str, Tuple[str, str]], dtype=np.float32
 ) -> Dict[str, np.ndarray]:
     """torch state dict -> flat dict in the JAX layout; raises on missing
     keys. ``dtype=None`` keeps each array's own type (the module cast at
     load rounds either way to the same compute-dtype value)."""
-    out = {}
-    missing = []
-    for ours, (theirs, kind) in key_map.items():
-        if theirs not in state:
-            missing.append(theirs)
-            continue
-        arr = _TRANSFORMS[kind](np.asarray(state[theirs]))
-        out[ours] = arr if dtype is None else arr.astype(dtype)
-    if missing:
-        raise KeyError(f"Checkpoint missing {len(missing)} keys, e.g. {missing[:5]}")
-    return out
+    return {ours: arr if dtype is None else arr.astype(dtype) for ours, arr in converted_tensors(state, key_map)}
 
 
 def _permuted(x, axes):

@@ -3,8 +3,11 @@
 Two sources, one path: a parameter tree in the JAX package's layout (nested
 dicts of numpy arrays) is flattened with ``checkpoint.flatten_tree``; a
 reference checkpoint (safetensors, GGUF or .pth) goes through the key maps
-and converters of io/checkpoint.py to the same flat layout. ``load_flat`` then fills the
-modules, converting each conv weight once to the layout of its route (K1:
+and converters of io/checkpoint.py to the same flat layout, one tensor at a
+time (``checkpoint_leaves``, models/params.py:``fill_leaves``: the host never
+holds the whole model), and through the weights cache of io/native_ckpt.py
+(``load_cached``). ``load_flat`` and ``fill_leaves`` fill the modules,
+converting each conv weight once to the layout of its route (K1:
 [27, Cin, Cout]; K2: the fold, computed at load).
 """
 
@@ -16,9 +19,10 @@ import torch
 
 from ..config import DiTConfig, VAEConfig
 from ..models.dit.nadit import NaDiT, int8_linears
-from ..models.params import init_random, load_flat
+from ..models.params import fill_leaves, init_random, leaf_paths, load_flat
 from ..models.vae.model import VAE
-from .checkpoint import convert_state_dict, dit_key_map, flatten_tree, load_state_dict_any, vae_key_map
+from . import native_ckpt
+from .checkpoint import CheckpointReader, converted_tensors, dit_key_map, flatten_tree, vae_key_map
 from .checkpoint import load_text_embeddings  # noqa: F401  (bundled pos/neg embeddings)
 
 
@@ -44,37 +48,96 @@ def vae_from_jax(params, cfg: VAEConfig, device, dtype=torch.bfloat16) -> VAE:
     return vae_from_flat(flatten_tree(params), cfg, device, dtype)
 
 
+def _check_quantize(quantize: Optional[str]) -> None:
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize={quantize!r}: None or 'int8'")
+
+
+def checkpoint_leaves(path: str, key_map, quantize: Optional[str] = None):
+    """A checkpoint's leaves one at a time: (flat path, tensor in the JAX
+    layout) in the key map's order, each read, transformed and, with
+    ``quantize="int8"``, quantized (ops/quant.py: a block linear's ``w``
+    becomes ``w_q`` and ``w_s``) before the next is read. Raises on
+    missing keys before the first leaf."""
+    from ..ops.quant import quantize_linear, quantizes
+
+    reader = CheckpointReader(path)
+    try:
+        leaves = converted_tensors(reader, key_map)
+    except KeyError:
+        reader.close()
+        raise
+
+    def gen():
+        with reader:
+            for ours, arr in leaves:
+                if quantize == "int8" and quantizes(ours, arr.shape):
+                    q = quantize_linear(arr)
+                    del arr
+                    yield ours[: -len("w")] + "w_q", q["w_q"]
+                    yield ours[: -len("w")] + "w_s", q["w_s"]
+                else:
+                    yield ours, torch.as_tensor(arr)
+
+    return gen()
+
+
+def _modules(kind: str, cfg, device, dtype, tensor_size: int = 1, quantize: Optional[str] = None):
+    """The module to fill (for a DiT, this tensor rank's part), the whole
+    one whose leaves a checkpoint holds (on the meta device when the two
+    differ) and the key map."""
+    _check_quantize(quantize)
+    if kind == "vae":
+        if quantize is not None or tensor_size != 1:
+            raise ValueError("the VAE is loaded whole and dense")
+        root = VAE(cfg, device, dtype)
+        return root, root, vae_key_map(cfg)
+    int8 = int8_linears(cfg) if quantize == "int8" else ()
+    root = NaDiT(cfg, device, dtype, tensor=tensor_size, int8=int8)
+    whole = root if tensor_size == 1 else NaDiT(cfg, "meta", dtype, int8=int8)
+    return root, whole, dit_key_map(cfg)
+
+
 def dit_from_checkpoint(path: str, cfg: DiTConfig, device, dtype=torch.bfloat16, tensor_rank: int = 0,
                         tensor_size: int = 1, quantize: Optional[str] = None) -> NaDiT:
-    """A .safetensors, .gguf or .pth/.pt DiT: converted to the JAX layout,
-    quantized (``quantize="int8"``: the whole weights, ops/quant.py), then
-    with ``tensor_size`` > 1 sliced to tensor rank ``tensor_rank``'s part,
-    all in host memory, before anything moves to ``device``."""
-    from ..ops.quant import quantize_dit_params
-    from ..parallel.sharding import shard_flat
-
-    flat = convert_state_dict(load_state_dict_any(path), dit_key_map(cfg), dtype=None)
-    if quantize == "int8":
-        flat = quantize_dit_params(flat)
-    elif quantize is not None:
-        raise ValueError(f"quantize={quantize!r}: None or 'int8'")
-    if tensor_size > 1:
-        flat = shard_flat(flat, cfg, tensor_rank, tensor_size)
-    return dit_from_flat(flat, cfg, device, dtype, tensor=tensor_size)
+    """A .safetensors, .gguf or .pth/.pt DiT, streamed one tensor at a time
+    (checkpoint_leaves, fill_leaves): converted to the JAX layout,
+    quantized (``quantize="int8"``: each whole weight, ops/quant.py), cast,
+    then with ``tensor_size`` > 1 sliced to tensor rank ``tensor_rank``'s
+    part on the host before it moves to ``device``; no host copy of the
+    whole model is made."""
+    root, _, key_map = _modules("dit", cfg, device, dtype, tensor_size, quantize)
+    return fill_leaves(root, checkpoint_leaves(path, key_map, quantize), tensor_rank, tensor_size).eval()
 
 
 def vae_from_checkpoint(path: str, cfg: VAEConfig, device, dtype=torch.bfloat16) -> VAE:
-    """A .safetensors, .gguf (dequantized) or .pth/.pt VAE in ``dtype``."""
-    return vae_from_flat(convert_state_dict(load_state_dict_any(path), vae_key_map(cfg), dtype=None), cfg, device,
-                         dtype)
+    """A .safetensors, .gguf (dequantized) or .pth/.pt VAE in ``dtype``,
+    streamed as dit_from_checkpoint."""
+    root, _, key_map = _modules("vae", cfg, device, dtype)
+    return fill_leaves(root, checkpoint_leaves(path, key_map)).eval()
+
+
+def load_cached(kind: str, path: str, cfg, device, dtype=torch.bfloat16, tensor_rank: int = 0, tensor_size: int = 1,
+                quantize: Optional[str] = None, debug=None):
+    """dit_from_checkpoint (``kind`` "dit") or vae_from_checkpoint ("vae")
+    through the weights cache (io/native_ckpt.py): read from
+    ``<dir of path>/torch_cache/`` when it holds this file converted with
+    these settings, else converted and written there on the way."""
+    root, whole, key_map = _modules(kind, cfg, device, dtype, tensor_size, quantize)
+    layout = [(p, m.load_dtype(leaf), tuple(m.spec[leaf][0])) for p, m, leaf in leaf_paths(whole)]
+    return native_ckpt.load_or_convert(
+        path, layout, native_ckpt.settings_for(kind, key_map, dtype, quantize, layout),
+        convert=lambda sink: fill_leaves(root, checkpoint_leaves(path, key_map, quantize), tensor_rank, tensor_size,
+                                         sink),
+        read=lambda get: fill_leaves(root, ((p, get(p)) for p, _, _ in layout), tensor_rank, tensor_size),
+        debug=debug, category=kind).eval()
 
 
 def random_dit(cfg: DiTConfig, generator: torch.Generator, dtype=torch.bfloat16, quantize: Optional[str] = None) -> NaDiT:
     """Random weights drawn on the generator's device (no host copy);
     ``quantize="int8"``: the same draws, quantized there
     (models/params.py:random_leaves)."""
-    if quantize not in (None, "int8"):
-        raise ValueError(f"quantize={quantize!r}: None or 'int8'")
+    _check_quantize(quantize)
     int8 = int8_linears(cfg) if quantize == "int8" else ()
     return init_random(NaDiT(cfg, generator.device, dtype, int8=int8), generator).eval()
 

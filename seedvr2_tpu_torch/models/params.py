@@ -117,18 +117,6 @@ def branch(group: nn.ModuleDict, name: str) -> nn.Module:
     return group["all"] if "all" in group else group[name]
 
 
-def _resolve(root: nn.Module, parts) -> nn.Module:
-    m = root
-    for p in parts:
-        if isinstance(m, nn.ModuleList):
-            m = m[int(p)]
-        elif isinstance(m, nn.ModuleDict):
-            m = m[p]
-        else:
-            m = getattr(m, p)
-    return m
-
-
 def leaf_paths(root: nn.Module):
     for name, m in root.named_modules():
         if isinstance(m, Leaf):
@@ -143,18 +131,54 @@ def prepare(root: nn.Module) -> None:
             m.prepare()
 
 
+def loaded_tensors(root: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every tensor ``root`` computes with once loaded, by name: its buffers
+    and what its modules' ``prepare`` derived from them (K2's folds), which
+    a load from the weights cache must reproduce bit for bit."""
+    out = dict(root.named_buffers())
+    for name, m in root.named_modules():
+        if hasattr(m, "prepared_tensors"):
+            out.update({f"{name}.{k}": t for k, t in m.prepared_tensors().items()})
+    return out
+
+
+def fill_leaves(root: nn.Module, leaves, tensor_rank: int = 0, tensor_size: int = 1, sink=None) -> nn.Module:
+    """Fill every leaf of ``root`` from (flat path, whole array or tensor in
+    the JAX layout) pairs, one at a time: each is cast to its leaf's load
+    type (the JAX loader's cast), handed whole to ``sink(path, tensor)``
+    (the weights cache, io/native_ckpt.py), then sliced to tensor rank
+    ``tensor_rank``'s part (parallel/sharding.py:local_slice) and copied
+    into the module; then ``prepare``. Raises on an unexpected or a
+    missing leaf."""
+    from ..parallel.sharding import local_slice
+
+    expected = {p: (m, leaf) for p, m, leaf in leaf_paths(root)}
+    seen = set()
+    for path, arr in leaves:
+        if path not in expected:
+            raise KeyError(f"unexpected leaf {path}")
+        m, leaf = expected[path]
+        t = torch.as_tensor(np.asarray(arr) if not isinstance(arr, torch.Tensor) else arr).to(m.load_dtype(leaf))
+        if sink is not None:
+            sink(path, t)
+        m.set_jax(leaf, local_slice(path, t, tensor_rank, tensor_size))
+        seen.add(path)
+    missing = sorted(set(expected) - seen)
+    if missing:
+        raise KeyError(f"missing {missing[:5]} ({len(missing)})")
+    prepare(root)
+    return root
+
+
 def load_flat(root: nn.Module, flat: Mapping[str, object]) -> nn.Module:
     """Fill every leaf of ``root`` from a flat JAX-path dict (the layout of
-    io/checkpoint.py:flatten_tree); raises on missing or extra keys."""
+    io/checkpoint.py:flatten_tree); raises on missing or extra keys before
+    any leaf is filled."""
     expected = {p for p, _, _ in leaf_paths(root)}
     missing, extra = expected - set(flat), set(flat) - expected
     if missing or extra:
         raise KeyError(f"missing {sorted(missing)[:5]} ({len(missing)}), unexpected {sorted(extra)[:5]} ({len(extra)})")
-    for path, arr in flat.items():
-        *mods, leaf = path.split("/")
-        _resolve(root, mods).set_jax(leaf, arr)
-    prepare(root)
-    return root
+    return fill_leaves(root, flat.items())
 
 
 def random_leaves(root: nn.Module, generator: torch.Generator):

@@ -102,6 +102,12 @@ class FoldedUpsample(nn.Module):
             self.folds[name] = (K.to(self.dtype).contiguous(), btab.contiguous(), A)
         self.bc = self.conv.b.float()
 
+    def prepared_tensors(self) -> Dict[str, torch.Tensor]:
+        """The folds and bias tables ``prepare`` computed, by name."""
+        out = {f"folds.{name}.{i}": t for name, (K, btab, _) in self.folds.items() for i, t in enumerate((K, btab))}
+        out["bc"] = self.bc
+        return out
+
     def _run(self, x_ext: torch.Tensor, fold: str) -> torch.Tensor:
         K, btab, A = self.folds[fold]
         return fold_upsample_conv(x_ext.contiguous(), K, btab, self.bc, A)

@@ -9,6 +9,8 @@ Decoder mirrors it with 3-resnet up blocks and folded upsamples.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -192,3 +194,17 @@ class VAE(nn.Module):
 def posterior_mode(moments: torch.Tensor) -> torch.Tensor:
     """Mean of the diagonal Gaussian: the first half of the channels."""
     return moments[..., : moments.shape[-1] // 2]
+
+
+def posterior_sample(moments: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+                     eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A draw of the diagonal Gaussian: mean + exp(logvar / 2) * eps in
+    fp32, logvar clipped to [-30, 20], returned in the moments' type.
+    ``eps``: standard normal noise of the mean's shape; drawn from
+    ``generator`` (fp32, on the moments' device) when not given."""
+    c = moments.shape[-1] // 2
+    mean = moments[..., :c]
+    std = torch.exp(0.5 * moments[..., c:].clamp(-30.0, 20.0).float())
+    if eps is None:
+        eps = torch.randn(mean.shape, generator=generator, device=moments.device, dtype=torch.float32)
+    return (mean.float() + std * eps).to(mean.dtype)

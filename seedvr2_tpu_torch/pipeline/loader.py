@@ -1,6 +1,7 @@
 """Checkpoint files -> a ready Runner (counterpart of
-seedvr2_tpu/pipeline/loader.py). Reads local safetensors, GGUF and .pth
-checkpoints; it downloads nothing."""
+seedvr2_tpu/pipeline/loader.py). Reads safetensors, GGUF and .pth
+checkpoints through the weights cache (io/native_ckpt.py), and fetches a
+missing released file first (io/registry.py:download_model)."""
 
 from __future__ import annotations
 
@@ -10,9 +11,10 @@ from typing import Optional
 import torch
 
 from ..config import PipelineConfig, dit_3b, dit_7b, vae_config
+from ..io import registry
 from ..io.checkpoint import load_text_embeddings
 from ..io.registry import model_variant
-from ..io.weights import dit_from_checkpoint, vae_from_checkpoint
+from ..io.weights import load_cached
 from ..ops.attention import resolve_attention_mode
 from ..parallel.mesh import AXIS_TENSOR, Mesh
 from ..parallel.sharding import check_tensor_split
@@ -70,6 +72,7 @@ def load_runner(
     attention_mode: str = "fused",
     mesh: Optional[Mesh] = None,
     debug: Optional[Debug] = None,
+    download: bool = True,
 ) -> Runner:
     """The DiT config follows the file name (``pick_config``).
     ``attention_mode`` is a name of ops/attention.py's alias table (fused,
@@ -81,6 +84,13 @@ def load_runner(
     ``auto_quantize`` (int8 for 7B on a device of under 20 GiB). A .gguf
     DiT is always dequantized and re-quantized to int8; a .gguf or .pth
     VAE is dequantized and kept in the compute dtype.
+
+    ``download``: a missing file is first fetched from its Hugging Face
+    repository and its hash checked (io/registry.py:download_model); with
+    ``download=False`` it raises FileNotFoundError. Each file is then read
+    through the weights cache (io/native_ckpt.py): converted on its first
+    load and written to ``<model_dir>/torch_cache/``, read from there on
+    later loads until the file changes.
 
     ``mesh``: this rank's mesh (parallel/mesh.py); the runner then runs on
     ``mesh.device`` (``device`` is ignored). On a mesh whose tensor axis is
@@ -95,9 +105,11 @@ def load_runner(
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize={quantize!r}: None or 'int8'")
     paths = [os.path.join(model_dir, m) for m in (dit_model, vae_model)]
-    for p in paths:
+    for name, p in zip((dit_model, vae_model), paths):
         if not os.path.exists(p):
-            raise FileNotFoundError(p)
+            if not download:
+                raise FileNotFoundError(p)
+            registry.download_model(name, model_dir)
     debug = debug or Debug()
     device = mesh.device if mesh is not None else torch.device(device)
     dtype = _DTYPES[cfg.compute_dtype]
@@ -109,10 +121,10 @@ def load_runner(
         debug.log("7B on <20GB HBM: defaulting to int8 weight storage", category="dit", force=True)
     quantize = resident_quantize(cfg.dit, dit_model, quantize, hbm)
     debug.log(f"Loading DiT weights: {paths[0]}", category="dit", force=True)
-    dit = dit_from_checkpoint(paths[0], cfg.dit, device, dtype, t_rank, tensor, quantize)
+    dit = load_cached("dit", paths[0], cfg.dit, device, dtype, t_rank, tensor, quantize, debug)
     dit.set_attention_mode(attention_mode)
     debug.log(f"Loading VAE weights: {paths[1]}", category="vae", force=True)
-    vae = vae_from_checkpoint(paths[1], cfg.vae, device, dtype)
+    vae = load_cached("vae", paths[1], cfg.vae, device, dtype, debug=debug)
     pos, neg = load_text_embeddings(emb_dir)
     width = cfg.dit.txt_in_dim
     return Runner(cfg, dit, vae, pos[:, :width], device=device, mesh=mesh, text_neg=neg[:, :width], debug=debug)

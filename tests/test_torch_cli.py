@@ -25,12 +25,17 @@ import shutil
 import socket
 import subprocess
 import sys
+import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
 import torch
 
 import inference_cli
+from fake_hub import FakeHub
+from seedvr2_tpu.io import registry as jregistry
 from seedvr2_tpu.io import video as jvideo
 from seedvr2_tpu_torch import cli, config
 from seedvr2_tpu_torch.io import frameops, video
@@ -344,18 +349,28 @@ def test_output_bits_without_ffmpeg_equal_inference_cli(monkeypatch, flags, bits
     assert cli._resolve_output_bits(cli.parse_arguments(args)) == want == (8 if not flags else bits)
 
 
-def test_unported_settings_raise_naming_the_roadmap(models, tmp_path, capsys):
+def test_unported_settings_raise_naming_the_roadmap(models, tmp_path, capsys, monkeypatch):
     """Nothing the CLI takes raises as unported any more: --quantize int8
     runs (tests/test_torch_gguf.py holds it against inference_cli.py), a
-    .gguf --dit_model is read (a missing one is a missing file), and the
-    flags without meaning here are noted and ignored."""
+    .gguf --dit_model is read (a missing one is fetched from the hub, as
+    inference_cli.py fetches it: here a fake hub answers 404, and the CLI
+    raises the error JAX's downloader raises for it), and the flags
+    without meaning here are noted and ignored."""
     video.write_image(str(tmp_path / "in.png"), np.zeros((8, 8, 3), np.float32))
     assert cli.main([str(tmp_path / "in.png"), "--output", str(tmp_path / "q.png"),
                      *_argv(models, "--quantize", "int8")]) == 0
     argv = _argv(models)
     argv[1] = "tiny_dit.gguf"
-    with pytest.raises(FileNotFoundError, match="tiny_dit.gguf"):
+    hub = FakeHub({})
+    monkeypatch.setattr(urllib.request, "urlopen", hub.urlopen)
+    monkeypatch.setattr(time, "sleep", lambda s: None)
+    with pytest.raises(urllib.error.HTTPError, match="404") as got:
         cli.main([str(tmp_path / "in.png"), *argv])
+    with pytest.raises(urllib.error.HTTPError) as ref:
+        jregistry.download_model("tiny_dit.gguf", str(models))
+    assert (got.value.code, got.value.url) == (ref.value.code, ref.value.url)
+    assert hub.requests[:3] == hub.requests[3:] and len(hub.requests) == 6
+    assert not os.path.exists(os.path.join(str(models), "tiny_dit.gguf"))
     assert cli.main([str(tmp_path / "in.png"), "--output", str(tmp_path / "o.png"), "--vae_conv_backend", "xla",
                      "--blocks_to_swap", "4", *_argv(models)]) == 0
     out = capsys.readouterr().out

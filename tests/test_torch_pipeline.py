@@ -186,8 +186,8 @@ def test_load_runner_picks_7b_from_the_file_name(setup_7b_style, tmp_path, monke
 def test_load_runner_variant_rule(tmp_path, name, variant):
     """Without a cfg the file name alone picks the full-width config; a
     3B/7B cfg is corrected to the name, a custom one is kept. Loading a
-    missing file raises after the choice; an unknown attention mode raises
-    before any file is read."""
+    missing file with ``download=False`` raises after the choice; an
+    unknown attention mode raises before any file is read."""
     want = config.dit_7b() if variant == "7b" else config.dit_3b()
     assert loader.pick_config(name).dit == want
     assert loader.pick_config(name).vae == config.vae_config()
@@ -196,7 +196,7 @@ def test_load_runner_variant_rule(tmp_path, name, variant):
         assert picked.dit == want and picked.resolution == 720
     assert loader.pick_config(name, _port_cfg()) == _port_cfg()
     with pytest.raises(FileNotFoundError, match=name):
-        load_runner(name, "ema_vae_fp16.safetensors", str(tmp_path), device="cpu")
+        load_runner(name, "ema_vae_fp16.safetensors", str(tmp_path), device="cpu", download=False)
     with pytest.raises(ValueError, match="Unknown attention backend"):
         load_runner(name, "ema_vae_fp16.safetensors", str(tmp_path), device="cpu", attention_mode="flash")
 
