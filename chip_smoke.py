@@ -21,8 +21,11 @@ Phases (any failure raises and the script exits non-zero without a result):
      rows also carry K1's time at the same shape (``k1_ms``), their rival,
      and K4 rows cuDNN's bf16 conv alone (``cudnn_conv_ms``); K6 runs at
      K1's three 720p decode shapes (c512 3x180x320, c256 5x360x640, c128
-     5x720x1280), and its rows carry ptxas's register and spill lines and
-     the runtime's registers, spill and dynamic shared memory for it;
+     5x720x1280); the rows of the conv pipeline's kernels (K1 and K6 share
+     one, K4 and K2 have theirs) carry ptxas's register and spill lines and
+     the runtime's registers, spill and dynamic shared memory for it, and
+     K1, K4 and K2 a second launch on the same inputs, which must give the
+     same bits;
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
@@ -35,6 +38,9 @@ Phases (any failure raises and the script exits non-zero without a result):
      5-frame 640x360 clip upscaled to 1280x720 with the default pipeline
      settings through seedvr2_tpu_torch.pipeline.phases.generate; then the
      same with the VAE's GroupNorm fusion on (K4 48 launches, K1 none);
+     each driven run of phases 5-7 also prints the device-timeline spans
+     of its VAE encode and decode calls (CUDA events around each
+     Runner._encode / _decode call, summed: vae_encode_ms, vae_decode_ms);
   6. the 7B path: NaDiT-7B (36 layers, width 3072, 24 heads) and the VAE at
      full width, the same clip, once under sageattn_2 (K3q in every layer)
      and once under flash_attn_2 (K5 in every layer);
@@ -423,7 +429,32 @@ def long_clip_conv_shapes():
     return [(128, 5, tile[0] * sf, tile[1] * sf), (256, 5, tile[0] * sf // 2, tile[1] * sf // 2)]
 
 
-def _conv_rows(dev, g, c, T, H, W, k1_ms, path="main"):
+def conv_builds() -> dict:
+    """The conv pipeline's kernels as built: ptxas's register and spill
+    lines, and the runtime's registers, spill and dynamic shared memory, for
+    K1 / K6 (one kernel), K4 and K2."""
+    from seedvr2_tpu_torch.ops import conv3d_kernel as k1
+    from seedvr2_tpu_torch.ops import cuda_lib
+    from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
+
+    log = cuda_lib.build().log
+    out = {}
+    for kid, attrs, mangled in (("K1", k1.kernel_attributes(), "Conv3dPolicyILb0E"),
+                                ("K4", k1.kernel_attributes(gn=True), "Conv3dPolicyILb1E"),
+                                ("K2", k2.kernel_attributes(), "FoldPolicy")):
+        out[kid] = {**attrs, "ptxas": [line for _, line in cuda_lib.ptxas_lines(log, mangled)]}
+        print(f"  {kid} kernel: {out[kid]}", flush=True)
+    out["K6"] = out["K1"]
+    return out
+
+
+def same_bits(kid, name, kernel):
+    """Two launches on the same inputs must give the same bits."""
+    if not torch.equal(kernel(), kernel()):
+        raise RuntimeError(f"{kid} {name}: two launches on the same inputs differ")
+
+
+def _conv_rows(dev, g, c, T, H, W, k1_ms, builds, path="main"):
     """K1 (on the main path only) and K4 rows at one resnet conv shape. K4's
     library call is the three-call chain it fuses; ``cudnn_conv_ms`` is
     cuDNN's bf16 F.conv3d at the same shape, its rival for the conv alone."""
@@ -449,7 +480,9 @@ def _conv_rows(dev, g, c, T, H, W, k1_ms, path="main"):
             "seedvr2_tpu/ops/conv3d_kernel.py:193",
             lambda: k1.conv3d_3x3x3(x, w, b), lambda: k1.conv3d_3x3x3_plain(x, w, b),
             nbytes(x, w, b) + T * H * W * c * 2, ops, cudnn, "F.conv3d in bf16 (cuDNN), NCDHW view",
+            extra_row=builds["K1"],
         ))
+        same_bits("K1", shape, lambda: k1.conv3d_3x3x3(x, w, b))
         k1_ms[shape] = (rows[-1]["ms"], rows[-1]["library_ms"])
     gw = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
     gb = 0.3 * torch.randn(c, generator=g, device=dev)
@@ -460,7 +493,7 @@ def _conv_rows(dev, g, c, T, H, W, k1_ms, path="main"):
         h = F.silu(F.group_norm(h, 32, gw.bfloat16(), gb.bfloat16(), eps=1e-6))
         return F.conv3d(h.reshape(1, T + 2, c, H, W).transpose(1, 2), w_oidhw, b.bfloat16(), padding=(0, 1, 1))
 
-    extra = {"path": path}
+    extra = {"path": path, **builds["K4"]}
     if shape in k1_ms:
         extra.update(k1_ms=k1_ms[shape][0], cudnn_conv_ms=k1_ms[shape][1])
     else:
@@ -473,6 +506,7 @@ def _conv_rows(dev, g, c, T, H, W, k1_ms, path="main"):
         "chain: per-frame F.group_norm + F.silu + cuDNN bf16 F.conv3d (channels-first copies of x included)",
         extra_row=extra,
     ))
+    same_bits("K4", shape, lambda: k1.conv3d_3x3x3(x, w, b, scale, shift))
     return rows
 
 
@@ -542,7 +576,6 @@ def kernel_phase(dev):
 
     from seedvr2_tpu_torch.config import dit_3b, dit_7b
     from seedvr2_tpu_torch.ops import conv3d_kernel as k1
-    from seedvr2_tpu_torch.ops import cuda_lib
     from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -557,13 +590,11 @@ def kernel_phase(dev):
     # clip's decode-tile shapes (phase 7's path, no K1 there); K6: the folded
     # product at K1's shapes
     k1_ms = {}
+    builds = conv_builds()
     for c, T, H, W in ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280)):
-        rows += _conv_rows(dev, g, c, T, H, W, k1_ms)
+        rows += _conv_rows(dev, g, c, T, H, W, k1_ms, builds)
     for c, T, H, W in long_clip_conv_shapes():
-        rows += _conv_rows(dev, g, c, T, H, W, k1_ms, path="long_clip")
-    k6_build = {**k1.im2col_kernel_attributes(),
-                "ptxas": [line for _, line in cuda_lib.ptxas_lines(cuda_lib.build().log, "im2col")]}
-    print(f"  K6 kernel: {k6_build}", flush=True)
+        rows += _conv_rows(dev, g, c, T, H, W, k1_ms, builds, path="long_clip")
     for c, T, H, W in ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280)):
         x = randn(1, T + 2, H, W, c)
         w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
@@ -572,12 +603,12 @@ def kernel_phase(dev):
         xc = x.permute(0, 4, 1, 2, 3)
         shape = f"c{c} {T}x{H}x{W}"
         rows.append(compare(
-            "K6", f"conv3d_3x3x3_im2col {shape}", "seedvr2_tpu_torch/csrc/conv3d_im2col.cuh",
+            "K6", f"conv3d_3x3x3_im2col {shape}", "seedvr2_tpu_torch/csrc/conv3d.cuh",
             "seedvr2_tpu/ops/conv3d_kernel.py:323",
             lambda: k1.conv3d_3x3x3_im2col(x, w, b), lambda: k1.conv3d_3x3x3_im2col_plain(x, w, b),
             nbytes(x, w, b) + T * H * W * c * 2, {"bf16": 2 * T * H * W * 27 * c * c},
             lambda: F.conv3d(xc, w_oidhw, b.bfloat16(), padding=(0, 1, 1)), "F.conv3d in bf16 (cuDNN), NCDHW view",
-            extra_row={"k1_ms": k1_ms[shape][0], **k6_build},
+            extra_row={"k1_ms": k1_ms[shape][0], **builds["K6"]},
         ))
         del x, xc
     # K2: the decoder's three upsamples at 720p (the phase-pure call of each)
@@ -596,7 +627,9 @@ def kernel_phase(dev):
             nbytes(x, K, btab, bc) + Tp * A * 4 * H * W * c * 2, {"bf16": 2 * Tp * H * W * (kt * 4 * c) * (A * 4 * c)},
             lambda: F.conv3d(xc, K_oidhw, padding=(0, 1, 1)),
             "F.conv3d in bf16 (cuDNN) of the folded kt x 2 x 2 weight, no bias table, no depth-to-space",
+            extra_row=builds["K2"],
         ))
+        same_bits("K2", rows[-1]["name"], lambda: k2.fold_upsample_conv(x, K, btab, bc, A))
         del x, xc
     rows += _window_attention_rows(dev, g, dit_3b(), quant_qk=False)
     rows += _window_attention_rows(dev, g, dit_3b(), quant_qk=False, thw=(3, 68, 120), res="1080p ", path="long_clip")
@@ -666,21 +699,55 @@ def reference_phase(dev, text, rope_type, mode, long_clip=False):
     return {"rope_type": rope_type, "mode": mode, "long_clip": long_clip, "mean_abs_diff": mean_err, "rel_l2": rel}
 
 
+class VaeSpans:
+    """CUDA events around every VAE encode and decode call of a runner (the
+    fused and the 4-phase routes both go through Runner._encode / _decode),
+    recorded on the stream, read after the run: the device-timeline span of
+    each call (idle gaps inside it included), summed by stage."""
+
+    STAGES = ("encode", "decode")
+
+    def __init__(self, runner):
+        self.runner, self.events = runner, {k: [] for k in self.STAGES}
+
+    def __enter__(self):
+        for stage in self.STAGES:
+            def timed(*a, _raw=getattr(self.runner, f"_{stage}"), _events=self.events[stage], **kw):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _raw(*a, **kw)
+                end.record()
+                _events.append((start, end))
+                return out
+
+            setattr(self.runner, f"_{stage}", timed)
+        return self
+
+    def __exit__(self, *exc):
+        for stage in self.STAGES:
+            delattr(self.runner, f"_{stage}")  # the class's method again
+
+    def ms(self) -> dict:
+        return {f"vae_{k}_ms": sum(s.elapsed_time(e) for s, e in ev) for k, ev in self.events.items()}
+
+
 def drive(runner, frames, label, out_shape=(5, 720, 1280, 3), runs=2):
-    """One counted run (counters reset right before, read right after), then
-    with ``runs=2`` a second run for the steady wall time."""
+    """One counted run (counters reset right before, read right after; its
+    VAE spans recorded), then with ``runs=2`` a second run for the steady
+    wall time."""
     from seedvr2_tpu_torch.pipeline import phases
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    t0 = time.perf_counter()
-    out = phases.generate(runner, frames)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with VaeSpans(runner) as spans:
+        t0 = time.perf_counter()
+        out = phases.generate(runner, frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    e2e = {"wall_s": wall, "peak_gib": peak}
+    e2e = {"wall_s": wall, "peak_gib": peak, **spans.ms()}
     note = ""
     if runs == 2:
         t0 = time.perf_counter()
@@ -688,7 +755,8 @@ def drive(runner, frames, label, out_shape=(5, 720, 1280, 3), runs=2):
         torch.cuda.synchronize()
         e2e["second_run_wall_s"] = time.perf_counter() - t0
         note = f", second run {e2e['second_run_wall_s']:.3f} s"
-    print(f"  {label}: out {out.shape} {out.dtype}, first run {wall:.3f} s{note}, "
+    print(f"  {label}: out {out.shape} {out.dtype}, first run {wall:.3f} s{note}, VAE encode "
+          f"{e2e['vae_encode_ms']:.1f} ms, decode {e2e['vae_decode_ms']:.1f} ms (device spans of the first run), "
           f"peak {peak:.2f} GiB, launches {launches}", flush=True)
     if out.shape != out_shape or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise RuntimeError(f"{label}: bad output {out.shape}")

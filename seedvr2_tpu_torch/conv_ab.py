@@ -9,16 +9,17 @@ turns within one process.
 
 Each DIR is a ``csrc/`` directory, for example the parent commit's,
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
-Its ``conv3d.cu``, ``conv3d_im2col.cu``, ``fold_upsample.cu`` and (where it
-has one) ``w8a16_linear.cu`` are compiled with this tree's ``nvcc`` flags
-into a library of their own and called through the same C entry points
-(``ops/cuda_lib.py:_SIGNATURES``), so DIR must keep them. ``--kernels``
-picks a subset (K1 and K4 run together). ``--ablate`` adds, for every tree
-whose kernel has the design they were written for and for each picked
-kernel, copies of it with one part taken out (ABLATIONS). K6 (the TMA +
-wgmma pipeline): the products (what the loads alone take) and the TMA
-loads (the products and the epilogue alone, on whatever shared memory
-holds). K7 (wgmma on register-widened int8 for the video rows, split-K for
+Its ``conv3d.cu``, ``conv3d_im2col.cu`` (trees before K1 and K6 shared a
+kernel), ``fold_upsample.cu`` and (where it has one) ``w8a16_linear.cu``
+are compiled with this tree's ``nvcc`` flags into a library of their own
+and called through the same C entry points (``ops/cuda_lib.py:_SIGNATURES``),
+so DIR must keep them. ``--kernels`` picks a subset (K1 and K4 run
+together). ``--ablate`` adds, for every tree whose kernel has the design
+they were written for and for each picked kernel, copies of it with one
+part taken out (ABLATIONS). The conv pipeline (K1, K4, K6 and K2, in
+trees that have ``conv_pipeline.cuh``): the products (what the loads, and
+K4's pass, take alone) and the TMA loads (the products, the pass and the
+epilogue alone, on whatever shared memory holds). K7 (wgmma on register-widened int8 for the video rows, split-K for
 the text rows): the widening (the int8 bytes used as they are), the
 products (wgmma and mma.sync replaced by a no-op that keeps their
 operands live: loads, widening and epilogue alone), the video regime's
@@ -59,18 +60,19 @@ from .ops import quant
 
 CONV_SHAPES = ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280), (128, 5, 608, 1024), (256, 5, 304, 512))
 K6_SHAPES = CONV_SHAPES[:3]
-SOURCES = ("conv3d.cu", "conv3d_im2col.cu", "fold_upsample.cu", "w8a16_linear.cu")  # the last where a tree has it
+SOURCES = ("conv3d.cu", "conv3d_im2col.cu", "fold_upsample.cu", "w8a16_linear.cu")  # those a tree has
 FOLD_SHAPES = ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7, 360, 640))  # C, kt, A, frames, H, W
 
-# kernel -> (header, a string of the design the ablations were written for)
-ABLATED = {"K6": ("conv3d_im2col.cuh", "sm90::wgmma"), "K7": ("w8a16_linear.cuh", "k16_rs_bf16(")}
+# family -> (its kernels, header, a string of the design the ablations were written for)
+ABLATED = {"conv": (("K1", "K4", "K6", "K2"), "conv_pipeline.cuh", "sm90::wgmma"),
+           "K7": (("K7",), "w8a16_linear.cuh", "k16_rs_bf16(")}
 _TMA = (r"sm90::mbar_arrive_expect_tx\((\w+) \+ (\w+), [^;]*\);", r"sm90::mbar_arrive(\1 + \2);")
 _TMA_LOADS = (r"sm90::tma_load_\dd\(.*?\);", ";")
-# name -> (kernel, (file, pattern, replacement) substitutions in its csrc
+# name -> (family, (file, pattern, replacement) substitutions in its csrc
 # copy, each of which must match at least once)
 ABLATIONS = {
-    "K6-products": ("K6", (("conv3d_im2col.cuh", r"sm90::wgmma_m64n128k16_bf16\(.*?\);", ";"),)),
-    "K6-loads": ("K6", (("conv3d_im2col.cuh", *_TMA), ("conv3d_im2col.cuh", *_TMA_LOADS))),
+    "conv-products": ("conv", (("conv_pipeline.cuh", r"sm90::wgmma_m64n128k16_bf16\(.*?\);", ";"),)),
+    "conv-loads": ("conv", (("conv_pipeline.cuh", *_TMA), ("conv_pipeline.cuh", *_TMA_LOADS))),
     "K7-widen": ("K7", (("w8a16_linear.cuh", r"(void widen_s8x4\(uint32_t q, uint32_t& lo, uint32_t& hi\) \{).*?\n\}",
                          r"\1\n  lo = hi = q;\n}"),)),
     "K7-products": ("K7", (("w8a16_linear.cuh", r"sm90::wgmma_m64n\d+k16_rs_bf16\(acc, cur\[kk\], .*?\);",
@@ -94,13 +96,13 @@ def int8_linear_shapes(cfg: DiTConfig) -> list:
 
 
 def ablated(csrc: Path, out: Path, kernels) -> dict:
-    """{name: (kernel, csrc copy)} with each of ABLATIONS of ``kernels``
-    applied, for each kernel whose header in csrc has the design of
-    ABLATED."""
+    """{name: (family, csrc copy)} with each of ABLATIONS of a family with a
+    kernel in ``kernels`` applied, where its header in csrc has the design
+    of ABLATED."""
     trees = {}
-    for name, (kernel, subs) in ABLATIONS.items():
-        header, design = ABLATED[kernel]
-        if kernel not in kernels or not (csrc / header).exists() or design not in (csrc / header).read_text():
+    for name, (family, subs) in ABLATIONS.items():
+        members, header, design = ABLATED[family]
+        if not set(members) & set(kernels) or not (csrc / header).exists() or design not in (csrc / header).read_text():
             continue
         tree = out / name
         shutil.rmtree(tree, ignore_errors=True)
@@ -110,7 +112,7 @@ def ablated(csrc: Path, out: Path, kernels) -> dict:
             if n == 0:
                 raise RuntimeError(f"ablation {name}: {pat!r} matches nothing in {csrc / file}")
             (tree / file).write_text(text)
-        trees[name] = (kernel, tree)
+        trees[name] = (family, tree)
     return trees
 
 
@@ -166,7 +168,7 @@ def main():
     ap.add_argument("--against", action="append", default=[], help="a csrc/ directory to build and time beside this tree")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--kernels", default="K1,K4,K6,K2,K7", help="comma-separated subset of K1,K4,K6,K2,K7")
-    ap.add_argument("--ablate", action="store_true", help="also time K6 and K7 with one of their parts taken out")
+    ap.add_argument("--ablate", action="store_true", help="also time the conv kernels and K7 with one part taken out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_ab: no CUDA device")
@@ -180,17 +182,18 @@ def main():
     work = cuda_lib.BUILD_ROOT.parent / "conv_ab"
     kernels = set(args.kernels.split(","))
     others = {d: Path(d) for d in args.against}
-    ablation_of = {}  # an ablated build's name -> its kernel
+    ablation_of = {}  # an ablated build's name -> its family
     if args.ablate:
         for i, (name, csrc) in enumerate([("this", cuda_lib.CSRC), *others.items()]):
-            for k, (kernel, tree) in ablated(csrc, work / f"ablate{i}", kernels).items():
-                others[f"{name} {k}"], ablation_of[f"{name} {k}"] = tree, kernel
+            for k, (family, tree) in ablated(csrc, work / f"ablate{i}", kernels).items():
+                others[f"{name} {k}"], ablation_of[f"{name} {k}"] = tree, family
     with ThreadPoolExecutor(len(others) or 1) as pool:
         outs = [work / str(i) for i in range(len(others))]
         for d, (lib, report) in zip(others, pool.map(build_other, others.values(), outs)):
             libs[d] = lib
             print(f"{d}:", report, flush=True)
     trees = {n: L for n, L in libs.items() if n not in ablation_of}
+    conv_libs = {n: L for n, L in libs.items() if ablation_of.get(n, "conv") == "conv"}  # timed, ablated too
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -227,14 +230,13 @@ def main():
             errs = " ".join(f"{n} K1 {rel_l2(run(L, False), ref1):.2e} K4 {rel_l2(run(L, True), ref4):.2e}"
                             for n, L in trees.items())
             print(f"K1/K4 c{c} {T}x{H}x{W}: rel L2 {errs}", flush=True)
-            for n, L in trees.items():
+            for n, L in conv_libs.items():
                 calls[f"{n} K1"], calls[f"{n} K4"] = (lambda L=L: run(L, False)), (lambda L=L: run(L, True))
             del ref4
         if k6:
-            libs6 = {n: L for n, L in libs.items() if ablation_of.get(n, "K6") == "K6"}
-            errs = " ".join(f"{n} {rel_l2(run6(L), ref1):.2e}" for n, L in libs6.items())
+            errs = " ".join(f"{n} {rel_l2(run6(L), ref1):.2e}" for n, L in trees.items())
             print(f"K6 c{c} {T}x{H}x{W}: rel L2 {errs}", flush=True)
-            calls.update({f"{n} K6": (lambda L=L: run6(L)) for n, L in libs6.items()})
+            calls.update({f"{n} K6": (lambda L=L: run6(L)) for n, L in conv_libs.items()})
         timed_rounds(calls, args.rounds)
         del x, w, sc, sf, y, ref1, xc, wo
 
@@ -254,7 +256,7 @@ def main():
         errs = " ".join(f"{n} {rel_l2(run2(L), ref):.2e}" for n, L in trees.items())
         print(f"K2 c{c} kt{kt} A{A} {frames}x{H}x{W}: rel L2 {errs}", flush=True)
         calls = {"cudnn": lambda: F.conv3d(xc, Ko, padding=(0, 1, 1))}
-        calls.update({n: (lambda L=L: run2(L)) for n, L in trees.items()})
+        calls.update({n: (lambda L=L: run2(L)) for n, L in conv_libs.items()})
         timed_rounds(calls, args.rounds)
         del x, K, y, ref, xc, Ko
 

@@ -1,11 +1,11 @@
 // Shared pieces of the hand-written Hopper kernels: the bf16 type and its
 // helpers.
 //
-// K1/K4 and K2 have their own core (conv_core.cuh) and the attention
-// kernels theirs (attention_core.cuh), both on the inline PTX of ptx.cuh:
-// mma.sync fragments in registers, ldmatrix operands, cp.async rings. K6
-// (conv3d_im2col.cuh) runs on Hopper's TMA, mbarrier and wgmma
-// (hopper.cuh).
+// The attention kernels have their own core (attention_core.cuh) on the
+// inline PTX of ptx.cuh: mma.sync fragments in registers, ldmatrix
+// operands, cp.async rings. The convolutions K1 / K4 / K6 and K2 are one
+// pipeline (conv_pipeline.cuh) on Hopper's TMA, mbarrier and wgmma
+// (hopper.cuh), as is K7's video regime.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarrier rings, TMA tensor
 // loads, wgmma shared-memory descriptors and products, and setmaxnreg.
-// K6 (conv3d_im2col.cuh) and K7's video regime (w8a16_linear.cuh) use them.
+// The conv pipeline of K1 / K4 / K6 and K2 (conv_pipeline.cuh) and K7's video
+// regime (w8a16_linear.cuh) use them.
 //
 // - mbarrier: a 64-bit barrier in shared memory that counts thread arrivals
 //   and, with expect_tx, the bytes an asynchronous copy still has to land.
@@ -58,6 +59,11 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma's operands), once a barrier has passed
+// them on to the reading threads.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // Spin until the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {

@@ -121,9 +121,14 @@ def verify_model(path: str, expected: Optional[str]) -> bool:
     digest = sha256_file(path)
     ok = digest == expected
     if ok:
-        with open(cpath, "w") as f:
-            json.dump({"mtime": mtime, "sha256": digest}, f)
+        _remember(path, mtime, digest)
     return ok
+
+
+def _remember(path: str, mtime: float, digest: str) -> None:
+    """Record that ``path`` at ``mtime`` hashes to ``digest``."""
+    with open(_cache_path(path), "w") as f:
+        json.dump({"mtime": mtime, "sha256": digest}, f)
 
 
 def download_model(model_name: str, model_dir: str, retries: int = 3, progress: bool = True) -> str:
@@ -132,7 +137,14 @@ def download_model(model_name: str, model_dir: str, retries: int = 3, progress: 
     ``.part`` and resumed with a ``Range`` request; each of ``retries``
     tries that fails waits 2 s times its number before the next, and the
     last one's error is raised (an ``IOError`` when the hash does not
-    match). ``progress`` is kept for the JAX package's signature."""
+    match). ``progress`` is kept for the JAX package's signature.
+
+    The hash is checked on ``.part`` before it takes the final name, and a
+    ``.part`` that fails it is deleted, so the next try starts from zero and
+    a failed download leaves nothing at ``model_dir/model_name``. The JAX
+    package renames first and checks after, so a file that never matched
+    stays there and its loader, which only checks that the file exists,
+    reads it."""
     os.makedirs(model_dir, exist_ok=True)
     info = MODEL_REGISTRY.get(model_name, ModelInfo())
     path = os.path.join(model_dir, model_name)
@@ -154,9 +166,13 @@ def download_model(model_name: str, model_dir: str, retries: int = 3, progress: 
                     if not buf:
                         break
                     f.write(buf)
-            os.replace(tmp, path)
-            if not verify_model(path, info.sha256):
+            digest = sha256_file(tmp) if info.sha256 is not None else None
+            if digest != info.sha256:
+                os.remove(tmp)
                 raise IOError(f"SHA256 mismatch for {model_name}")
+            os.replace(tmp, path)
+            if digest is not None:
+                _remember(path, os.path.getmtime(path), digest)
             return path
         except Exception:  # a network, disk or hash failure: the next try, or the last one's error
             if attempt == retries - 1:

@@ -1,23 +1,25 @@
 """K1, K4 and K6: the stride-1 3x3x3 convolution of the VAE (channels-last).
 
 Counterpart of seedvr2_tpu/ops/conv3d_kernel.py:
-- ``conv3d_3x3x3(x_ext, w, b)`` is K1 (csrc/conv3d.cuh);
+- ``conv3d_3x3x3(x_ext, w, b)`` is K1;
 - ``conv3d_3x3x3(x_ext, w, b, scale, shift)`` is K4, the same conv with
   silu(x * scale + shift) applied to its input as it is loaded (the
   resnet's per-frame GroupNorm + SiLU, folded into tables by
   ``gn_silu_tables``; template flag of the same kernel);
 - ``conv3d_3x3x3_im2col(x_ext, w, b)`` is K6, the conv as one product over
-  the folded [M, 27*Cin] column matrix (csrc/conv3d_im2col.cuh).
-On a CUDA tensor each launches its hand-written kernel; on a CPU tensor it
-runs the plain version below. There is no other route: a CUDA tensor the
-kernel does not take raises. Each kernel has its own launch counter:
-``conv3d_3x3x3.launches`` (K1), ``conv3d_3x3x3.launches_gn`` (K4),
-``conv3d_3x3x3_im2col.launches`` (K6).
+  the folded [M, 27*Cin] axis: the kernel K1 runs too.
+All three are csrc/conv3d.cuh's policy on the TMA + wgmma pipeline of
+csrc/conv_pipeline.cuh (K2, ops/fold_upsample_kernel.py, is the same
+kernel with another policy). On a CUDA tensor each launches its
+hand-written kernel; on a CPU tensor it runs the plain version below.
+There is no other route: a CUDA tensor the kernel does not take raises.
+Each has its own C entry and launch counter: ``conv3d_3x3x3.launches``
+(K1), ``conv3d_3x3x3.launches_gn`` (K4), ``conv3d_3x3x3_im2col.launches``
+(K6).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -81,15 +83,18 @@ def conv3d_3x3x3_plain(
     return y.permute(0, 2, 3, 4, 1).to(x_ext.dtype).contiguous()
 
 
-def _check_conv_args(name, x_ext, w, b, cin_multiple, cout_multiple):
+def _check_conv_args(name, x_ext, w, b):
+    """The kernel's contract: bf16 x_ext and w, fp32 b, on one device;
+    Cin % 64 == 0 (its stage depth) and Cout % 128 == 0 (its tile width;
+    every conv the routing rule sends here is 128-512 wide). x_ext and w
+    are read through TMA tensor maps encoded from their data pointers, so a
+    contiguous view at a storage offset is taken as it is when that pointer
+    is 16-byte aligned, and refused when it is not (never copied)."""
     B, Text, H, W, cin = x_ext.shape
     cout = w.shape[-1]
     T = Text - 2
     cuda_lib.require(T >= 1, f"{name}: need T+2 >= 3 frames, got {Text}")
-    cuda_lib.require(
-        cin % cin_multiple == 0 and cout % cout_multiple == 0, f"{name}: channels {cin}->{cout} not supported"
-    )
-    cuda_lib.require(B * T <= cuda_lib.MAX_GRID_YZ, f"{name}: B*T={B * T} frames per launch")
+    cuda_lib.require(cin % 64 == 0 and cout % 128 == 0, f"{name}: channels {cin}->{cout} not supported")
     cuda_lib.require_cuda_tensor(x_ext, "x_ext", torch.bfloat16)
     cuda_lib.require_cuda_tensor(w, "w", torch.bfloat16, (3, 3, 3, cin, cout))
     cuda_lib.require_cuda_tensor(b, "b", torch.float32, (cout,))
@@ -109,13 +114,14 @@ def conv3d_3x3x3(
     Returns [B, T, H, W, Cout]: SAME spatial padding, valid in time. With
     ``scale``/``shift`` [B, T+2, Cin] fp32 (gn_silu_tables of x_ext) the
     conv reads silu(x * scale + shift) instead of x (K4). The kernel takes
-    Cin % 32 == 0 and Cout % 128 == 0 (its 128-column tile; every conv the
-    routing rule sends here)."""
+    Cin % 64 == 0 and Cout % 128 == 0 (every conv the routing rule sends
+    here), and views at a 16-byte aligned storage offset
+    (_check_conv_args)."""
     if (scale is None) != (shift is None):
         raise ValueError("conv3d_3x3x3: give both scale and shift, or neither")
     if x_ext.device.type == "cpu":
         return conv3d_3x3x3_plain(x_ext, w, b, scale, shift)
-    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3", x_ext, w, b, 32, 128)
+    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3", x_ext, w, b)
     gn = scale is not None
     if gn:
         for t, n in ((scale, "scale"), (shift, "shift")):
@@ -150,15 +156,11 @@ def conv3d_3x3x3_im2col_plain(x_ext: torch.Tensor, w: torch.Tensor, b: Optional[
 def conv3d_3x3x3_im2col(x_ext: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K6: the same contract as conv3d_3x3x3 (no tables), computed as one
     product over the folded K axis; the kernel takes ``w`` viewed flat as
-    [27*Cin, Cout]. Needs Cin % 64 == 0 (its stage depth) and Cout % 128 ==
-    0 (its tile width; every VAE conv is 128-512 wide). The kernel reads
-    ``x_ext`` and ``w`` through TMA tensor maps, which describe a tensor
-    from its base: views with a storage offset are refused."""
+    [27*Cin, Cout] (_check_conv_args). It is K1's kernel, through its own
+    C entry and counter."""
     if x_ext.device.type == "cpu":
         return conv3d_3x3x3_im2col_plain(x_ext, w, b)
-    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3_im2col", x_ext, w, b, 64, 128)
-    for t, n in ((x_ext, "x_ext"), (w, "w")):
-        cuda_lib.require(t.storage_offset() == 0, f"conv3d_3x3x3_im2col: {n} is a view at a storage offset")
+    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3_im2col", x_ext, w, b)
     wf = w.view(27 * cin, cout)
     y = torch.empty((B, T, H, W, cout), dtype=torch.bfloat16, device=x_ext.device)
     lib = cuda_lib.library()
@@ -175,11 +177,8 @@ def conv3d_3x3x3_im2col(x_ext: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -
 conv3d_3x3x3_im2col.launches = 0
 
 
-def im2col_kernel_attributes() -> dict:
-    """K6's kernel as the CUDA runtime holds it: registers a thread, local
-    memory (spills) a thread, and the dynamic shared memory it launches with."""
-    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    code = cuda_lib.library().seedvr2_conv3d_im2col_attributes(ctypes.byref(regs), ctypes.byref(local),
-                                                                ctypes.byref(smem))
-    cuda_lib.check(code, "conv3d_3x3x3_im2col attributes")
-    return {"registers": regs.value, "local_bytes": local.value, "smem_bytes": smem.value}
+def kernel_attributes(gn: bool = False) -> dict:
+    """The kernel of K1 and K6 (or, with ``gn``, K4's) as the CUDA runtime
+    holds it: registers a thread, local memory (spills) a thread, and the
+    dynamic shared memory it launches with."""
+    return cuda_lib.attributes("seedvr2_conv3d_attributes", int(gn))

@@ -47,8 +47,9 @@ _f = ctypes.c_float
 _SIGNATURES = {
     "seedvr2_conv3d_3x3x3": [_vp] * 6 + [_i] * 6 + [_vp],
     "seedvr2_conv3d_im2col": [_vp] * 4 + [_i] * 6 + [_vp],
-    "seedvr2_conv3d_im2col_attributes": [ctypes.POINTER(_i)] * 3,
+    "seedvr2_conv3d_attributes": [_i] + [ctypes.POINTER(_i)] * 3,
     "seedvr2_fold_upsample": [_vp] * 5 + [_i] * 7 + [_vp],
+    "seedvr2_fold_upsample_attributes": [ctypes.POINTER(_i)] * 3,
     "seedvr2_window_attention": [_vp] * 10 + [_i] * 8 + [_f] * 2 + [_vp],
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
     "seedvr2_w8a16_linear": [_vp] * 5 + [_i] * 3 + [_vp],
@@ -148,7 +149,7 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-ENCODE_ERROR = 1 << 20  # + CUresult: a failed cuTensorMapEncodeTiled (csrc/conv3d_im2col.cu, w8a16_linear.cu)
+ENCODE_ERROR = 1 << 20  # + CUresult: a failed cuTensorMapEncodeTiled (csrc/conv_pipeline.cuh, w8a16_linear.cu)
 
 
 def check(code: int, what: str) -> None:
@@ -157,6 +158,16 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().seedvr2_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+def attributes(entry: str, *args) -> dict:
+    """A kernel as the CUDA runtime holds it, from its C entry ``entry``
+    (``args``, then three int pointers): registers a thread, local memory
+    (spills) a thread, and the dynamic shared memory it launches with."""
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = getattr(library(), entry)(*args, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(smem))
+    check(code, entry)
+    return {"registers": regs.value, "local_bytes": local.value, "smem_bytes": smem.value}
 
 
 def stream_ptr(t) -> int:

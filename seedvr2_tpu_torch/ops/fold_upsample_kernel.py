@@ -1,10 +1,11 @@
 """K2: the decoder's folded upsample conv (phases written interleaved).
 
 Counterpart of seedvr2_tpu/ops/fold_upsample_kernel.py:fold_upsample_conv.
-On a CUDA tensor it launches the hand-written kernel
-(csrc/fold_upsample.cuh); on a CPU tensor it runs the plain version, the
-JAX package's XLA form (_phase_conv + _interleave with the bias riding a
-ones channel, models/vae/folded_upsample.py:148-189).
+On a CUDA tensor it launches the hand-written kernel (csrc/fold_upsample.cuh's
+policy on the TMA + wgmma pipeline of csrc/conv_pipeline.cuh, the kernel of
+K1 / K4 / K6 too); on a CPU tensor it runs the plain version, the JAX
+package's XLA form (_phase_conv + _interleave with the bias riding a ones
+channel, models/vae/folded_upsample.py:148-189).
 """
 
 from __future__ import annotations
@@ -54,7 +55,10 @@ def fold_upsample_conv(
     A: int,
 ) -> torch.Tensor:
     """Returns [B, Tp*A, 2H, 2W, C]: the folded upsample conv with its
-    phases interleaved, valid in time (Tp = x_ext.shape[1] - kt + 1)."""
+    phases interleaved, valid in time (Tp = x_ext.shape[1] - kt + 1). The
+    kernel takes kt in 1..3, A in 1..2, C % 64 == 0, and contiguous views at
+    a 16-byte aligned storage offset (its TMA maps are encoded from the data
+    pointers)."""
     if x_ext.device.type == "cpu":
         return fold_upsample_conv_plain(x_ext, K, btab, bc, A)
     B, Text, H, W, C = x_ext.shape
@@ -63,8 +67,6 @@ def fold_upsample_conv(
     P = A * 4 * C
     cuda_lib.require(A in (1, 2) and kt in (1, 2, 3) and Tp >= 1, f"fold_upsample_conv: kt={kt} A={A} Tp={Tp}")
     cuda_lib.require(C % 64 == 0, f"fold_upsample_conv: C={C} not a multiple of 64")
-    blocks = -(-H // 16) * -(-W // 16) * B * Tp * A * (C // 32)  # one per 16 x 16 patch, frame, 32 channels
-    cuda_lib.require(blocks <= cuda_lib.MAX_GRID_X, f"fold_upsample_conv: {blocks} blocks")
     cuda_lib.require_cuda_tensor(x_ext, "x_ext", torch.bfloat16)
     cuda_lib.require_cuda_tensor(K, "K", torch.bfloat16, (kt, 2, 2, C, P))
     cuda_lib.require_cuda_tensor(btab, "btab", torch.float32, (2, 2, P))
@@ -86,3 +88,9 @@ def fold_upsample_conv(
 
 
 fold_upsample_conv.launches = 0
+
+
+def kernel_attributes() -> dict:
+    """K2's kernel as the CUDA runtime holds it: registers a thread, local
+    memory (spills) a thread, and the dynamic shared memory it launches with."""
+    return cuda_lib.attributes("seedvr2_fold_upsample_attributes")

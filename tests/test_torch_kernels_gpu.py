@@ -42,24 +42,38 @@ def _rel(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-# The conv core's edges: H, W not multiples of the 16 x 16 output patch
-# (9 x 17; W < 16), Cin != Cout (512 -> 256, 256 -> 128, 128 -> 256), B = 2
-# at T = 1, several patches and 128-column blocks (33 x 40, Cout 256).
+# The conv pipeline's edges (csrc/conv_pipeline.cuh): H, W not multiples of
+# the 256-pixel patch it picks (9 x 17; W < 16), Cin != Cout (512 -> 256,
+# 256 -> 128, 128 -> 256), B = 2 at T = 1, several patches and 128-column
+# blocks (33 x 40, Cout 256).
 CONV_CASES = [(2, 2, 128, 128, 9, 13), (2, 2, 256, 128, 16, 16), (2, 2, 128, 256, 5, 70), (1, 2, 128, 128, 9, 17),
               (1, 1, 128, 128, 5, 7), (2, 1, 512, 256, 9, 17), (2, 1, 256, 128, 17, 12), (1, 2, 128, 256, 33, 40)]
 
 
-@pytest.mark.parametrize("B,T,cin,cout,H,W", CONV_CASES)
-def test_conv3d_kernel_matches_plain(cuda, B, T, cin, cout, H, W):
+def _check_conv(cuda, B, T, cin, cout, H, W):
+    """K1 against its plain version, the image border and the last frame
+    too (TMA's zero fill is the SAME padding); two launches, the same bits."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(B, T + 2, H, W, cin, device=cuda, generator=g).bfloat16()
     w = (torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5).bfloat16()
     b = torch.randn(cout, device=cuda, generator=g)
-    n0 = k1.conv3d_3x3x3.launches
+    n0 = (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3_im2col.launches)
     y = k1.conv3d_3x3x3(x, w, b)
     torch.cuda.synchronize()
-    assert k1.conv3d_3x3x3.launches == n0 + 1
-    assert _rel(y, k1.conv3d_3x3x3_plain(x, w, b)) <= REL_BOUND
+    assert (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3_im2col.launches) == (n0[0] + 1, n0[1])
+    ref = k1.conv3d_3x3x3_plain(x, w, b)
+    assert bool(torch.isfinite(y).all())
+    assert _rel(y, ref) <= REL_BOUND
+    border = torch.zeros(H, W, dtype=torch.bool, device=cuda)
+    border[0], border[-1], border[:, 0], border[:, -1] = True, True, True, True
+    assert _rel(y[:, :, border], ref[:, :, border]) <= REL_BOUND
+    assert _rel(y[:, -1], ref[:, -1]) <= REL_BOUND
+    assert torch.equal(y, k1.conv3d_3x3x3(x, w, b))
+
+
+@pytest.mark.parametrize("B,T,cin,cout,H,W", CONV_CASES)
+def test_conv3d_kernel_matches_plain(cuda, B, T, cin, cout, H, W):
+    _check_conv(cuda, B, T, cin, cout, H, W)
 
 
 def _gn_case(cuda, cin, cout, H, W, T=3, B=2):
@@ -73,12 +87,21 @@ def _gn_case(cuda, cin, cout, H, W, T=3, B=2):
     return x, w, b, scale, shift
 
 
-@pytest.mark.parametrize("B,T,cin,cout,H,W", CONV_CASES + [(2, 3, 128, 128, 3, 100), (1, 1, 256, 256, 16, 16)])
+# K4's own edges beside CONV_CASES: 3 x 100 (all halo rows), 16 x 16 (one
+# patch, its halo outside on all four sides), Cin 64 (one stage a tap), W
+# below the patch width (20 x 7), a 4 x 64 patch ragged in W (4 x 130), B = 2
+# at T = 1 and more tiles than SMs (160 x 160 x 3 frames: the pass runs on
+# across tiles).
+GN_CASES = CONV_CASES + [(2, 3, 128, 128, 3, 100), (1, 1, 256, 256, 16, 16), (2, 1, 64, 128, 9, 13),
+                         (2, 3, 128, 256, 20, 7), (1, 1, 128, 128, 4, 130), (1, 3, 128, 256, 160, 160)]
+
+
+@pytest.mark.parametrize("B,T,cin,cout,H,W", GN_CASES)
 def test_conv3d_gn_kernel_matches_plain(cuda, B, T, cin, cout, H, W):
     """K4. Most cases leave a ragged patch; 5 x 7 and 16 x 16 are one
     patch whose halo crosses the image edge on all four sides, 3 x 100 is
     all halo rows: there the kernel must load zeros, not silu(shift) (which
-    the tables make far from 0)."""
+    the tables make far from 0). Two launches give the same bits."""
     x, w, b, scale, shift = _gn_case(cuda, cin, cout, H, W, T, B)
     assert float(torch.nn.functional.silu(shift).abs().mean()) > 0.05
     n0 = (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn)
@@ -93,6 +116,7 @@ def test_conv3d_gn_kernel_matches_plain(cuda, B, T, cin, cout, H, W):
     # the unfused route (normalise, then K1) computes the same function
     unfused = k1.conv3d_3x3x3(k1.gn_silu_apply(x, scale, shift).contiguous(), w, b)
     assert _rel(unfused, ref) <= REL_BOUND
+    assert torch.equal(y, k1.conv3d_3x3x3(x, w, b, scale, shift))
 
 
 def _check_im2col(cuda, B, T, cin, cout, H, W):
@@ -137,15 +161,44 @@ def test_conv3d_im2col_kernel_edges(cuda, B, T, cin, cout, H, W):
     _check_im2col(cuda, B, T, cin, cout, H, W)
 
 
-def test_conv3d_im2col_kernel_resources(cuda):
-    """K6 launches 384 threads with every register the launch bound allows:
-    setmaxnreg then moves them from the producer warpgroup (40) to the two
-    consumers (232), which waits forever if the pool is short. No spills,
-    and its shared memory within the 227 KB a block may take."""
-    a = k1.im2col_kernel_attributes()
-    assert a["registers"] * 384 >= 40 * 128 + 232 * 256, a
+@pytest.mark.parametrize("B,T,cin,cout,H,W", IM2COL_CASES)
+def test_conv3d_kernel_edges(cuda, B, T, cin, cout, H, W):
+    """K1 at K6's tiling edges (the same kernel, through K1's entry)."""
+    _check_conv(cuda, B, T, cin, cout, H, W)
+
+
+@pytest.mark.parametrize("kernel", ["K1/K6", "K4", "K2"])
+def test_conv3d_im2col_kernel_resources(cuda, kernel):
+    """The conv pipeline's kernels (K1 and K6 share one) launch 384 threads
+    with every register the launch bound allows: setmaxnreg then moves them
+    from the producer warpgroup (40; K4, whose pass runs there: 72) to the
+    two consumers (232; K4: 216), which waits forever if the pool is short.
+    No spills, and shared memory within the 227 KB a block may take (K4:
+    three slab stages and three weight stages, the others two and six)."""
+    a = k2.kernel_attributes() if kernel == "K2" else k1.kernel_attributes(gn=kernel == "K4")
+    assert a["registers"] * 384 >= (72 * 128 + 216 * 256 if kernel == "K4" else 40 * 128 + 232 * 256), a
     assert a["local_bytes"] == 0, a
     assert 48 * 1024 < a["smem_bytes"] <= 232448, a
+
+
+def _check_fold(cuda, kt, A, C, H, W, B=1, Tp=2):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(B, Tp + kt - 1, H, W, C, device=cuda, generator=g).bfloat16()
+    K = (torch.randn(kt, 2, 2, C, A * 4 * C, device=cuda, generator=g) / (kt * 4 * C) ** 0.5).bfloat16()
+    btab = torch.randn(2, 2, A * 4 * C, device=cuda, generator=g)
+    bc = torch.randn(C, device=cuda, generator=g)
+    n0 = k2.fold_upsample_conv.launches
+    y = k2.fold_upsample_conv(x, K, btab, bc, A)
+    torch.cuda.synchronize()
+    assert k2.fold_upsample_conv.launches == n0 + 1
+    assert y.shape == (B, Tp * A, 2 * H, 2 * W, C) and bool(torch.isfinite(y).all())
+    ref = k2.fold_upsample_conv_plain(x, K, btab, bc, A)
+    assert _rel(y, ref) <= REL_BOUND
+    # the output's border rows and columns: where the bias table is masked
+    border = torch.zeros(2 * H, 2 * W, dtype=torch.bool, device=cuda)
+    border[:2], border[-2:], border[:, :2], border[:, -2:] = True, True, True, True
+    assert _rel(y[:, :, border], ref[:, :, border]) <= REL_BOUND
+    assert torch.equal(y, k2.fold_upsample_conv(x, K, btab, bc, A))
 
 
 @pytest.mark.parametrize("C", [128, 256, 512])
@@ -153,17 +206,20 @@ def test_conv3d_im2col_kernel_resources(cuda):
 def test_fold_upsample_kernel_matches_plain(cuda, kt, A, C):
     """Every (kt, A) the kernel takes at the decoder's widths; H, W odd and
     past one 16 x 16 patch, so the ragged patch and the masked bias table
-    at every edge are covered."""
-    g = torch.Generator(device=cuda).manual_seed(1)
-    H, W = 19, 17
-    x = torch.randn(1, kt + 1, H, W, C, device=cuda, generator=g).bfloat16()
-    K = (torch.randn(kt, 2, 2, C, A * 4 * C, device=cuda, generator=g) / (kt * 4 * C) ** 0.5).bfloat16()
-    btab = torch.randn(2, 2, A * 4 * C, device=cuda, generator=g)
-    bc = torch.randn(C, device=cuda, generator=g)
-    y = k2.fold_upsample_conv(x, K, btab, bc, A)
-    torch.cuda.synchronize()
-    assert y.shape == (1, 2 * A, 2 * H, 2 * W, C)
-    assert _rel(y, k2.fold_upsample_conv_plain(x, K, btab, bc, A)) <= REL_BOUND
+    at every edge are covered. Two launches give the same bits."""
+    _check_fold(cuda, kt, A, C, 19, 17)
+
+
+# K2's tiling edges: C 64 and 192 (C % 128 == 64: the last channel block's
+# upper half is computed and not stored), W below the patch width, a 4 x 64
+# patch ragged in W, B = 2 at Tp = 1, and more tiles than SMs.
+FOLD_CASES = [(1, 1, 64, 5, 7, 1, 2), (2, 2, 192, 9, 17, 1, 2), (3, 1, 64, 20, 7, 2, 1), (2, 2, 128, 4, 130, 1, 1),
+              (3, 2, 256, 40, 70, 1, 1)]
+
+
+@pytest.mark.parametrize("kt,A,C,H,W,B,Tp", FOLD_CASES)
+def test_fold_upsample_kernel_edges(cuda, kt, A, C, H, W, B, Tp):
+    _check_fold(cuda, kt, A, C, H, W, B, Tp)
 
 
 # Window attention corners a register-resident kernel can get wrong: the
@@ -315,15 +371,19 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 
 def test_conv_kernels_reject_what_they_do_not_take(cuda):
-    """K1: a Cout that is not a multiple of its 128-column tile; K4: tables
-    of the wrong type, shape or device, or only one of them; K6: a Cin that
-    is not a multiple of 64, an fp32 input; K2: a C that is not a multiple
-    of 64 (its chunk depth); K6 also a Cout that is not a multiple of its
-    128-column tile, and views of x or w that are misaligned or at a
-    storage offset."""
+    """K1 and K6 (one kernel): a Cin that is not a multiple of 64 (its
+    stage depth), a Cout that is not a multiple of its 128-column tile, an
+    fp32 input; K4: tables of the wrong type, shape or device, or only one
+    of them; K2: a C that is not a multiple of 64. Views of x or w at a
+    storage offset are taken as they are when their data pointer is
+    16-byte aligned (the TMA maps are encoded from it) and refused when it
+    is not."""
     x, w, b, scale, shift = _gn_case(cuda, 128, 128, 4, 4, T=1, B=1)
     with pytest.raises(ValueError):
         k1.conv3d_3x3x3(x, w[..., :64].contiguous(), b[:64].contiguous())
+    x96 = torch.zeros(1, 3, 4, 4, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        k1.conv3d_3x3x3(x96, torch.zeros(3, 3, 3, 96, 128, device=cuda, dtype=torch.bfloat16), b)
     x48 = torch.zeros(1, 2, 3, 3, 48, device=cuda, dtype=torch.bfloat16)
     K48 = torch.zeros(1, 2, 2, 48, 4 * 48, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -342,18 +402,38 @@ def test_conv_kernels_reject_what_they_do_not_take(cuda):
     for cout in (64, 192):  # K6's tile is 128 columns wide
         with pytest.raises(ValueError):
             k1.conv3d_3x3x3_im2col(x, w[..., :cout].contiguous(), torch.zeros(cout, device=cuda))
-    # contiguous views of a larger buffer: 2 bytes off 16-byte alignment, and
-    # aligned but at a storage offset (a TMA map describes a tensor from its base)
+    # contiguous views of a larger buffer: 2 bytes off 16-byte alignment
+    # (refused), and 16 bytes in (taken, as the time slices of a streamed
+    # conv's extended input are: the same result as the owned tensors)
+    want = k1.conv3d_3x3x3(x, w, b)
+    want_gn = k1.conv3d_3x3x3(x, w, b, scale, shift)
     for off in (1, 8):
         buf = torch.zeros(x.numel() + off, device=cuda, dtype=torch.bfloat16)
         view = buf[off:].view(x.shape)
+        view.copy_(x)
         assert view.is_contiguous() and view.storage_offset() == off
-        with pytest.raises(ValueError):
-            k1.conv3d_3x3x3_im2col(view, w, b)
-    wbuf = torch.zeros(w.numel() + 8, device=cuda, dtype=torch.bfloat16)
+        wbuf = torch.zeros(w.numel() + off, device=cuda, dtype=torch.bfloat16)
+        wview = wbuf[off:].view(w.shape)
+        wview.copy_(w)
+        calls = (lambda: k1.conv3d_3x3x3(view, w, b), lambda: k1.conv3d_3x3x3(x, wview, b),
+                 lambda: k1.conv3d_3x3x3_im2col(view, w, b), lambda: k1.conv3d_3x3x3_im2col(x, wview, b))
+        for call in calls:
+            if off == 1:
+                with pytest.raises(ValueError):
+                    call()
+            else:
+                assert torch.equal(call(), want)
+        if off == 8:
+            assert torch.equal(k1.conv3d_3x3x3(view, w, b, scale, shift), want_gn)
+    xf = torch.randn(1, 2, 3, 5, 64, device=cuda).bfloat16()
+    Kf = torch.randn(2, 2, 2, 64, 256, device=cuda).bfloat16()
+    bt, bcf = torch.randn(2, 2, 256, device=cuda), torch.randn(64, device=cuda)
+    fbuf = torch.zeros(xf.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    fview = fbuf[8:].view(xf.shape)
+    fview.copy_(xf)
+    assert torch.equal(k2.fold_upsample_conv(fview, Kf, bt, bcf, 1), k2.fold_upsample_conv(xf, Kf, bt, bcf, 1))
     with pytest.raises(ValueError):
-        k1.conv3d_3x3x3_im2col(x, wbuf[8:].view(w.shape), b)
-    assert k1.conv3d_3x3x3_im2col(x, w, b).shape == (1, 1, 4, 4, 128)  # the same tensors, owned, are taken
+        k2.fold_upsample_conv(fbuf[1:-7].view(xf.shape), Kf, bt, bcf, 1)
 
 
 # K7: both regimes on each side of the row threshold (quant.TEXT_ROWS = 64:

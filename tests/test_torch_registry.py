@@ -87,11 +87,16 @@ NAME, REPO = "tiny_fetch.safetensors", "someone/tiny"
 DATA = np.random.RandomState(1).bytes((2 << 20) + 1000)  # three 1 MiB reads
 
 
-@pytest.mark.parametrize("case", ["fresh", "cut mid-stream", "part left over", "present", "hash mismatch", "404"])
+@pytest.mark.parametrize("case", ["fresh", "cut mid-stream", "part left over", "present", "hash mismatch", "404",
+                                  "bad file present"])
 def test_download_model_equals_jax(tmp_path, monkeypatch, case):
     """Both downloaders against one fake hub each: the same requests in the
     same order (URL, Range), the same sleeps, the same file and .part
-    left behind, the same result or the same exception."""
+    left behind, the same result or the same exception. One divergence:
+    after a hash mismatch on every try the port leaves nothing behind (it
+    checks .part before the rename and deletes it), where JAX's tree keeps
+    the bad file at its final name. A bad file already at the final name
+    is fetched again by both."""
     sha = hashlib.sha256(DATA).hexdigest() if case != "hash mismatch" else "f" * 64
     name = NAME if case != "404" else "not_on_the_hub.safetensors"
     results = []
@@ -107,6 +112,8 @@ def test_download_model_equals_jax(tmp_path, monkeypatch, case):
             (d / (NAME + ".part")).write_bytes(DATA[:777])
         if case == "present":
             (d / NAME).write_bytes(DATA)
+        if case == "bad file present":
+            (d / NAME).write_bytes(DATA[:1000] + b"not the released bytes")
         try:
             got = mod.download_model(name, str(d))
             outcome = ("ok", os.path.relpath(got, d))
@@ -114,7 +121,11 @@ def test_download_model_equals_jax(tmp_path, monkeypatch, case):
             outcome = (type(e).__name__, getattr(e, "code", None), str(e))
         files = {f.name: f.read_bytes() for f in d.iterdir() if not f.name.endswith(".sha256.json")}
         results.append((outcome, hub.requests, sleeps, files))
-    assert results[0] == results[1]
+    if case == "hash mismatch":  # the port's deliberate divergence (ROADMAP queue 3)
+        assert results[0][:3] == results[1][:3]
+        assert results[0][3] == {} and results[1][3] == {NAME: DATA}
+    else:
+        assert results[0] == results[1]
     outcome, requests, sleeps, files = results[0]
     if case in ("fresh", "present"):
         assert outcome == ("ok", NAME) and files == {NAME: DATA} and len(requests) == (case == "fresh")
@@ -125,7 +136,9 @@ def test_download_model_equals_jax(tmp_path, monkeypatch, case):
         assert sleeps == ([2.0] if case == "cut mid-stream" else [])
     elif case == "hash mismatch":
         assert outcome[0] == "OSError" and "SHA256 mismatch" in outcome[2] and sleeps == [2.0, 4.0]
-        assert [r[1] for r in requests] == [None, None, None] and files == {NAME: DATA}
+        assert [r[1] for r in requests] == [None, None, None] and files == {}
+    elif case == "bad file present":
+        assert outcome == ("ok", NAME) and files == {NAME: DATA} and requests == [(hub_url(REPO, NAME), None)]
     else:
         assert outcome[:2] == ("HTTPError", 404) and sleeps == [2.0, 4.0] and len(requests) == 3 and files == {}
 
@@ -160,6 +173,41 @@ def test_load_runner_fetches_a_missing_file(tmp_path, monkeypatch):
     assert hub.requests == []
     got = loader.load_runner(NAME, "tiny_vae.safetensors", str(models), cfg, device="cpu")
     assert hub.requests == [(hub_url(REPO, NAME), None)] and (models / NAME).read_bytes() == data
+    ref = loader.load_runner(NAME, "tiny_vae.safetensors", str(src), cfg, device="cpu")
+    a, b = loaded_tensors(got.dit), loaded_tensors(ref.dit)
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_load_runner_after_a_hash_mismatch_fetches_again(tmp_path, monkeypatch):
+    """A download whose bytes never match the registry's hash raises and
+    leaves no file, so the next load_runner fetches the file again (and
+    loads what it gets) instead of loading the bad bytes unchecked; the
+    weights cache keeps no conversion of them."""
+    cfg = _tiny_cfg()
+    src = tmp_path / "src"
+    src.mkdir()
+    save_random_checkpoint(str(src / NAME), "dit", cfg.dit, torch.Generator().manual_seed(0), torch.float32)
+    save_random_checkpoint(str(src / "tiny_vae.safetensors"), "vae", cfg.vae, torch.Generator().manual_seed(1),
+                           torch.float32)
+    data = (src / NAME).read_bytes()
+    monkeypatch.setitem(registry.MODEL_REGISTRY, NAME,
+                        registry.ModelInfo(repo=REPO, sha256=hashlib.sha256(data).hexdigest()))
+    monkeypatch.setattr(time, "sleep", lambda s: None)
+    models = tmp_path / "models"
+    models.mkdir()
+    (models / "tiny_vae.safetensors").write_bytes((src / "tiny_vae.safetensors").read_bytes())
+    bad = FakeHub({hub_url(REPO, NAME): data[:-8] + bytes(8)})
+    monkeypatch.setattr(urllib.request, "urlopen", bad.urlopen)
+    with pytest.raises(OSError, match="SHA256 mismatch"):
+        loader.load_runner(NAME, "tiny_vae.safetensors", str(models), cfg, device="cpu")
+    assert len(bad.requests) == 3
+    assert not (models / NAME).exists() and not (models / (NAME + ".part")).exists()
+    cache = models / "torch_cache"
+    assert not cache.exists() or not any(NAME in f.name for f in cache.iterdir())
+    good = FakeHub({hub_url(REPO, NAME): data})
+    monkeypatch.setattr(urllib.request, "urlopen", good.urlopen)
+    got = loader.load_runner(NAME, "tiny_vae.safetensors", str(models), cfg, device="cpu")
+    assert good.requests == [(hub_url(REPO, NAME), None)] and (models / NAME).read_bytes() == data
     ref = loader.load_runner(NAME, "tiny_vae.safetensors", str(src), cfg, device="cpu")
     a, b = loaded_tensors(got.dit), loaded_tensors(ref.dit)
     assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
