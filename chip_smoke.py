@@ -25,7 +25,11 @@ Phases (any failure raises and the script exits non-zero without a result):
      one, K4 and K2 have theirs) carry ptxas's register and spill lines and
      the runtime's registers, spill and dynamic shared memory for it, and
      K1, K4 and K2 a second launch on the same inputs, which must give the
-     same bits;
+     same bits; K3 and K3q rows time the wrapper's whole call (two kernels:
+     the q/k preparation, then the flash loop) and each kernel alone
+     (``prep_ms``, ``flash_ms``), carry both kernels' ptxas lines and the
+     flash loop's registers and shared memory, and must give the same bits
+     on a second call;
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
@@ -327,19 +331,42 @@ def compare(kid, name, source, replaces, kernel, plain, bytes_moved, ops, librar
     return row
 
 
-def _window_attention_rows(dev, g, cfg, quant_qk, thw=(2, 45, 80), res="", path="main"):
+def window_builds() -> dict:
+    """K3 / K3q's two kernels as built: ptxas's register and spill lines of
+    the preparation and the flash loop, and the runtime's registers, spill
+    and dynamic shared memory of the flash loop (keyed by quant_qk)."""
+    from seedvr2_tpu_torch.ops import cuda_lib
+
+    log = cuda_lib.build().log
+    out = {}
+    for quant, flag in ((False, "0"), (True, "1")):
+        out[quant] = {**cuda_lib.attributes("seedvr2_window_flash_attributes", int(quant)),
+                      "ptxas": [f"{'flash' if 'flash_kernel' in name else 'prep'}: {line}"
+                                for name, line in cuda_lib.ptxas_lines(log)
+                                if ("flash_kernel" in name and f"WindowTilesILb{flag}E" in name)
+                                or f"qk_prepare_kernelILb{flag}E" in name]}
+        print(f"  {'K3q' if quant else 'K3'} kernels: {out[quant]}", flush=True)
+    return out
+
+
+def _window_attention_rows(dev, g, cfg, quant_qk, builds, thw=(2, 45, 80), res="", path="main"):
     """K3 (3B) or K3q (7B) at a patched latent geometry, Lt = 58, the plain
     and the shifted plan: the 720p paths' (2, 45, 80) by default; the long
     clip's 1080p batch of 9 frames is (3, 68, 120) (1080x1920 padded to
     1088x1920, /8 by the VAE, /2 by the patch; 9 frames -> 3 latents).
-    ``path`` names the run whose count the row carries."""
+    ``path`` names the run whose count the row carries. The row's ms is the
+    wrapper's whole call (the q/k preparation and the flash loop, two
+    launches); ``prep_ms`` and ``flash_ms`` are each kernel alone, printed
+    on lines of their own; two calls must give the same bits."""
     import torch.nn.functional as F
 
     from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
+    from seedvr2_tpu_torch.ops import cuda_lib
     from seedvr2_tpu_torch.ops import fused_window_attention as k3
 
     kid = "K3q" if quant_qk else "K3"
     H, D, Lt = cfg.heads, cfg.head_dim, 58
+    lib = cuda_lib.library()
     rows = []
     for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, thw, Lt), D, dev)):
         nW, S = dp.valid.shape
@@ -364,6 +391,10 @@ def _window_attention_rows(dev, g, cfg, quant_qk, thw=(2, 45, 80), res="", path=
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
             call = "F.scaled_dot_product_attention on pre-normed, pre-roped q/k/v [nW, H, S+Lt, D] with the key mask"
+        prep = k3.qk_prepare(lib, *args, quant_qk)
+        parts = {"prep_ms": cuda_ms(lambda: k3.qk_prepare(lib, *args, quant_qk), 20),
+                 "flash_ms": cuda_ms(lambda: k3.window_flash(lib, vqkv, tqkv, prep, quant_qk), 20)}
+        del prep
         rows.append(compare(
             kid, f"{cfg.variant} {res}{which} H{H} nW{nW} S{S} Lt{Lt}", "seedvr2_tpu_torch/csrc/window_attention.cuh",
             "seedvr2_tpu/ops/fused_window_attention.py:145" + (" (quant_qk=True, :100-117)" if quant_qk else ""),
@@ -371,8 +402,16 @@ def _window_attention_rows(dev, g, cfg, quant_qk, thw=(2, 45, 80), res="", path=
             lambda: k3.fused_window_attention_plain(*args, quant_qk=quant_qk),
             moved, ops, library, call,
             rival=(lambda: k3.fused_window_attention_plain(*args, quant_qk=False)) if quant_qk else None,
-            extra_row={"path": path},
+            extra_row={"path": path, **parts, "kernels": ("seedvr2_tpu_torch/csrc/window_qk_prepare.cuh, "
+                                                          "seedvr2_tpu_torch/csrc/attention_pipeline.cuh"),
+                       **builds[quant_qk]},
         ))
+        print(f"    {kid} preparation alone {parts['prep_ms']:.3f} ms, flash loop alone {parts['flash_ms']:.3f} ms",
+              flush=True)
+        first = k3.fused_window_attention(*args, quant_qk=quant_qk)
+        if not all(torch.equal(a, b) for a, b in zip(first, k3.fused_window_attention(*args, quant_qk=quant_qk))):
+            raise RuntimeError(f"{rows[-1]['name']}: two launches on the same inputs differ")
+        del first
     return rows
 
 
@@ -631,9 +670,10 @@ def kernel_phase(dev):
         ))
         same_bits("K2", rows[-1]["name"], lambda: k2.fold_upsample_conv(x, K, btab, bc, A))
         del x, xc
-    rows += _window_attention_rows(dev, g, dit_3b(), quant_qk=False)
-    rows += _window_attention_rows(dev, g, dit_3b(), quant_qk=False, thw=(3, 68, 120), res="1080p ", path="long_clip")
-    rows += _window_attention_rows(dev, g, dit_7b(), quant_qk=True)
+    wbuilds = window_builds()
+    rows += _window_attention_rows(dev, g, dit_3b(), False, wbuilds)
+    rows += _window_attention_rows(dev, g, dit_3b(), False, wbuilds, thw=(3, 68, 120), res="1080p ", path="long_clip")
+    rows += _window_attention_rows(dev, g, dit_7b(), True, wbuilds)
     rows += _flash_attention_rows(dev, g, dit_7b())
     rows += _k7_rows(dev, g)
     return rows

@@ -1,20 +1,25 @@
 """A/B of the hand-written kernels on the card: the convolutions K1, K4, K6
-and K2 and the W8A16 linear K7 of this tree against the same kernels built
-from other source trees, and the library call (cuDNN; for K7 cuBLAS's bf16
-product on the weight dequantized beforehand), at the shapes of the main
-paths (K6 and K7: those of chip_smoke.py's phase 3), in
-turns within one process.
+and K2, the W8A16 linear K7 and the window attention K3 / K3q of this tree
+against the same kernels built from other source trees, and the library
+call (cuDNN; for K7 cuBLAS's bf16 product on the weight dequantized
+beforehand; for K3 SDPA on q/k already normalised and roped), at the
+shapes of the main paths (K3, K3q, K6 and K7: those of chip_smoke.py's
+phase 3), in turns within one process.
 
     python -m seedvr2_tpu_torch.conv_ab --against DIR [--against DIR ...] [--rounds 4] [--kernels K6]
 
 Each DIR is a ``csrc/`` directory, for example the parent commit's,
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
 Its ``conv3d.cu``, ``conv3d_im2col.cu`` (trees before K1 and K6 shared a
-kernel), ``fold_upsample.cu`` and (where it has one) ``w8a16_linear.cu``
-are compiled with this tree's ``nvcc`` flags into a library of their own
-and called through the same C entry points (``ops/cuda_lib.py:_SIGNATURES``),
-so DIR must keep them. ``--kernels`` picks a subset (K1 and K4 run
-together). ``--ablate`` adds, for every tree whose kernel has the design
+kernel), ``fold_upsample.cu`` and (where it has them) ``w8a16_linear.cu``,
+``window_attention.cu`` and ``window_qk_prepare.cu`` are compiled with
+this tree's ``nvcc`` flags into a library of their own and called through
+the same C entry points (``ops/cuda_lib.py:_SIGNATURES``; K3 of a tree
+before the prepared design through its single entry,
+``OLD_WINDOW_ATTENTION``), so DIR must keep them. ``--kernels`` picks a
+subset (K1 and K4 run together). K3 and K3q of this design are timed as
+the wrapper's whole call and, on their own, the preparation and the flash
+loop. ``--ablate`` adds, for every tree whose kernel has the design
 they were written for and for each picked kernel, copies of it with one
 part taken out (ABLATIONS). The conv pipeline (K1, K4, K6 and K2, in
 trees that have ``conv_pipeline.cuh``): the products (what the loads, and
@@ -26,7 +31,14 @@ operands live: loads, widening and epilogue alone), the video regime's
 TMA loads, and the split-K reduce (the partial products alone). Their
 outputs are garbage, their times say which part sets the pace. (Taking out
 the epilogue is no such measure: ptxas then drops the products whose
-accumulators nothing reads.) K7 runs at every row of chip_smoke.py's phase
+accumulators nothing reads.) K3 / K3q's flash loop (attention_pipeline.cuh):
+the products (the wgmma of Q K^T and P V replaced by operand fences: loads,
+softmax and epilogue alone), the TMA and bulk loads (products, softmax
+and epilogue on whatever shared memory holds), the skipping of key tiles
+that hold no token (every tile loaded and multiplied), the one-MUFU exp2
+(``exp2f`` in its place) and the exponentials (the argument used as it
+is); an ablated flash loop runs on this tree's prepared scratch, so its
+time is the flash loop's alone. K7 runs at every row of chip_smoke.py's phase
 3 (3B and 7B, video M 7200 and 24,480, text M 58), each tree through its
 own entry points: this one through ops/quant.py:launch (its regime of M),
 an older tree through its single entry.
@@ -52,20 +64,28 @@ import torch
 import torch.nn.functional as F
 
 from .config import DiTConfig, dit_3b, dit_7b
-from .models.dit.nadit import mlp_hidden
+from .models.dit.nadit import build_attn_plans, device_plans, mlp_hidden
 from .ops import conv3d_kernel as k1
 from .ops import cuda_lib
 from .ops import fold_upsample_kernel as k2
+from .ops import fused_window_attention as k3
 from .ops import quant
 
 CONV_SHAPES = ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280), (128, 5, 608, 1024), (256, 5, 304, 512))
 K6_SHAPES = CONV_SHAPES[:3]
-SOURCES = ("conv3d.cu", "conv3d_im2col.cu", "fold_upsample.cu", "w8a16_linear.cu")  # those a tree has
+SOURCES = ("conv3d.cu", "conv3d_im2col.cu", "fold_upsample.cu", "w8a16_linear.cu", "window_attention.cu",
+           "window_qk_prepare.cu")  # those a tree has
+# K3 / K3q of a tree before the prepared design: one entry (csrc/window_attention.cu of that tree)
+OLD_WINDOW_ATTENTION = ("seedvr2_window_attention", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+                        + [ctypes.c_void_p])
+# (model, latent frames x height x width, quant_qk) of K3 / K3q's rows: chip_smoke.py phase 3's
+WINDOW_SHAPES = (("3b", (2, 45, 80), False), ("3b", (3, 68, 120), False), ("7b", (2, 45, 80), True))
 FOLD_SHAPES = ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7, 360, 640))  # C, kt, A, frames, H, W
 
 # family -> (its kernels, header, a string of the design the ablations were written for)
 ABLATED = {"conv": (("K1", "K4", "K6", "K2"), "conv_pipeline.cuh", "sm90::wgmma"),
-           "K7": (("K7",), "w8a16_linear.cuh", "k16_rs_bf16(")}
+           "K7": (("K7",), "w8a16_linear.cuh", "k16_rs_bf16("),
+           "attn": (("K3", "K3q"), "attention_pipeline.cuh", "wgmma_m64n64k16_bf16_kmajor")}
 _TMA = (r"sm90::mbar_arrive_expect_tx\((\w+) \+ (\w+), [^;]*\);", r"sm90::mbar_arrive(\1 + \2);")
 _TMA_LOADS = (r"sm90::tma_load_\dd\(.*?\);", ";")
 # name -> (family, (file, pattern, replacement) substitutions in its csrc
@@ -82,6 +102,19 @@ ABLATIONS = {
                             r'"r"(b[j][1]));'))),
     "K7-loads": ("K7", (("w8a16_linear.cuh", *_TMA), ("w8a16_linear.cuh", *_TMA_LOADS))),
     "K7-reduce": ("K7", (("w8a16_linear.cu", r"w8a16_splitk_reduce_kernel<<<.*?>>>\(.*?\);", ";"),)),
+    "K3-products": ("attn", (("attention_pipeline.cuh", r"sm90::wgmma_m64n64k(16_bf16_kmajor|32_s8)\(s, .*?\);",
+                              "for (int e = 0; e < 32; ++e) sm90::fence_operand(s[e]);"),
+                             ("attention_pipeline.cuh", r"sm90::wgmma_m64n128k16_rs_bf16\(o, pa\[kk\], .*?\);",
+                              r'{ for (int e = 0; e < 64; ++e) sm90::fence_operand(o[e]); asm volatile("" ::"r"(pa[kk][0]), '
+                              r'"r"(pa[kk][1]), "r"(pa[kk][2]), "r"(pa[kk][3])); }'))),
+    "K3-loads": ("attn", (("attention_pipeline.cuh", *_TMA), ("window_attention.cuh", *_TMA_LOADS),
+                          ("window_attention.cuh", r"sm90::bulk_load\(.*?\);", ";"))),
+    "K3-skip": ("attn", (("window_attention.cuh", r"(int next_tile\(uint64_t live, int j\) const \{).*?\n  \}",
+                          r"\1\n    return j + 1;\n  }"),)),
+    "K3-fastexp": ("attn", (("attention_pipeline.cuh", r'asm\("ex2\.approx\.ftz\.f32 %0, %1;" : "=f"\(y\) : "f"\(x\)\);',
+                             "y = exp2f(x);"),)),
+    "K3-exp": ("attn", (("attention_pipeline.cuh", r'asm\("ex2\.approx\.ftz\.f32 %0, %1;" : "=f"\(y\) : "f"\(x\)\);',
+                         "y = x;"),)),
 }
 
 
@@ -126,7 +159,7 @@ def build_other(csrc: Path, out: Path):
     if p.returncode != 0:
         raise RuntimeError(f"nvcc failed for {csrc}:\n{p.stdout}{p.stderr}")
     lib = ctypes.CDLL(str(so))
-    for fn, args in cuda_lib._SIGNATURES.items():
+    for fn, args in (*cuda_lib._SIGNATURES.items(), OLD_WINDOW_ATTENTION):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
@@ -134,9 +167,9 @@ def build_other(csrc: Path, out: Path):
 
 
 def ptxas_report(log: str) -> str:
-    """ptxas's spill and register lines of the conv kernels and K7, each after its kernel's name."""
+    """ptxas's spill and register lines of the conv kernels, K7 and K3 / K3q, each after its kernel's name."""
     return "".join(f"\n  {name}: {line}" for name, line in cuda_lib.ptxas_lines(log)
-                   if "conv" in name or "fold" in name or "w8a16" in name)
+                   if any(k in name for k in ("conv", "fold", "w8a16", "flash_kernel", "qk_prepare", "WindowPolicy")))
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -167,8 +200,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--against", action="append", default=[], help="a csrc/ directory to build and time beside this tree")
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--kernels", default="K1,K4,K6,K2,K7", help="comma-separated subset of K1,K4,K6,K2,K7")
-    ap.add_argument("--ablate", action="store_true", help="also time the conv kernels and K7 with one part taken out")
+    ap.add_argument("--kernels", default="K1,K4,K6,K2,K7,K3,K3q", help="comma-separated subset of K1,K4,K6,K2,K7,K3,K3q")
+    ap.add_argument("--ablate", action="store_true",
+                    help="also time the conv kernels, K7 and K3 / K3q's flash loop with one part taken out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_ab: no CUDA device")
@@ -285,6 +319,49 @@ def main():
         calls.update({f"{n} K7": (lambda L=L: run7(L)) for n, L in libs7.items()})
         timed_rounds(calls, args.rounds)
         del q, w_q, w_s, w_deq, x, y, ref
+
+    attn_libs = {n: L for n, L in libs.items() if ablation_of.get(n) == "attn"}
+    for variant, thw, quant_qk in WINDOW_SHAPES:
+        kid = "K3q" if quant_qk else "K3"
+        if kid not in kernels:
+            continue
+        cfg = dit_3b() if variant == "3b" else dit_7b()
+        H, D, Lt = cfg.heads, cfg.head_dim, 58
+        for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, thw, Lt), D, dev)):
+            nW, S = dp.valid.shape
+            vqkv, tqkv = randn(1, 3, H, nW, S, D), randn(1, 3, H, Lt, D)
+            norms = 1 + 0.1 * torch.randn(4, D, generator=g, device=dev)
+            wargs = (vqkv, tqkv, dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.valid, dp.rope_txt, norms, True,
+                     cfg.norm_eps)
+            ref = k3.fused_window_attention_plain(*wargs, quant_qk=quant_qk)
+            prep = k3.qk_prepare(here, *wargs, quant_qk)
+
+            def run3(lib):
+                if hasattr(lib, "seedvr2_window_flash"):
+                    return k3.window_flash(lib, vqkv, tqkv, k3.qk_prepare(lib, *wargs, quant_qk), quant_qk)
+                ovid = torch.empty((1, H, nW, S, D), dtype=torch.bfloat16, device=dev)
+                otxt = torch.empty((1, H, nW, Lt, D), dtype=torch.bfloat16, device=dev)
+                cuda_lib.check(lib.seedvr2_window_attention(
+                    vqkv.data_ptr(), tqkv.data_ptr(), *(t.data_ptr() for t in wargs[2:7]), norms.data_ptr(),
+                    ovid.data_ptr(), otxt.data_ptr(), 1, H, nW, S, Lt, int(dp.rope_txt), 1, int(quant_qk),
+                    cfg.norm_eps, D**-0.5, stream()), "window_attention")
+                return ovid, otxt
+
+            errs = " ".join(f"{n} {max(rel_l2(a, b) for a, b in zip(run3(L), ref)):.2e}" for n, L in trees.items())
+            print(f"{kid} {variant} {thw} {which} H{H} nW{nW} S{S} Lt{Lt}: rel L2 {errs}", flush=True)
+            calls = {}
+            if not quant_qk:
+                q, k, v = (torch.cat([vqkv[0, i].permute(1, 0, 2, 3), tqkv[0, i][None].expand(nW, H, Lt, D)], dim=2)
+                           for i in range(3))
+                mask = torch.cat([dp.valid, torch.ones(nW, Lt, dtype=torch.bool, device=dev)], dim=1)[:, None, None]
+                calls["sdpa"] = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            calls.update({f"{n} {kid}": (lambda L=L: run3(L)) for n, L in trees.items()})
+            calls["this prep"] = lambda: k3.qk_prepare(here, *wargs, quant_qk)
+            calls["this flash"] = lambda: k3.window_flash(here, vqkv, tqkv, prep, quant_qk)
+            calls.update({f"{n} flash": (lambda L=L: k3.window_flash(L, vqkv, tqkv, prep, quant_qk))
+                          for n, L in attn_libs.items()})
+            timed_rounds(calls, args.rounds)
+            del vqkv, tqkv, ref, prep, calls
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
-// The flash-attention main loop shared by K3/K3q (window_attention.cuh) and
-// K5 (flash_attention.cuh): one block of 8 warps per 128 query rows of one
-// (batch, head[, window]); each warp owns 16 query rows end to end.
+// The register-resident flash-attention main loop of K5 (flash_attention.cuh)
+// alone: one block of 8 warps per 128 query rows of one (batch, head); each
+// warp owns 16 query rows end to end. It is Ampere's design (mma.sync from
+// ldmatrix, a cp.async ring, no TMA, mbarrier or wgmma); K3 / K3q left it for
+// Hopper's pipeline (attention_pipeline.cuh), which K5 is to move onto next.
 //
 // Per 64-key tile: Q K^T on mma.sync (bf16 m16n8k16, or s8 m16n8k32 for
 // K3q) into fp32 score registers; the online softmax in those registers
@@ -10,9 +12,8 @@
 // m16n8 and the A operand of m16n8k16 share the row/column split); O in
 // registers (16 x 128 fp32 per warp, 64 a lane), rescaled there and written
 // once after the last tile. K and V tiles stream through a two-stage ring
-// filled by cp.async, so tile j+1 lands while tile j computes; the loader
-// and the per-tile preparation (K3's rms-norm + RoPE, K3q's int8 codes) are
-// the policy's. Shared memory ~105 KB a block: two blocks (16 warps) an SM.
+// filled by cp.async, so tile j+1 lands while tile j computes; the loader is
+// the policy's. Shared memory ~102 KB a block: two blocks (16 warps) an SM.
 //
 // A policy P provides (all const):
 //   P(args)                      block coordinates from blockIdx
@@ -22,13 +23,8 @@
 //   float key_code(key)          0: a key of the softmax; otherwise the key's
 //                                log2-domain logit (kMaskedL2: masked but
 //                                counted, as the JAX -1e30; -inf: no key)
-//   void prologue(f32)           per-block setup of the f32 scratch
-//   void prepare(tile, n, row0, kind, codes, scales, f32)   (kPrepare) a
-//                                landed raw q or k tile, in place; with
-//                                kQuant also its int8 codes and row scales
 //   float extra_den(m)           denominator terms of keys never loaded
 //   bf16* out_row(idx), bool keep(idx)   where row idx goes; false: zeros
-//   static bool kQuant, kPrepare
 #pragma once
 
 #include <math.h>
@@ -45,39 +41,24 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBM = 16 * kWarps;  // query rows per block
 constexpr int kBN = 64;           // keys per tile
 constexpr int kLd = kD + 8;       // bf16 tile row stride: 272 bytes, ldmatrix rows on distinct banks
-constexpr int kLd8 = kD + 16;     // int8 tile row stride: 144 bytes, likewise
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskedL2 = -1e30f * kLog2e;  // the JAX masked logit -1e30 in the log2 domain
 
-// Shared memory: two stages of [K | V] (64 rows each; stage 1 doubles as
-// the raw 128-row Q tile of K3q), the Q region (bf16 Q, or int8 Q codes
-// then int8 K codes), then fp32 arrays.
+// Shared memory: two stages of [K | V] (64 rows each), the Q tile, then the
+// two stages' key codes.
 constexpr int kStageBytes = 2 * kBN * kLd * 2;
 constexpr int kOffQ = 2 * kStageBytes;
 constexpr int kOffF = kOffQ + kBM * kLd * 2;
-static_assert(kBM * kLd8 + kBN * kLd8 <= kBM * kLd * 2, "int8 Q and K codes fit the Q region");
-static_assert(kBM * kLd * 2 == kStageBytes, "a stage holds the raw Q tile");
-constexpr int kNumF = 2 * kBN + kBN + kBM + 4 * kD;  // key codes x2, K scales, Q scales, norm weights
-constexpr int kSmemBytes = kOffF + kNumF * 4;
+constexpr int kSmemBytes = kOffF + 2 * kBN * 4;
 
 struct Smem {
   bf16* stage;       // [2][K|V][kBN][kLd]
   bf16* q;           // [kBM][kLd]
-  signed char* q8;   // [kBM][kLd8]  (K3q)
-  signed char* k8;   // [kBN][kLd8]  (K3q)
   float* code;       // [2][kBN]
-  float* kscale;     // [kBN]        (K3q)
-  float* qscale;     // [kBM]        (K3q)
-  float* f32;        // [4][kD]      policy scratch (K3's norm weights)
   __device__ explicit Smem(unsigned char* p)
       : stage(reinterpret_cast<bf16*>(p)),
         q(reinterpret_cast<bf16*>(p + kOffQ)),
-        q8(reinterpret_cast<signed char*>(p + kOffQ)),
-        k8(reinterpret_cast<signed char*>(p + kOffQ) + kBM * kLd8),
-        code(reinterpret_cast<float*>(p + kOffF)),
-        kscale(code + 2 * kBN),
-        qscale(kscale + kBN),
-        f32(qscale + kBM) {}
+        code(reinterpret_cast<float*>(p + kOffF)) {}
   __device__ bf16* k(int s) const { return stage + s * 2 * kBN * kLd; }
   __device__ bf16* v(int s) const { return stage + s * 2 * kBN * kLd + kBN * kLd; }
 };
@@ -105,16 +86,6 @@ __device__ __forceinline__ void fetch_tile(const P& p, const Smem& sm, int j, in
   cp_async_commit();
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // grid = (ceil(rows / kBM), policy's y, policy's z), kThreads threads,
 // kSmemBytes of dynamic shared memory.
 template <class P>
@@ -128,11 +99,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_kernel(const typename P
   const int q0 = blockIdx.x * kBM;
   const int ntiles = (p.rows() + kBN - 1) / kBN;
 
-  // K3q lands raw Q in stage 1 (the int8 codes go to the Q region); tile 1
-  // is fetched there only after the codes are made.
-  bf16* q_raw = P::kQuant ? sm.stage + kStageBytes / 2 : sm.q;
-  load_rows(p, 0, q0, kBM, q_raw);
-  p.prologue(sm.f32);
+  load_rows(p, 0, q0, kBM, sm.q);
   fetch_tile(p, sm, 0, 0);
 
   float o[kD / 8][4];
@@ -140,74 +107,35 @@ __global__ void __launch_bounds__(kThreads, 2) attention_kernel(const typename P
   for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {kMaskedL2, kMaskedL2};  // running max of rows g, g+8 (log2 domain)
   float l[2] = {0.f, 0.f};              // this lane's part of their sums
-  float qs[2] = {0.f, 0.f};             // K3q: s_q * scale * log2(e) of rows g, g+8
   const float scale_l2 = p.scale() * kLog2e;
 
   for (int j = 0; j < ntiles; ++j) {
     const int s = j & 1;
     cp_async_wait_all();
     __syncthreads();  // tile j (and at j = 0 the Q tile) landed; every warp is done with tile j-1
-    if (j == 0) {
-      if constexpr (P::kPrepare) {
-        p.prepare(q_raw, kBM, q0, 0, sm.q8, sm.qscale, sm.f32);
-        __syncthreads();
-      }
-      if constexpr (P::kQuant) {
-        qs[0] = __fmul_rn(sm.qscale[rw + g], p.scale()) * kLog2e;
-        qs[1] = __fmul_rn(sm.qscale[rw + g + 8], p.scale()) * kLog2e;
-      }
-    }
     if (j + 1 < ntiles) fetch_tile(p, sm, j + 1, s ^ 1);
-    if constexpr (P::kPrepare) {
-      p.prepare(sm.k(s), kBN, j * kBN, 1, sm.k8, sm.kscale, sm.f32);
-      __syncthreads();
-    }
 
     // S = Q K^T: the warp's 16 rows x 64 keys, 8 accumulators of 16x8
     float sc[kBN / 8][4];
-    if constexpr (P::kQuant) {
-      int si[kBN / 8][4];
 #pragma unroll
-      for (int n = 0; n < kBN / 8; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
+    for (int n = 0; n < kBN / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    const bf16* kt = sm.k(s);
 #pragma unroll
-      for (int ks = 0; ks < kD / 32; ++ks) {
-        uint32_t a[4];
-        ldsm_x4(a, sm.q8 + (rw + frag_row(lane)) * kLd8 + ks * 32 + frag_col(lane) * 16);
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, sm.q + (rw + frag_row(lane)) * kLd + kk * 16 + frag_col(lane) * 8);
 #pragma unroll
-        for (int np = 0; np < kBN / 16; ++np) {
-          uint32_t b[4];
-          ldsm_x4(b, sm.k8 + (np * 16 + frag_row(lane)) * kLd8 + ks * 32 + frag_col(lane) * 16);
-          mma_s8(si[2 * np], a, b[0], b[2]);
-          mma_s8(si[2 * np + 1], a, b[1], b[3]);
-        }
+      for (int np = 0; np < kBN / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, kt + (np * 16 + frag_row(lane)) * kLd + kk * 16 + frag_col(lane) * 8);
+        mma_bf16(sc[2 * np], a, b[0], b[2]);
+        mma_bf16(sc[2 * np + 1], a, b[1], b[3]);
       }
-      // logit = float(dot) * (s_q * scale) * s_k, log2(e) folded into the q factor
-#pragma unroll
-      for (int n = 0; n < kBN / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          sc[n][i] = __fmul_rn(__fmul_rn((float)si[n][i], qs[i >> 1]), sm.kscale[n * 8 + 2 * t + (i & 1)]);
-    } else {
-#pragma unroll
-      for (int n = 0; n < kBN / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-      const bf16* kt = sm.k(s);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, sm.q + (rw + frag_row(lane)) * kLd + kk * 16 + frag_col(lane) * 8);
-#pragma unroll
-        for (int np = 0; np < kBN / 16; ++np) {
-          uint32_t b[4];
-          ldsm_x4(b, kt + (np * 16 + frag_row(lane)) * kLd + kk * 16 + frag_col(lane) * 8);
-          mma_bf16(sc[2 * np], a, b[0], b[2]);
-          mma_bf16(sc[2 * np + 1], a, b[1], b[3]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kBN / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sc[n][i] *= scale_l2;
     }
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] *= scale_l2;
 
     // online softmax in registers: rows g (i = 0, 1) and g+8 (i = 2, 3)
     float mx[2] = {m[0], m[1]};

@@ -129,17 +129,6 @@ __device__ __forceinline__ Operand operand(const Geometry& g, int m) {
   return Operand{8 * (m / groups), 8 * (m % groups), 1, 0};
 }
 
-__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
-  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
-}
-
-__device__ __forceinline__ void advance(int& stage, uint32_t& phase, int stages) {
-  if (++stage == stages) {
-    stage = 0;
-    phase ^= 1;
-  }
-}
-
 // One consumer warpgroup's operands of a finished tile: + bias, bf16, stored.
 // Lane (g, q) = (lane / 4, lane % 4) holds columns 8j + 2q, +1 of rows g and
 // g + 8 of each 16-row warp slice, i.e. pixel g of core matrices 2 warp and
@@ -164,7 +153,7 @@ __device__ __forceinline__ void epilogue(const P& p, const typename P::Tile& c, 
       bf16* dst = p.out(c, h, w) + 8 * q;
 #pragma unroll
       for (int j4 = 0; j4 < 4; ++j4) {
-        uint32_t v[4], x[4];
+        uint32_t v[4];
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const int n = 4 * j4 + jj;
@@ -172,15 +161,7 @@ __device__ __forceinline__ void epilogue(const P& p, const typename P::Tile& c, 
           if (edge) bb = p.fix_bias(c, edge, 8 * n + 2 * q, bb);
           v[jj] = pack_bf16(acc[mi][4 * n + 2 * rh] + bb.x, acc[mi][4 * n + 2 * rh + 1] + bb.y);
         }
-        // x[s] = lane (q ^ s)'s pair of block q: it sends v[q ^ s], which is what (q ^ s) needs of us
-        x[0] = pick4(v, q);
-#pragma unroll
-        for (int s = 1; s < 4; ++s) x[s] = __shfl_xor_sync(0xffffffffu, pick4(v, q ^ s), s);
-        uint4 out;
-        out.x = pick4(x, q);
-        out.y = pick4(x, q ^ 1);
-        out.z = pick4(x, q ^ 2);
-        out.w = pick4(x, q ^ 3);
+        const uint4 out = quad_transpose(v, q);
         if (ok && p.column_ok(c, 32 * j4)) *reinterpret_cast<uint4*>(dst + 32 * j4) = out;
       }
     }
@@ -241,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::mbar_wait(slab_empty + ss, sph ^ 1);
         sm90::mbar_arrive_expect_tx(slab_full + ss, slab_bytes);
         sm90::tma_load_5d(slab + ss * kSlabBytes, &tmx, slab_full + ss, o[0], o[1], o[2], o[3], o[4]);
-        advance(ss, sph, kSlabStages);
+        sm90::advance(ss, sph, kSlabStages);
       };
       load_slab(p.tile(blockIdx.x), 0);
       for (int i = blockIdx.x; i < p.g.num_tiles; i += gridDim.x) {
@@ -255,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::mbar_arrive_expect_tx(w_full + ws, kWBytes);
             sm90::tma_load_2d(wt + ws * kWBytes, &tmw, w_full + ws, col, krow);
             sm90::tma_load_2d(wt + ws * kWBytes + kWHalfBytes, &tmw, w_full + ws, col + 64, krow);
-            advance(ws, wph, kWStages);
+            sm90::advance(ws, wph, kWStages);
             if (tap == kSlabAt) {  // the next stage's slab: this tile's next, or the next tile's first
               if (kc + 1 < stages)
                 load_slab(c, kc + 1);
@@ -278,7 +259,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             p.transform(c, kc / chunks, kc % chunks, slab + ss * kSlabBytes, pt);
             sm90::fence_proxy_async();  // this thread's writes, visible to wgmma
             sm90::mbar_arrive(slab_ready + ss);
-            advance(ss, sph, kSlabStages);
+            sm90::advance(ss, sph, kSlabStages);
           }
         }
       }
@@ -333,9 +314,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
           prev_w = ws;
           prev_s = tap == P::kTaps - 1 ? ss : -1;
-          advance(ws, wph, kWStages);
+          sm90::advance(ws, wph, kWStages);
         }
-        advance(ss, sph, kSlabStages);
+        sm90::advance(ss, sph, kSlabStages);
       }
       sm90::wgmma_wait<0>();
       if (leader) {

@@ -22,8 +22,8 @@
 // set by the bytes. The kernel reads K and V once per 128-row query block
 // (4 per (b, h)), from L2 after the first, so the tensor cores and the
 // softmax's exp2 on the CUDA cores are what it runs into. Design: the
-// shared register-resident flash core (attention_core.cuh) with a loader
-// policy for the strided layout; no per-tile preparation.
+// register-resident flash core (attention_core.cuh, now K5's alone) with a
+// loader policy for the strided layout; no per-tile preparation.
 #pragma once
 
 #include "attention_core.cuh"
@@ -47,8 +47,6 @@ namespace attn {
 // grid = (ceil(S / kBM), H, B)
 struct FlashPolicy {
   using Args = FlashArgs;
-  static constexpr bool kQuant = false;
-  static constexpr bool kPrepare = false;
   const FlashArgs a;  // a copy: the compiler reads its fields from the parameter space
   int b, h;
 
@@ -74,7 +72,6 @@ struct FlashPolicy {
 
   __device__ bool keep(int idx) const { return a.q_valid == nullptr || a.q_valid[(long)b * a.S + idx]; }
 
-  __device__ void prologue(float*) const {}
 };
 
 }  // namespace attn

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarrier rings, TMA tensor
 // loads, wgmma shared-memory descriptors and products, and setmaxnreg.
-// The conv pipeline of K1 / K4 / K6 and K2 (conv_pipeline.cuh) and K7's video
-// regime (w8a16_linear.cuh) use them.
+// The conv pipeline of K1 / K4 / K6 and K2 (conv_pipeline.cuh), K7's video
+// regime (w8a16_linear.cuh) and the window attention K3 / K3q
+// (attention_pipeline.cuh) use them.
 //
 // - mbarrier: a 64-bit barrier in shared memory that counts thread arrivals
 //   and, with expect_tx, the bytes an asynchronous copy still has to land.
@@ -78,6 +79,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
       : "memory");
+}
+
+// The next stage of a ring of `stages` mbarrier stages; the parity to wait
+// on flips each time the ring wraps.
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase, int stages) {
+  if (++stage == stages) {
+    stage = 0;
+    phase ^= 1;
+  }
 }
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
@@ -198,6 +208,98 @@ __device__ __forceinline__ void wgmma_m64n240k16_rs_bf16(float (&d)[120], const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// The window attention's products (attention_pipeline.cuh). Both operands of
+// Q K^T are K-major in shared memory: the head dim is contiguous in Q's rows
+// and in K's, so B is read untransposed (tnspB = 0, the last immediate);
+// with the 128-byte swizzle a K-major operand is rows of 128 bytes (64 bf16
+// or 128 int8 of the k axis), 8-row groups SBO = 1024 bytes apart, and a k
+// step moves the start address by its 32 bytes inside the row (PTX ISA,
+// "Shared memory matrix layout", K-major canonical layouts; the same form as
+// the conv pipeline's A operand). The D fragment is hopper.cuh's (above):
+// for each 8-column block j, d[4j], d[4j+1] at row 16 * warp + lane / 4,
+// columns 8j + 2 (lane % 4) + {0, 1}; d[4j+2], d[4j+3] the row 8 below.
+
+// d (+)= A (64 x 16) * B^T (B: 64 rows x 16, K-major: tnspB = 0), bf16 in,
+// fp32 accumulators; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_kmajor(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A (64 x 32) * B^T (B: 64 rows x 32), s8 in, exact s32 accumulators.
+// 8-bit wgmma takes both operands K-major only, and has no scale or
+// transpose immediates (PTX ISA, wgmma.mma_async, integer types).
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A (64 x 16 bf16, from registers) * B (16 x 128, MN-major: tnspB =
+// 1, the conv pipeline's B layout: two 64-column atoms LBO apart, 8 k rows
+// SBO = 1024 bytes apart, a k16 step 16 rows further), fp32 accumulators.
+// A's register fragment (PTX ISA, "wgmma .m64nNk16 register fragment A"):
+// lane (g, t) = (lane / 4, lane % 4) of warp w holds a0 = row 16w + g,
+// k 2t, 2t + 1; a1 = row 16w + g + 8, the same k; a2, a3 the same rows at
+// k 8 + 2t, 9 + 2t: the layout of an fp32 D fragment's 8-column blocks 2i,
+// 2i + 1 packed in pairs, so a softmax's probabilities go from the Q K^T
+// accumulators straight into P V. A's registers are read asynchronously:
+// they must keep their values until the group retires.
+__device__ __forceinline__ void wgmma_m64n128k16_rs_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// One contiguous global -> shared copy of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) by the bulk-copy engine, reported to an mbarrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
 // Stores four 8x8 bf16 matrices transposed: register i of lane (g, t) holds
 // row g, columns 2t and 2t + 1 of matrix i (an mma / wgmma accumulator pair
 // rounded to bf16), and lane 8i + r gives the shared address (16-byte
@@ -217,6 +319,7 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
 // Keeps a register operand of an asynchronous wgmma live (and its register
 // unchanged) up to this point.
 __device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // Host: cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
 // so that the library needs no link against libcuda (null and *err set when

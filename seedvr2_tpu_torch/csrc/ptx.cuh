@@ -5,18 +5,15 @@
 // read, rescaled and re-packed in registers (WMMA fragments are opaque).
 //
 // Layouts, with g = lane / 4 and t = lane % 4 (PTX ISA, "Matrix fragments
-// for mma.m16n8k16" and "mma.m16n8k32"):
-//   accumulator 16x8 (fp32 or s32): c0, c1 at row g, cols 2t, 2t+1;
-//     c2, c3 at row g+8, the same cols;
+// for mma.m16n8k16"):
+//   accumulator 16x8 (fp32): c0, c1 at row g, cols 2t, 2t+1; c2, c3 at row
+//     g+8, the same cols;
 //   bf16 A 16x16: a0 row g, cols 2t..2t+1; a1 row g+8; a2 row g, cols
 //     8+2t..; a3 row g+8, cols 8+2t..; B 16x8: b0 rows 2t..2t+1, col g;
 //     b1 rows 8+2t.., col g;
-//   s8 A 16x32 and B 32x8: the same with 4-byte groups (cols 4t..4t+3 and
-//     16+4t..) in place of 2-element pairs.
-// ldsm_x4 at frag_row(lane) / frag_col(lane) of a 16x16 bf16 (16x32 s8)
-// region returns the four 8x8 (8x16-byte) quarters as r0 = rows 0-7 /
-// cols 0-7, r1 = rows 8-15 / cols 0-7, r2 = rows 0-7 / cols 8-15, r3 = rows
-// 8-15 / cols 8-15: {r0, r1, r2, r3} is an A operand, (r0, r2) and (r1, r3)
+// ldsm_x4 at frag_row(lane) / frag_col(lane) of a 16x16 bf16 region returns
+// the four 8x8 quarters as r0 = rows 0-7 / cols 0-7, r1 = rows 8-15 / cols
+// 0-7, r2 = rows 0-7 / cols 8-15, r3 = rows 8-15 / cols 8-15: {r0, r1, r2, r3} is an A operand, (r0, r2) and (r1, r3)
 // are the B operands of rows 0-7 and 8-15 when those rows are B's columns
 // (K in Q K^T); with ldsm_x4_trans, (r0, r1) and (r2, r3) are the B operands
 // of cols 0-7 and 8-15 when the rows are B's k index (V in P V).
@@ -72,15 +69,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a (16x32 s8) * b (32x8 s8), exact s32 accumulation.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -160,13 +160,6 @@ __device__ __forceinline__ void tile_at(const Grid& gr, int i, int& m0, int& n0)
   n0 = (r / rows) * kBN;
 }
 
-__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
-  if (++stage == kStages) {
-    stage = 0;
-    phase ^= 1;
-  }
-}
-
 // One k-tile's A fragments (4 k16 steps) of weight rows `row` and `row` + 8
 // of the stage's int8 tile wt [kBN rows x 64 bytes]. `word` = t / 2 is the
 // word of a 16-byte step that holds bytes 2t, 2t + 1 (2 + word holds 8 +
@@ -218,7 +211,7 @@ __device__ __forceinline__ void k_step(float (&acc)[kAcc], uint32_t (&cur)[4][4]
   fence_fragments(next);
   if (leader && ring.in_flight >= 0) sm90::mbar_arrive(empty + ring.in_flight);
   ring.in_flight = ring.stage;
-  advance(ring.stage, ring.phase);
+  sm90::advance(ring.stage, ring.phase, kStages);
   if (kt + 1 < KT) {
     sm90::mbar_wait(full + ring.stage, ring.phase);
     load_a(next, ws + ring.stage * kWBytes, row, word, sel);
@@ -303,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           sm90::mbar_arrive_expect_tx(full + s, kXBytes + kWBytes);
           sm90::tma_load_2d(xs + s * kXBytes, &tmx, full + s, kt * kBK, m0);
           sm90::tma_load_2d(ws + s * kWBytes, &tmw, full + s, kt * kBK, n0);
-          advance(s, ph);
+          sm90::advance(s, ph, kStages);
         }
       }
     }

@@ -50,7 +50,9 @@ _SIGNATURES = {
     "seedvr2_conv3d_attributes": [_i] + [ctypes.POINTER(_i)] * 3,
     "seedvr2_fold_upsample": [_vp] * 5 + [_i] * 7 + [_vp],
     "seedvr2_fold_upsample_attributes": [ctypes.POINTER(_i)] * 3,
-    "seedvr2_window_attention": [_vp] * 10 + [_i] * 8 + [_f] * 2 + [_vp],
+    "seedvr2_window_qk_prepare": [_vp] * 18 + [_i] * 8 + [_f] + [_vp],
+    "seedvr2_window_flash": [_vp] * 14 + [_i] * 6 + [_f] + [_vp],
+    "seedvr2_window_flash_attributes": [_i] + [ctypes.POINTER(_i)] * 3,
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
     "seedvr2_w8a16_linear": [_vp] * 5 + [_i] * 3 + [_vp],
     "seedvr2_w8a16_linear_splitk": [_vp] * 6 + [_i] * 4 + [_vp],
@@ -149,7 +151,7 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-ENCODE_ERROR = 1 << 20  # + CUresult: a failed cuTensorMapEncodeTiled (csrc/conv_pipeline.cuh, w8a16_linear.cu)
+ENCODE_ERROR = 1 << 20  # + CUresult: a failed cuTensorMapEncodeTiled (conv_pipeline.cuh, w8a16_linear.cu, window_attention.cuh)
 
 
 def check(code: int, what: str) -> None:

@@ -7,10 +7,13 @@ the attention_mode sageattn_2/3 ("fused_int8"): after q and k are
 normalised, roped and rounded, each q and k row is quantised to int8 with
 its own fp32 scale and the logits are the int32 dot products times both
 scales; softmax and PV are unchanged. On a CUDA tensor the wrapper launches
-the hand-written kernel (the window policy of csrc/window_attention.cuh on
-the flash core csrc/attention_core.cuh, one template for both); on a CPU
-tensor it runs the plain version, which is the Pallas kernel's math op for
-op.
+two hand-written kernels back to back: the q/k preparation
+(csrc/window_qk_prepare.cuh: every row normalised and roped once, K3q's
+codes and scales, into scratch allocated here) and the flash loop
+(csrc/window_attention.cuh on csrc/attention_pipeline.cuh: TMA, mbarrier
+rings, wgmma); one call counts one launch of K3 or K3q. On a CPU tensor it
+runs the plain version, the Pallas kernel's math op for op, split the same
+way: ``qk_prepare_plain`` then ``window_attention_prepared_plain``.
 
 K3s (``fused_window_attention_sharded``) is K3 or K3q on one rank's part of
 a sharded DiT: its windows of the seq axis (``window_range``) and whatever
@@ -21,7 +24,7 @@ the gathers around it are the DiT's (models/dit/nadit.py).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +32,7 @@ from . import cuda_lib
 from .rope import rotate
 
 HEAD_DIM = 128  # the kernel's head dim (3B and 7B)
+TILE = 64  # the flash loop's query and key tile: the prepared scales and key codes are padded to it
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -40,14 +44,12 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / s), s
 
 
-def fused_window_attention_plain(
-    vid_qkv, txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, valid, rope_txt, norms, qk_norm, eps, quant_qk=False
-) -> Tuple[torch.Tensor, torch.Tensor]:
+def qk_prepare_plain(vid_qkv, txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, rope_txt, norms, qk_norm, eps):
+    """The first step of the plain version: q and k rms-normalised (fp32
+    stats, rounded to the input dtype) and roped (fp32, rounded again), as
+    the Pallas kernel prepares them. Returns (q_vid, k_vid [B, H, nW, S, D],
+    q_txt, k_txt [B, H, Lt, D]); K3q quantises these rows (quantize_rows)."""
     dt = vid_qkv.dtype
-    D = vid_qkv.shape[-1]
-    scale = 1.0 / float(D) ** 0.5
-    vq, vk, vv = vid_qkv.unbind(1)  # [B, H, nW, S, D]
-    tq, tk, tv = txt_qkv.unbind(1)  # [B, H, Lt, D]
 
     def norm(x, row):
         if not qk_norm:
@@ -56,12 +58,23 @@ def fused_window_attention_plain(
         var = (xf * xf).mean(-1, keepdim=True)
         return (xf * (1.0 / torch.sqrt(var + eps)) * norms[row].float()).to(dt)
 
-    vq = rotate(norm(vq, 0), vid_cos, vid_sin).to(dt)
-    vk = rotate(norm(vk, 1), vid_cos, vid_sin).to(dt)
-    tq, tk = norm(tq, 2), norm(tk, 3)
+    vq = rotate(norm(vid_qkv[:, 0], 0), vid_cos, vid_sin).to(dt)
+    vk = rotate(norm(vid_qkv[:, 1], 1), vid_cos, vid_sin).to(dt)
+    tq, tk = norm(txt_qkv[:, 0], 2), norm(txt_qkv[:, 1], 3)
     if rope_txt:
         tq = rotate(tq, txt_cos, txt_sin).to(dt)
         tk = rotate(tk, txt_cos, txt_sin).to(dt)
+    return vq, vk, tq, tk
+
+
+def window_attention_prepared_plain(vq, vk, vv, tq, tk, tv, valid, quant_qk=False):
+    """The second step of the plain version: the window attention of
+    prepared q/k rows (qk_prepare_plain's) over [window video ; all text]
+    keys, padded video slots masked at -1e30, an fp32 softmax, probabilities
+    in the input dtype before PV. Returns (vid [B, H, nW, S, D], txt [B, H,
+    nW, Lt, D])."""
+    dt = vq.dtype
+    scale = 1.0 / float(vq.shape[-1]) ** 0.5
     key_ok = valid.bool()[None, None, :, None, :]  # [1, 1, nW, 1, S]
 
     def qk(eq, a, b):
@@ -86,8 +99,98 @@ def fused_window_attention_plain(
         out = out + torch.einsum("bhwqk,bhkd->bhwqd", (e_t * inv).to(dt).float(), tv.float())
         return out.to(dt)
 
-    nW = vid_qkv.shape[3]
+    nW = vq.shape[2]
     return attend(vq), attend(tq[:, :, None].expand(-1, -1, nW, -1, -1))
+
+
+def fused_window_attention_plain(
+    vid_qkv, txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, valid, rope_txt, norms, qk_norm, eps, quant_qk=False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    vq, vk, tq, tk = qk_prepare_plain(vid_qkv, txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, rope_txt, norms, qk_norm,
+                                      eps)
+    return window_attention_prepared_plain(vq, vk, vid_qkv[:, 2], tq, tk, txt_qkv[:, 2], valid, quant_qk)
+
+
+class Prepared(NamedTuple):
+    """The scratch of one K3 / K3q call, written by the preparation kernel:
+    q/k rows (bf16 for K3, int8 codes for K3q) video [B, H, nW, S, D] and text
+    [B, H, Lt, D]; K3q's row scales, video [B, H, nW, Sp] and text [B, H,
+    Ltp] (Sp, Ltp: S, Lt rounded up to TILE; 0 past the rows); the window's
+    key codes [nW, Sp] (0: a key; -inf: a padded slot or past S) and key-tile
+    flags [nW, Sp / TILE] (1: the tile holds a key; the flash loop skips
+    the others)."""
+
+    q_vid: torch.Tensor
+    k_vid: torch.Tensor
+    q_txt: torch.Tensor
+    k_txt: torch.Tensor
+    qs_vid: Optional[torch.Tensor]
+    ks_vid: Optional[torch.Tensor]
+    qs_txt: Optional[torch.Tensor]
+    ks_txt: Optional[torch.Tensor]
+    kcode: torch.Tensor
+    tile_live: torch.Tensor
+
+
+def _check(vid_qkv, txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, valid, norms) -> None:
+    B, three, H, nW, S, D = vid_qkv.shape
+    Lt = txt_qkv.shape[3]
+    cuda_lib.require(three == 3 and D == HEAD_DIM, f"fused_window_attention: qkv shape {tuple(vid_qkv.shape)}")
+    cuda_lib.require(Lt >= 1 and S >= 1, f"fused_window_attention: S={S} Lt={Lt}")
+    cuda_lib.require(nW + 1 <= cuda_lib.MAX_GRID_YZ and B <= cuda_lib.MAX_GRID_YZ, f"fused_window_attention: nW={nW}, B={B}")
+    cuda_lib.require_cuda_tensor(vid_qkv, "vid_qkv", torch.bfloat16)
+    dev = vid_qkv.device
+    cuda_lib.require_cuda_tensor(txt_qkv, "txt_qkv", torch.bfloat16, (B, 3, H, Lt, D), dev)
+    for name, t in (("vid_cos", vid_cos), ("vid_sin", vid_sin)):
+        cuda_lib.require_cuda_tensor(t, name, torch.float32, (nW, S, D), dev)
+    for name, t in (("txt_cos", txt_cos), ("txt_sin", txt_sin)):
+        cuda_lib.require_cuda_tensor(t, name, torch.float32, (Lt, D), dev)
+    cuda_lib.require_cuda_tensor(valid, "valid", torch.bool, (nW, S), dev)
+    cuda_lib.require_cuda_tensor(norms, "norms", torch.float32, (4, D), dev)
+
+
+def qk_prepare(lib, vid_qkv, txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, valid, rope_txt, norms, qk_norm, eps,
+               quant_qk) -> Prepared:
+    """Launches the preparation kernel of library ``lib`` (checked inputs,
+    see fused_window_attention) into new scratch."""
+    B, _, H, nW, S, D = vid_qkv.shape
+    Lt = txt_qkv.shape[3]
+    Sp, Ltp = -(-S // TILE) * TILE, -(-Lt // TILE) * TILE
+    dev = vid_qkv.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    rows = torch.int8 if quant_qk else torch.bfloat16
+    scales = (empty(B, H, nW, Sp), empty(B, H, nW, Sp), empty(B, H, Ltp), empty(B, H, Ltp)) if quant_qk else (None,) * 4
+    prep = Prepared(empty(B, H, nW, S, D, dtype=rows), empty(B, H, nW, S, D, dtype=rows), empty(B, H, Lt, D, dtype=rows),
+                    empty(B, H, Lt, D, dtype=rows), *scales, empty(nW, Sp), empty(nW, Sp // TILE, dtype=torch.uint8))
+    ptr = [t.data_ptr() if t is not None else None for t in prep]
+    with torch.cuda.device(dev):
+        code = lib.seedvr2_window_qk_prepare(
+            vid_qkv.data_ptr(), txt_qkv.data_ptr(), vid_cos.data_ptr(), vid_sin.data_ptr(), txt_cos.data_ptr(),
+            txt_sin.data_ptr(), valid.data_ptr(), norms.data_ptr(), *ptr, B, H, nW, S, Lt, int(rope_txt),
+            int(qk_norm), int(quant_qk), float(eps), cuda_lib.stream_ptr(vid_qkv),
+        )
+    cuda_lib.check(code, "window_qk_prepare")
+    return prep
+
+
+def window_flash(lib, vid_qkv, txt_qkv, prep: Prepared, quant_qk) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launches the flash loop of library ``lib`` on prepared rows; V is read
+    from the qkv tensors. Returns (vid [B, H, nW, S, D], txt [B, H, nW, Lt, D])."""
+    B, _, H, nW, S, D = vid_qkv.shape
+    Lt = txt_qkv.shape[3]
+    ovid = torch.empty((B, H, nW, S, D), dtype=torch.bfloat16, device=vid_qkv.device)
+    otxt = torch.empty((B, H, nW, Lt, D), dtype=torch.bfloat16, device=vid_qkv.device)
+    ptr = [t.data_ptr() if t is not None else None for t in prep]
+    with torch.cuda.device(vid_qkv.device):
+        code = lib.seedvr2_window_flash(
+            vid_qkv.data_ptr(), txt_qkv.data_ptr(), *ptr, ovid.data_ptr(), otxt.data_ptr(), B, H, nW, S, Lt,
+            int(quant_qk), 1.0 / float(D) ** 0.5, cuda_lib.stream_ptr(vid_qkv),
+        )
+    cuda_lib.check(code, "window_flash")
+    return ovid, otxt
 
 
 def fused_window_attention(
@@ -105,43 +208,22 @@ def fused_window_attention(
     quant_qk: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (vid_out [B, H, nW, S, D], txt_out [B, H, nW, Lt, D]).
-    Launches are counted per kernel: ``.launches`` for K3, ``.launches_int8``
-    for K3q."""
+    Launches are counted per call (the preparation and the flash loop
+    together): ``.launches`` for K3, ``.launches_int8`` for K3q."""
     if vid_qkv.device.type == "cpu":
         return fused_window_attention_plain(
             vid_qkv, txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, valid, rope_txt, norms, qk_norm, eps, quant_qk
         )
-    B, three, H, nW, S, D = vid_qkv.shape
-    Lt = txt_qkv.shape[3]
-    cuda_lib.require(three == 3 and D == HEAD_DIM, f"fused_window_attention: qkv shape {tuple(vid_qkv.shape)}")
-    cuda_lib.require(Lt >= 1 and S >= 1, f"fused_window_attention: S={S} Lt={Lt}")
-    cuda_lib.require(nW * H <= cuda_lib.MAX_GRID_YZ and B <= cuda_lib.MAX_GRID_YZ, f"fused_window_attention: nW*H={nW * H}, B={B}")
-    cuda_lib.require_cuda_tensor(vid_qkv, "vid_qkv", torch.bfloat16)
-    cuda_lib.require_cuda_tensor(txt_qkv, "txt_qkv", torch.bfloat16, (B, 3, H, Lt, D))
-    for name, t in (("vid_cos", vid_cos), ("vid_sin", vid_sin)):
-        cuda_lib.require_cuda_tensor(t, name, torch.float32, (nW, S, D))
-    for name, t in (("txt_cos", txt_cos), ("txt_sin", txt_sin)):
-        cuda_lib.require_cuda_tensor(t, name, torch.float32, (Lt, D))
-    cuda_lib.require_cuda_tensor(valid, "valid", torch.bool, (nW, S))
-    cuda_lib.require_cuda_tensor(norms, "norms", torch.float32, (4, D))
-    devs = {t.device for t in (txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, valid, norms)}
-    cuda_lib.require(devs == {vid_qkv.device}, "fused_window_attention: tensors on different devices")
-    ovid = torch.empty((B, H, nW, S, D), dtype=torch.bfloat16, device=vid_qkv.device)
-    otxt = torch.empty((B, H, nW, Lt, D), dtype=torch.bfloat16, device=vid_qkv.device)
+    _check(vid_qkv, txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, valid, norms)
     lib = cuda_lib.library()
-    with torch.cuda.device(vid_qkv.device):
-        code = lib.seedvr2_window_attention(
-            vid_qkv.data_ptr(), txt_qkv.data_ptr(), vid_cos.data_ptr(), vid_sin.data_ptr(),
-            txt_cos.data_ptr(), txt_sin.data_ptr(), valid.data_ptr(), norms.data_ptr(),
-            ovid.data_ptr(), otxt.data_ptr(), B, H, nW, S, Lt, int(rope_txt), int(qk_norm), int(quant_qk),
-            float(eps), 1.0 / float(D) ** 0.5, cuda_lib.stream_ptr(vid_qkv),
-        )
-    cuda_lib.check(code, "fused_window_attention")
+    prep = qk_prepare(lib, vid_qkv, txt_qkv, vid_cos, vid_sin, txt_cos, txt_sin, valid, rope_txt, norms, qk_norm, eps,
+                      quant_qk)
+    out = window_flash(lib, vid_qkv, txt_qkv, prep, quant_qk)
     if quant_qk:
         fused_window_attention.launches_int8 += 1
     else:
         fused_window_attention.launches += 1
-    return ovid, otxt
+    return out
 
 
 fused_window_attention.launches = 0  # K3

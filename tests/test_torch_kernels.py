@@ -16,6 +16,8 @@ from seedvr2_tpu.models.vae import folded_upsample as jfold
 from seedvr2_tpu.ops.conv3d_kernel import conv3d_3x3x3 as j_conv3d
 from seedvr2_tpu.ops.fold_upsample_kernel import fold_upsample_conv as j_fold_conv
 from seedvr2_tpu.ops.fused_window_attention import fused_window_attention as j_attn
+from seedvr2_tpu.ops.normalization import rms_norm as j_rms_norm
+from seedvr2_tpu.ops.rope import apply_rotary as j_apply_rotary
 from seedvr2_tpu_torch.models.vae import folded_upsample as tfold
 from seedvr2_tpu_torch.ops import conv3d_kernel, fold_upsample_kernel, fused_window_attention
 
@@ -89,8 +91,9 @@ def test_fold_upsample_plain_matches_pallas_at_the_kernel_edges(kt, A, C):
 # The corners the CUDA kernel is held to on the card (tests/test_torch_kernels_gpu.py),
 # so that the plain version it is compared with there is held to the Pallas kernel
 # here: a window whose video slots are all invalid, B = 2, no qk norm, R = S + Lt
-# an exact multiple of the kernel's 128-row query tile and one row over, and
-# all-zero q/k rows.
+# an exact multiple of 128 and one row over, all-zero q/k rows, and the corners of
+# the flash loop's 64-row tiles: S a multiple of 64 (the video/text switch on a
+# tile edge), S = 1, Lt = 1 and Lt > 64 (two text tiles).
 WINDOW_CASES = {
     "True": dict(rope_txt=True),
     "False": dict(rope_txt=False),
@@ -100,6 +103,10 @@ WINDOW_CASES = {
     "R128": dict(S=120, Lt=8, nW=1),
     "R129": dict(S=121, Lt=8, nW=1),
     "zero_rows": dict(zero_rows=True),
+    "S64": dict(S=64, Lt=8),
+    "S1": dict(S=1, Lt=5),
+    "Lt1": dict(Lt=1),
+    "Lt65": dict(S=24, Lt=65),
 }
 
 
@@ -142,3 +149,46 @@ def test_window_attention_plain_matches_pallas(case):
     (got_v, got_t), (ref_v, ref_t) = window_pallas_vs_plain(window_inputs(8, **WINDOW_CASES[case]), quant_qk=False)
     np.testing.assert_allclose(got_v, ref_v, **TOL)
     np.testing.assert_allclose(got_t, ref_t, **TOL)
+
+
+@pytest.mark.parametrize("case", ["True", "False", "no_qk_norm", "Lt65"])
+def test_window_qk_prepare_plain_matches_jax(case):
+    """The first step of the split plain version (what the preparation kernel
+    is held to on the card): q and k normalised and roped as the JAX
+    package's rms_norm and apply_rotary do them, which is what its Pallas
+    kernel computes before the products."""
+    vqkv, tqkv, vang, tang, valid, rope_txt, norms, qk_norm = window_inputs(8, **WINDOW_CASES[case])
+    t = torch.from_numpy
+    got = fused_window_attention.qk_prepare_plain(t(vqkv), t(tqkv), t(vang).cos(), t(vang).sin(), t(tang).cos(),
+                                                  t(tang).sin(), rope_txt, t(norms), qk_norm, 1e-5)
+
+    def jax_prepare(x, row, angles, rope):
+        y = j_rms_norm(jnp.asarray(x), jnp.asarray(norms[row]), 1e-5) if qk_norm else jnp.asarray(x)
+        return np.asarray(j_apply_rotary(y, jnp.asarray(angles)) if rope else y)
+
+    ref = (jax_prepare(vqkv[:, 0], 0, vang, True), jax_prepare(vqkv[:, 1], 1, vang, True),
+           jax_prepare(tqkv[:, 0], 2, tang, rope_txt), jax_prepare(tqkv[:, 1], 3, tang, rope_txt))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r, **TOL)
+
+
+@pytest.mark.parametrize("quant_qk", [False, True])
+@pytest.mark.parametrize("case", ["True", "S1", "Lt65"])
+def test_window_attention_prepared_plain_matches_pallas(case, quant_qk):
+    """The second step on its own (what the flash loop is held to): the
+    Pallas kernel in interpret mode with its norm and RoPE switched off
+    (qk_norm False, zero angles: an exact identity) on the prepared q/k rows
+    equals window_attention_prepared_plain on the same rows."""
+    vqkv, tqkv, vang, tang, valid, rope_txt, norms, qk_norm = window_inputs(9, **WINDOW_CASES[case])
+    t = torch.from_numpy
+    vq, vk, tq, tk = fused_window_attention.qk_prepare_plain(
+        t(vqkv), t(tqkv), t(vang).cos(), t(vang).sin(), t(tang).cos(), t(tang).sin(), rope_txt, t(norms), qk_norm, 1e-5)
+    pv = np.stack([vq.numpy(), vk.numpy(), vqkv[:, 2]], axis=1)
+    pt = np.stack([tq.numpy(), tk.numpy(), tqkv[:, 2]], axis=1)
+    ref_v, ref_t = j_attn(jnp.asarray(pv), jnp.asarray(pt), jnp.zeros(vang.shape), jnp.zeros(tang.shape),
+                          jnp.asarray(valid), False, norms=jnp.ones(norms.shape), qk_norm=False, eps=1e-5,
+                          interpret=True, quant_qk=quant_qk)
+    got_v, got_t = fused_window_attention.window_attention_prepared_plain(
+        vq, vk, t(vqkv[:, 2]), tq, tk, t(tqkv[:, 2]), t(valid), quant_qk)
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(ref_v), **TOL)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(ref_t), **TOL)

@@ -222,11 +222,15 @@ def test_fold_upsample_kernel_edges(cuda, kt, A, C, H, W, B, Tp):
     _check_fold(cuda, kt, A, C, H, W, B, Tp)
 
 
-# Window attention corners a register-resident kernel can get wrong: the
-# original 3-window case (window 1 ragged), a window whose video slots are
-# all invalid (its keys are text only), B = 2, no qk norm, R = S + Lt an
-# exact multiple of the 128-row query tile and one row over, and all-zero
-# q/k rows (K3q's scale is then 1e-8 and every code 0).
+# Window attention corners: the original 3-window case (window 1 ragged), a
+# window whose video slots are all invalid (its keys are text only), B = 2,
+# no qk norm, R = S + Lt an exact multiple of 128 and one row over, all-zero
+# q/k rows (K3q's scale is then 1e-8 and every code 0); and the corners of
+# the flash loop's 64-row tiles (csrc/window_attention.cuh): S a multiple of
+# 64 and of 128 (the video/text switch on a tile edge, no ragged video
+# tile), S = 1, Lt = 1, Lt > 64 (two text key tiles and two text query
+# tiles), more (pair, window, head) items than the card has SMs (several
+# passes of the persistent grid), and the 3B 720p geometry at H = 2.
 _WINDOW_CASES = {
     "True": dict(rope_txt=True),
     "False": dict(rope_txt=False),
@@ -236,6 +240,13 @@ _WINDOW_CASES = {
     "R128": dict(S=120, Lt=8, nW=2),
     "R129": dict(S=121, Lt=8, nW=2),
     "zero_rows": dict(zero_rows=True),
+    "S64": dict(S=64, Lt=8),
+    "S128": dict(S=128, Lt=64, nW=2),
+    "S1": dict(S=1, Lt=5),
+    "Lt1": dict(Lt=1),
+    "Lt65": dict(S=70, Lt=65),
+    "waves": dict(nW=80, H=4),
+    "3b_720p_H2": dict(nW=18, S=405, Lt=58),
 }
 
 
@@ -257,10 +268,11 @@ def test_window_attention_int8_kernel_matches_plain(cuda, case):
     _check_window_attention(cuda, quant_qk=True, **_WINDOW_CASES[case])
 
 
-def _check_window_attention(cuda, quant_qk, rope_txt=True, B=1, nW=3, S=100, Lt=7, qk_norm=True, invalid_window=None,
-                            zero_rows=False):
-    g = torch.Generator(device=cuda).manual_seed(2)
-    H, D = 2, 128
+def _window_inputs(cuda, rope_txt=True, B=1, nW=3, S=100, Lt=7, qk_norm=True, invalid_window=None, zero_rows=False,
+                   H=2, seed=2):
+    """(args of fused_window_attention without quant_qk, valid)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    D = 128
     vqkv = torch.randn(B, 3, H, nW, S, D, device=cuda, generator=g).bfloat16()
     tqkv = torch.randn(B, 3, H, Lt, D, device=cuda, generator=g).bfloat16()
     if zero_rows:  # q and k of video slot 5 of window 0 and of text token 1
@@ -269,11 +281,16 @@ def _check_window_attention(cuda, quant_qk, rope_txt=True, B=1, nW=3, S=100, Lt=
     ang = torch.rand(nW, S, D, device=cuda, generator=g) * 6
     tang = torch.rand(Lt, D, device=cuda, generator=g) * 6
     valid = torch.ones(nW, S, dtype=torch.bool, device=cuda)
-    valid[1, 60:] = False  # ragged window
+    valid[1, 60 if S > 60 else S // 2:] = False  # ragged window
     if invalid_window is not None:
         valid[invalid_window] = False
     norms = 1 + 0.1 * torch.randn(4, D, device=cuda, generator=g)
-    args = (vqkv, tqkv, ang.cos(), ang.sin(), tang.cos(), tang.sin(), valid, rope_txt, norms, qk_norm, 1e-5, quant_qk)
+    return (vqkv, tqkv, ang.cos(), ang.sin(), tang.cos(), tang.sin(), valid, rope_txt, norms, qk_norm, 1e-5), valid
+
+
+def _check_window_attention(cuda, quant_qk, zero_rows=False, invalid_window=None, **case):
+    args, valid = _window_inputs(cuda, zero_rows=zero_rows, invalid_window=invalid_window, **case)
+    args = (*args, quant_qk)
     n0 = (k3.fused_window_attention.launches, k3.fused_window_attention.launches_int8)
     ov, ot = k3.fused_window_attention(*args)
     torch.cuda.synchronize()
@@ -295,6 +312,58 @@ def _check_window_attention(cuda, quant_qk, rope_txt=True, B=1, nW=3, S=100, Lt=
         share = float(((got - unq) * (ref - unq)).sum() / ((ref - unq) * (ref - unq)).sum())
         assert abs(share - 1.0) <= 0.1, share
         assert _rel(got, ref) < _rel(got, unq)
+
+
+@pytest.mark.parametrize("quant_qk", [False, True])
+def test_window_attention_two_launches_give_the_same_bits(cuda, quant_qk):
+    """No atomics and a fixed order of operations: the same inputs, the same
+    bits (the 3B 720p shifted geometry at H = 4: several passes of the
+    persistent grid)."""
+    args, _ = _window_inputs(cuda, nW=32, S=405, Lt=58, H=4)
+    first = k3.fused_window_attention(*args, quant_qk=quant_qk)
+    second = k3.fused_window_attention(*args, quant_qk=quant_qk)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("quant_qk", [False, True])
+@pytest.mark.parametrize("case", ["True", "False", "no_qk_norm", "all_invalid", "Lt65", "S1"])
+def test_window_qk_prepare_matches_the_plain_intermediates(cuda, case, quant_qk):
+    """The preparation kernel against qk_prepare_plain. K3's bf16 rows: the
+    kernel sums the rms in its own order (fp32, like any reduction on the
+    card), so a bf16 rounding may go the other way: at most 1e-3 of the
+    elements may differ, each by at most one bf16 step of its row's largest
+    value. K3q's int8 codes and fp32 scales equal quantize_rows of the K3
+    rows exactly (the same fp32 operations in the same order). The padding
+    of the scales, the key codes and the key-tile flags are checked
+    exactly."""
+    args, valid = _window_inputs(cuda, **_WINDOW_CASES[case])
+    vqkv, tqkv, vcos, vsin, tcos, tsin, _, rope_txt, norms, qk_norm, eps = args
+    lib = cuda_lib.library()
+    rows = k3.qk_prepare(lib, *args, False)
+    torch.cuda.synchronize()
+    plain = k3.qk_prepare_plain(vqkv, tqkv, vcos, vsin, tcos, tsin, rope_txt, norms, qk_norm, eps)
+    for got, ref in zip(rows[:4], plain):
+        step = ref.float().abs().amax(-1, keepdim=True) * 2.0**-7
+        diff = (got.float() - ref.float()).abs()
+        assert bool((diff <= step).all())
+        assert float((diff != 0).float().mean()) <= 1e-3
+    S, Lt = vqkv.shape[4], tqkv.shape[3]
+    Sp = -(-S // k3.TILE) * k3.TILE
+    code = torch.full((valid.shape[0], Sp), float("-inf"), device=cuda)
+    code[:, :S] = torch.where(valid, 0.0, float("-inf"))
+    assert torch.equal(rows.kcode, code)
+    live = (code == 0).view(code.shape[0], -1, k3.TILE).any(-1)
+    assert torch.equal(rows.tile_live.bool(), live)
+    if quant_qk:
+        prep = k3.qk_prepare(lib, *args, True)
+        torch.cuda.synchronize()
+        assert torch.equal(prep.kcode, code) and torch.equal(prep.tile_live.bool(), live)
+        for got, bf, scale, n in zip(prep[:4], rows[:4], prep[4:8], (S, S, Lt, Lt)):
+            codes, s = k3.quantize_rows(bf)
+            assert got.dtype == torch.int8 and torch.equal(got.float(), codes)
+            assert torch.equal(scale[..., :n], s[..., 0])
+            assert bool((scale[..., n:] == 0).all())
 
 
 @pytest.mark.parametrize("quant_qk", [False, True])
