@@ -7,8 +7,8 @@ Phases (any failure raises and the script exits non-zero without a result):
   1. card: name, power limit, versions;
   2. build: compile csrc/ with nvcc for sm_90a (build time, -Xptxas -v);
   3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K7 (3B, 7B), K4 (K1 with the GroupNorm +
-     SiLU prologue, tables from GroupNorm weights, at K1's shapes) and K6
-     (the tap-folded conv) against their plain PyTorch
+     SiLU prologue, tables from GroupNorm weights, at K1's shapes), K8 (those
+     tables) and K6 (the tap-folded conv) against their plain PyTorch
      versions at the shapes of the 720p paths, and K3 and K4 again at the
      long clip's shapes (phase 7's DiT latent 3 x 68 x 120; the c128 and
      c256 convs of one 608 x 1024 decode tile), bf16 inputs, bound
@@ -29,7 +29,15 @@ Phases (any failure raises and the script exits non-zero without a result):
      the q/k preparation, then the flash loop) and each kernel alone
      (``prep_ms``, ``flash_ms``), carry both kernels' ptxas lines and the
      flash loop's registers and shared memory, and must give the same bits
-     on a second call;
+     on a second call; K5 rows (here and phase 8's) carry its kernel's
+     ptxas lines, registers and shared memory, and must give the same bits
+     on a second call; K8 rows (at K4's five shapes, K4's own inputs) carry
+     the largest error of scale and of shift against fp64 tables, relative
+     to the largest value (``fp64_rel_err``, beside the plain version's own,
+     ``plain_fp64_rel_err``; at most 1e-6), the library call
+     torch.var_mean over the grouped bf16 view, and two launches must give
+     the same bits; a K4 row's ms leaves its tables out (the K8 row at the
+     same shape times them);
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
@@ -159,14 +167,14 @@ Phases (any failure raises and the script exits non-zero without a result):
      of its files; phases 10 (the VAE) and 11 load them warm.
 Budgets (H100 80GB HBM3, 700 W; PERF.md): phases 1-8 ~180 s, phase 9
 ~115-130 s (its first run converts), phase 10 ~190-240 s, phase 11 ~40 s
-(warm loads), phase 12 ~60 s, phase 13 ~135-140 s (the whole script
-~750-830 s); it must end within 1200 s. K7 may
+(warm loads), phase 12 ~60 s, phase 13 ~105-140 s (the whole script
+~640-830 s); it must end within 1200 s. K7 may
 launch only in phases 3 and 10 (read_counts raises elsewhere).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
-of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4:
-phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run; the 1080p K3
-rows and the long-clip K4 rows: phase 7); phase 7's counts also stand under
+of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4,
+K8: phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run; the 1080p K3
+rows and the long-clip K4 and K8 rows: phase 7); phase 7's counts also stand under
 ``e2e.long_clip.launches``; a phase-8 row's is its rank's count in the
 phase-8 run of its path (K3s over K3 or over K3q, or K5, per rank). K6 is on no path (the JAX package reaches it
 only from its benchmark scripts): its row's count is its sum over every
@@ -239,6 +247,7 @@ def kernel_counters():
         "K3q": (k3.fused_window_attention, "launches_int8"),
         "K5": (k5.flash_attention, "launches"),
         "K4": (k1.conv3d_3x3x3, "launches_gn"),
+        "K8": (k1.gn_silu_tables, "launches"),
         "K6": (k1.conv3d_3x3x3_im2col, "launches"),
         "K3s": (k3.fused_window_attention_sharded, "launches"),
         "K3s_int8": (k3.fused_window_attention_sharded, "launches_int8"),
@@ -415,13 +424,44 @@ def _window_attention_rows(dev, g, cfg, quant_qk, builds, thw=(2, 45, 80), res="
     return rows
 
 
-def _flash_attention_rows(dev, g, cfg):
-    """K5 at the 7B unfused window attention's shapes: B*nW windows of
-    S = mL + Lt rows, keys valid = [window validity | all text]."""
+def flash_build() -> dict:
+    """K5's kernel as built: ptxas's register and spill lines, and the
+    runtime's registers, spill and dynamic shared memory."""
+    from seedvr2_tpu_torch.ops import cuda_lib
+    from seedvr2_tpu_torch.ops import flash_attention as k5
+
+    out = {**k5.kernel_attributes(), "ptxas": [line for name, line in cuda_lib.ptxas_lines(cuda_lib.build().log)
+                                               if "flash_kernel" in name and "masked" in name]}
+    print(f"  K5 kernel: {out}", flush=True)
+    return out
+
+
+def _flash_row(name, q, k, v, kv_valid, build, library_call, extra_row=None):
+    """One K5 row: against its plain version, SDPA with the key mask as the
+    library call, the same bits on a second launch."""
     import torch.nn.functional as F
 
-    from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
     from seedvr2_tpu_torch.ops import flash_attention as k5
+
+    H, D = q.shape[2], q.shape[3]
+    qk = 2 * H * q.shape[1] * int(kv_valid.sum()) * D  # every query row against the valid keys of its batch row
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = kv_valid[:, None, None]
+    row = compare(
+        "K5", name, "seedvr2_tpu_torch/csrc/flash_attention.cuh", "seedvr2_tpu/ops/flash_attention.py:96",
+        lambda: k5.flash_attention(q, k, v, kv_valid), lambda: k5.flash_attention_plain(q, k, v, kv_valid),
+        nbytes(q, k, v, kv_valid) + nbytes(q), {"bf16": 2 * qk},  # + the bf16 output
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), library_call,
+        extra_row={"kernels": "seedvr2_tpu_torch/csrc/attention_pipeline.cuh", **build, **(extra_row or {})},
+    )
+    same_bits("K5", name, lambda: k5.flash_attention(q, k, v, kv_valid))
+    return row
+
+
+def _flash_attention_rows(dev, g, cfg, build):
+    """K5 at the 7B unfused window attention's shapes: B*nW windows of
+    S = mL + Lt rows, keys valid = [window validity | all text]."""
+    from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
 
     H, D, Lt = cfg.heads, cfg.head_dim, 58
     rows = []
@@ -430,18 +470,9 @@ def _flash_attention_rows(dev, g, cfg):
         S = mL + Lt
         q, k, v = (torch.randn((nW, S, H, D), generator=g, device=dev).bfloat16() for _ in range(3))
         kv_valid = torch.cat([dp.valid, torch.ones(nW, Lt, dtype=torch.bool, device=dev)], dim=1).contiguous()
-        qk = 2 * H * S * int(kv_valid.sum()) * D
-        moved = nbytes(q, k, v, kv_valid) + nbytes(q)  # + the bf16 output
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = kv_valid[:, None, None]
-        rows.append(compare(
-            "K5", f"{cfg.variant} {which} B{nW} S{S} H{H}", "seedvr2_tpu_torch/csrc/flash_attention.cuh",
-            "seedvr2_tpu/ops/flash_attention.py:96",
-            lambda: k5.flash_attention(q, k, v, kv_valid), lambda: k5.flash_attention_plain(q, k, v, kv_valid),
-            moved, {"bf16": 2 * qk},
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
-            "F.scaled_dot_product_attention on the [B, H, S, D] views with the key mask",
-        ))
+        rows.append(_flash_row(f"{cfg.variant} {which} B{nW} S{S} H{H}", q, k, v, kv_valid, build,
+                               "F.scaled_dot_product_attention on the [B, H, S, D] views with the key mask"))
+        del q, k, v
     return rows
 
 
@@ -489,7 +520,7 @@ def conv_builds() -> dict:
 
 def same_bits(kid, name, kernel):
     """Two launches on the same inputs must give the same bits."""
-    if not torch.equal(kernel(), kernel()):
+    if not all(torch.equal(a, b) for a, b in zip(_tuple(kernel()), _tuple(kernel()))):
         raise RuntimeError(f"{kid} {name}: two launches on the same inputs differ")
 
 
@@ -525,6 +556,7 @@ def _conv_rows(dev, g, c, T, H, W, k1_ms, builds, path="main"):
         k1_ms[shape] = (rows[-1]["ms"], rows[-1]["library_ms"])
     gw = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
     gb = 0.3 * torch.randn(c, generator=g, device=dev)
+    rows.append(_tables_row(x, gw, gb, shape, path))
     scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
 
     def chain():
@@ -532,7 +564,7 @@ def _conv_rows(dev, g, c, T, H, W, k1_ms, builds, path="main"):
         h = F.silu(F.group_norm(h, 32, gw.bfloat16(), gb.bfloat16(), eps=1e-6))
         return F.conv3d(h.reshape(1, T + 2, c, H, W).transpose(1, 2), w_oidhw, b.bfloat16(), padding=(0, 1, 1))
 
-    extra = {"path": path, **builds["K4"]}
+    extra = {"path": path, **builds["K4"], "tables": f"not in ms: the K8 row at {shape} times them"}
     if shape in k1_ms:
         extra.update(k1_ms=k1_ms[shape][0], cudnn_conv_ms=k1_ms[shape][1])
     else:
@@ -547,6 +579,37 @@ def _conv_rows(dev, g, c, T, H, W, k1_ms, builds, path="main"):
     ))
     same_bits("K4", shape, lambda: k1.conv3d_3x3x3(x, w, b, scale, shift))
     return rows
+
+
+def _tables_row(x, gw, gb, shape, path):
+    """K8 on K4's input: the tables against their plain version, each
+    against fp64 (max |err| / max |ref| of scale and of shift), the library
+    call torch.var_mean over the grouped view; two launches, the same bits."""
+    from seedvr2_tpu_torch.conv_ab import max_rel, tables_fp64
+    from seedvr2_tpu_torch.ops import conv3d_kernel as k1
+
+    ref = tables_fp64(x, gw, gb, 32)
+    errs = {name: [max_rel(a, r) for a, r in zip(fn(x, gw, gb, 32), ref)]
+            for name, fn in (("fp64_rel_err", k1.gn_silu_tables), ("plain_fp64_rel_err", k1.gn_silu_tables_plain))}
+    del ref
+    if max(errs["fp64_rel_err"]) > 1e-6:
+        raise RuntimeError(f"K8 {shape}: scale / shift {errs['fp64_rel_err']} from fp64, over 1e-6")
+    B, T, H, W, c = x.shape
+    xg = x.view(B, T, H * W, 32, c // 32)
+    row = compare(
+        "K8", f"gn_silu_tables x_ext c{c} {T}x{H}x{W} (K4 {shape})" + (" (long clip)" if path == "long_clip" else ""),
+        "seedvr2_tpu_torch/csrc/gn_stats.cuh",
+        "none: XLA's reductions of seedvr2_tpu/ops/conv3d_kernel.py:143 gn_silu_tables",
+        lambda: k1.gn_silu_tables(x, gw, gb, 32), lambda: k1.gn_silu_tables_plain(x, gw, gb, 32),
+        nbytes(x, gw, gb) + 2 * B * T * c * 4, {}, lambda: torch.var_mean(xg, dim=(2, 4), correction=0),
+        "torch.var_mean over the grouped bf16 view [B, T, H*W, 32, C/32], correction=0 (the statistics alone)",
+        extra_row={"path": path, **errs, "not_a_tpu_kernel": "XLA's reductions"},
+    )
+    print(f"    K8 scale / shift from fp64: kernel {errs['fp64_rel_err'][0]:.2e} / {errs['fp64_rel_err'][1]:.2e}, "
+          f"plain {errs['plain_fp64_rel_err'][0]:.2e} / {errs['plain_fp64_rel_err'][1]:.2e}; "
+          f"{row['bound_ms'] / row['ms']:.1%} of the bound", flush=True)
+    same_bits("K8", shape, lambda: k1.gn_silu_tables(x, gw, gb, 32))
+    return row
 
 
 def int8_linear_calls(dit) -> int:
@@ -674,7 +737,7 @@ def kernel_phase(dev):
     rows += _window_attention_rows(dev, g, dit_3b(), False, wbuilds)
     rows += _window_attention_rows(dev, g, dit_3b(), False, wbuilds, thw=(3, 68, 120), res="1080p ", path="long_clip")
     rows += _window_attention_rows(dev, g, dit_7b(), True, wbuilds)
-    rows += _flash_attention_rows(dev, g, dit_7b())
+    rows += _flash_attention_rows(dev, g, dit_7b(), flash_build())
     rows += _k7_rows(dev, g)
     return rows
 
@@ -727,8 +790,8 @@ def reference_phase(dev, text, rope_type, mode, long_clip=False):
     label = f"small {rope_type} {mode}" + (" 4-phase tiled gn_fusion" if long_clip else "")
     if ran[want] != cfg.dit.num_layers * n_batches:
         raise RuntimeError(f"{label}: {want} ran {ran[want]} times, expected {cfg.dit.num_layers * n_batches}")
-    if long_clip and not (ran["K4"] > 0 and ran["K1"] == 0):
-        raise RuntimeError(f"{label}: expected K4 and no K1 launches, got {ran}")
+    if long_clip and not (ran["K4"] > 0 and ran["K1"] == 0 and ran["K8"] == ran["K4"]):
+        raise RuntimeError(f"{label}: expected K4, a K8 a K4 and no K1 launches, got {ran}")
     gpu, cpu = outs
     mean_err = float(np.abs(gpu - cpu).mean())
     rel = float(np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu - 0.5))
@@ -827,11 +890,12 @@ def main_path_phase(dev, text, frames):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     launches, e2e = drive(runner, frames, "3B fused")
     # 48 resnet convs (20 in the encoder, 28 in the decoder); K2 per decoder upsample and latent slice
-    expect("3B fused", launches, {"K1": 48, "K2": 6, "K3": cfg.dit.num_layers, "K3q": 0, "K5": 0, "K4": 0})
+    expect("3B fused", launches, {"K1": 48, "K2": 6, "K3": cfg.dit.num_layers, "K3q": 0, "K5": 0, "K4": 0, "K8": 0})
     # the same path with the resnets' GroupNorm + SiLU folded into their convs
     runner.vae.set_gn_fusion(True)
     launches_gn, e2e_gn = drive(runner, frames, "3B fused gn_fusion")
-    expect("3B fused gn_fusion", launches_gn, {"K4": 48, "K1": 0, "K2": 6, "K3": cfg.dit.num_layers})
+    # K8: the tables of each K4 conv's input, one launch a conv
+    expect("3B fused gn_fusion", launches_gn, {"K4": 48, "K8": 48, "K1": 0, "K2": 6, "K3": cfg.dit.num_layers})
     return launches, launches_gn, {"3b_fused": e2e, "3b_fused_gn_fusion": e2e_gn}
 
 
@@ -848,7 +912,7 @@ def long_clip_phase(dev, text):
     runner = Runner(cfg, random_dit(cfg.dit, g), random_vae(cfg.vae, g).set_gn_fusion(True), text, device=dev)
     launches, e2e = drive(runner, long_clip_frames(), "3B long clip", out_shape=(15, 1080, 1920, 3), runs=1)
     # 2 batches x (20 resnet convs x 2 encode slices + 28 x 2 decode slices) x 4 tiles; 32 layers x 2 batches
-    expect("3B long clip", launches, {"K4": 768, "K1": 0, "K2": 72, "K3": 64, "K3q": 0, "K5": 0})
+    expect("3B long clip", launches, {"K4": 768, "K8": 768, "K1": 0, "K2": 72, "K3": 64, "K3q": 0, "K5": 0})
     return launches, e2e
 
 
@@ -868,10 +932,10 @@ def path_7b_phase(dev, text, frames):
     n = cfg.dit.num_layers
     out = {}
     launches, out["sageattn_2"] = drive(runner, frames, "7B sageattn_2")
-    expect("7B sageattn_2", launches, {"K3q": n, "K3": 0, "K5": 0})
+    expect("7B sageattn_2", launches, {"K3q": n, "K3": 0, "K5": 0, "K8": 0})
     runner.dit.set_attention_mode("flash_attn_2")
     launches_f, out["flash_attn_2"] = drive(runner, frames, "7B flash_attn_2")
-    expect("7B flash_attn_2", launches_f, {"K5": n, "K3": 0, "K3q": 0})
+    expect("7B flash_attn_2", launches_f, {"K5": n, "K3": 0, "K3q": 0, "K8": 0})
     return launches, launches_f, out
 
 
@@ -996,11 +1060,8 @@ def _k5_rank_rows(dev, g):
     """K5 at each rank's shapes under flash_attn_2, the 3B 720p plain plan:
     seq=2 (the rank's windows, padded to ceil(nW/2), every head) and
     tensor=2 (every window, half the heads), against its plain version."""
-    import torch.nn.functional as F
-
     from seedvr2_tpu_torch.config import dit_3b
     from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
-    from seedvr2_tpu_torch.ops import flash_attention as k5
     from seedvr2_tpu_torch.ops import fused_window_attention as k3
 
     cfg = dit_3b()
@@ -1008,7 +1069,7 @@ def _k5_rank_rows(dev, g):
     dp = device_plans(build_attn_plans(cfg, (2, 45, 80), Lt), D, dev)[0]
     nW, mL = dp.valid.shape
     S = mL + Lt
-    rows = []
+    rows, build = [], flash_build()
     for seq, tensor, path in ((2, 1, "seq_720p_flash"), (1, 2, "tensor_720p_flash")):
         hl = H // tensor
         for r in range(seq * tensor):
@@ -1017,21 +1078,14 @@ def _k5_rank_rows(dev, g):
             valid = k3.shard_window_tables(dp.vid_cos, dp.vid_sin, dp.valid, s_rank, seq)[2]
             kv_valid = torch.cat([valid, torch.ones(per, Lt, dtype=torch.bool, device=dev)], dim=1).contiguous()
             q, k, v = (torch.randn((per, S, hl, D), generator=g, device=dev).bfloat16() for _ in range(3))
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            mask = kv_valid[:, None, None]
-            qk = 2 * hl * S * int(kv_valid.sum()) * D
-            rows.append(compare(
-                "K5", f"3B 720p plain B{per} S{S} H{hl} seq {s_rank}/{seq} tensor {t_rank}/{tensor} (windows "
-                      f"{first}-{end - 1}{' + pad' if per > end - first else ''}, heads {t_rank * hl}-"
-                      f"{(t_rank + 1) * hl - 1})",
-                "seedvr2_tpu_torch/csrc/flash_attention.cuh", "seedvr2_tpu/ops/flash_attention.py:96",
-                lambda: k5.flash_attention(q, k, v, kv_valid), lambda: k5.flash_attention_plain(q, k, v, kv_valid),
-                nbytes(q, k, v, kv_valid) + nbytes(q), {"bf16": 2 * qk},
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+            rows.append(_flash_row(
+                f"3B 720p plain B{per} S{S} H{hl} seq {s_rank}/{seq} tensor {t_rank}/{tensor} (windows "
+                f"{first}-{end - 1}{' + pad' if per > end - first else ''}, heads {t_rank * hl}-"
+                f"{(t_rank + 1) * hl - 1})", q, k, v, kv_valid, build,
                 "F.scaled_dot_product_attention on the rank's [B, H, S, D] views with the key mask",
                 extra_row={"path": path, "rank": r, "quant_qk": False},
             ))
-            del q, k, v, qt, kt, vt, mask
+            del q, k, v
     return rows
 
 
@@ -2477,7 +2531,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     launches_3b_int8 = e2e_int8["3B --quantize int8 (safetensors)"]["launches"]
-    launches.update(K4=launches_gn["K4"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
+    launches.update(K4=launches_gn["K4"], K8=launches_gn["K8"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
     path_counts = {"long_clip": launches_long, "int8_7b": launches_int8, "int8_3b": launches_3b_int8}
     for row in rows:
         if "path" in row and row["path"] is None:

@@ -1,10 +1,12 @@
 """A/B of the hand-written kernels on the card: the convolutions K1, K4, K6
-and K2, the W8A16 linear K7 and the window attention K3 / K3q of this tree
-against the same kernels built from other source trees, and the library
-call (cuDNN; for K7 cuBLAS's bf16 product on the weight dequantized
-beforehand; for K3 SDPA on q/k already normalised and roped), at the
-shapes of the main paths (K3, K3q, K6 and K7: those of chip_smoke.py's
-phase 3), in turns within one process.
+and K2, the W8A16 linear K7, the window attention K3 / K3q, the masked
+attention K5 and the GroupNorm statistics K8 of this tree against the same
+kernels built from other source trees, and the library call (cuDNN; for K7
+cuBLAS's bf16 product on the weight dequantized beforehand; for K3 SDPA on
+q/k already normalised and roped; for K5 SDPA with the key mask; for K8
+``torch.var_mean`` over the grouped bf16 view), at the shapes of the main
+paths (K3, K3q, K5, K6, K7 and K8: those of chip_smoke.py's phase 3), in
+turns within one process.
 
     python -m seedvr2_tpu_torch.conv_ab --against DIR [--against DIR ...] [--rounds 4] [--kernels K6]
 
@@ -12,11 +14,13 @@ Each DIR is a ``csrc/`` directory, for example the parent commit's,
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
 Its ``conv3d.cu``, ``conv3d_im2col.cu`` (trees before K1 and K6 shared a
 kernel), ``fold_upsample.cu`` and (where it has them) ``w8a16_linear.cu``,
-``window_attention.cu`` and ``window_qk_prepare.cu`` are compiled with
-this tree's ``nvcc`` flags into a library of their own and called through
-the same C entry points (``ops/cuda_lib.py:_SIGNATURES``; K3 of a tree
-before the prepared design through its single entry,
-``OLD_WINDOW_ATTENTION``), so DIR must keep them. ``--kernels`` picks a
+``window_attention.cu``, ``window_qk_prepare.cu``, ``flash_attention.cu``
+and ``gn_stats.cu`` are compiled with this tree's ``nvcc`` flags into a
+library of their own and called through the same C entry points
+(``ops/cuda_lib.py:_SIGNATURES``; K3 of a tree before the prepared design
+through its single entry, ``OLD_WINDOW_ATTENTION``), so DIR must keep
+them. A tree without ``gn_stats.cu`` computed K4's tables with the plain
+version, which is timed in its place ("plain tables"). ``--kernels`` picks a
 subset (K1 and K4 run together). K3 and K3q of this design are timed as
 the wrapper's whole call and, on their own, the preparation and the flash
 loop. ``--ablate`` adds, for every tree whose kernel has the design
@@ -38,7 +42,10 @@ and epilogue on whatever shared memory holds), the skipping of key tiles
 that hold no token (every tile loaded and multiplied), the one-MUFU exp2
 (``exp2f`` in its place) and the exponentials (the argument used as it
 is); an ablated flash loop runs on this tree's prepared scratch, so its
-time is the flash loop's alone. K7 runs at every row of chip_smoke.py's phase
+time is the flash loop's alone. K5 on the same loop (trees whose
+``flash_attention.cuh`` is a policy of ``attention_pipeline.cuh``): the
+products, the TMA loads (the key codes are still written), and the
+skipping of key tiles whose 64 keys are all masked. K7 runs at every row of chip_smoke.py's phase
 3 (3B and 7B, video M 7200 and 24,480, text M 58), each tree through its
 own entry points: this one through ops/quant.py:launch (its regime of M),
 an older tree through its single entry.
@@ -67,6 +74,7 @@ from .config import DiTConfig, dit_3b, dit_7b
 from .models.dit.nadit import build_attn_plans, device_plans, mlp_hidden
 from .ops import conv3d_kernel as k1
 from .ops import cuda_lib
+from .ops import flash_attention as k5
 from .ops import fold_upsample_kernel as k2
 from .ops import fused_window_attention as k3
 from .ops import quant
@@ -74,7 +82,7 @@ from .ops import quant
 CONV_SHAPES = ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280), (128, 5, 608, 1024), (256, 5, 304, 512))
 K6_SHAPES = CONV_SHAPES[:3]
 SOURCES = ("conv3d.cu", "conv3d_im2col.cu", "fold_upsample.cu", "w8a16_linear.cu", "window_attention.cu",
-           "window_qk_prepare.cu")  # those a tree has
+           "window_qk_prepare.cu", "flash_attention.cu", "gn_stats.cu")  # those a tree has
 # K3 / K3q of a tree before the prepared design: one entry (csrc/window_attention.cu of that tree)
 OLD_WINDOW_ATTENTION = ("seedvr2_window_attention", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
                         + [ctypes.c_void_p])
@@ -85,9 +93,15 @@ FOLD_SHAPES = ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7,
 # family -> (its kernels, header, a string of the design the ablations were written for)
 ABLATED = {"conv": (("K1", "K4", "K6", "K2"), "conv_pipeline.cuh", "sm90::wgmma"),
            "K7": (("K7",), "w8a16_linear.cuh", "k16_rs_bf16("),
-           "attn": (("K3", "K3q"), "attention_pipeline.cuh", "wgmma_m64n64k16_bf16_kmajor")}
+           "attn": (("K3", "K3q"), "attention_pipeline.cuh", "wgmma_m64n64k16_bf16_kmajor"),
+           "flash": (("K5",), "flash_attention.cuh", '#include "attention_pipeline.cuh"')}
 _TMA = (r"sm90::mbar_arrive_expect_tx\((\w+) \+ (\w+), [^;]*\);", r"sm90::mbar_arrive(\1 + \2);")
 _TMA_LOADS = (r"sm90::tma_load_\dd\(.*?\);", ";")
+_PRODUCTS = (("attention_pipeline.cuh", r"sm90::wgmma_m64n64k(16_bf16_kmajor|32_s8)\(s, .*?\);",
+              "for (int e = 0; e < 32; ++e) sm90::fence_operand(s[e]);"),
+             ("attention_pipeline.cuh", r"sm90::wgmma_m64n128k16_rs_bf16\(o, pa\[kk\], .*?\);",
+              r'{ for (int e = 0; e < 64; ++e) sm90::fence_operand(o[e]); asm volatile("" ::"r"(pa[kk][0]), '
+              r'"r"(pa[kk][1]), "r"(pa[kk][2]), "r"(pa[kk][3])); }'))
 # name -> (family, (file, pattern, replacement) substitutions in its csrc
 # copy, each of which must match at least once)
 ABLATIONS = {
@@ -102,11 +116,7 @@ ABLATIONS = {
                             r'"r"(b[j][1]));'))),
     "K7-loads": ("K7", (("w8a16_linear.cuh", *_TMA), ("w8a16_linear.cuh", *_TMA_LOADS))),
     "K7-reduce": ("K7", (("w8a16_linear.cu", r"w8a16_splitk_reduce_kernel<<<.*?>>>\(.*?\);", ";"),)),
-    "K3-products": ("attn", (("attention_pipeline.cuh", r"sm90::wgmma_m64n64k(16_bf16_kmajor|32_s8)\(s, .*?\);",
-                              "for (int e = 0; e < 32; ++e) sm90::fence_operand(s[e]);"),
-                             ("attention_pipeline.cuh", r"sm90::wgmma_m64n128k16_rs_bf16\(o, pa\[kk\], .*?\);",
-                              r'{ for (int e = 0; e < 64; ++e) sm90::fence_operand(o[e]); asm volatile("" ::"r"(pa[kk][0]), '
-                              r'"r"(pa[kk][1]), "r"(pa[kk][2]), "r"(pa[kk][3])); }'))),
+    "K3-products": ("attn", _PRODUCTS),
     "K3-loads": ("attn", (("attention_pipeline.cuh", *_TMA), ("window_attention.cuh", *_TMA_LOADS),
                           ("window_attention.cuh", r"sm90::bulk_load\(.*?\);", ";"))),
     "K3-skip": ("attn", (("window_attention.cuh", r"(int next_tile\(uint64_t live, int j\) const \{).*?\n  \}",
@@ -115,6 +125,10 @@ ABLATIONS = {
                              "y = exp2f(x);"),)),
     "K3-exp": ("attn", (("attention_pipeline.cuh", r'asm\("ex2\.approx\.ftz\.f32 %0, %1;" : "=f"\(y\) : "f"\(x\)\);',
                          "y = x;"),)),
+    "K5-products": ("flash", _PRODUCTS),
+    "K5-loads": ("flash", (("attention_pipeline.cuh", *_TMA), ("flash_attention.cuh", *_TMA_LOADS))),
+    "K5-skip": ("flash", (("flash_attention.cuh", r"(uint64_t live_tiles\(const Item& it\) const \{).*?\n  \}",
+                          r"\1\n    return all_tiles();\n  }"),)),
 }
 
 
@@ -126,6 +140,36 @@ def int8_linear_shapes(cfg: DiTConfig) -> list:
     return [("qkv", D, 3 * inner, cfg.qk_bias), ("out", inner, D, True),
             ("proj_in" + ("/proj_in_gate" if not mlp_bias else ""), D, hidden, mlp_bias),
             ("proj_out", hidden, D, mlp_bias)]
+
+
+def flash_shapes(dev) -> list:
+    """(name, B, S, H, kv_valid) of K5's rows: the 7B unfused window
+    attention at 720p (chip_smoke.py phase 3), B = nW windows of S = mL + Lt
+    rows, keys valid = [window validity | all text]."""
+    cfg, Lt = dit_7b(), 58
+    out = []
+    for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, (2, 45, 80), Lt), cfg.head_dim, dev)):
+        nW, mL = dp.valid.shape
+        kv_valid = torch.cat([dp.valid, torch.ones(nW, Lt, dtype=torch.bool, device=dev)], dim=1).contiguous()
+        out.append((f"7b {which}", nW, mL + Lt, cfg.heads, kv_valid))
+    return out
+
+
+def tables_fp64(x_ext: torch.Tensor, gw: torch.Tensor, gb: torch.Tensor, groups: int, eps: float = 1e-6):
+    """K4's tables (scale, shift) [B, T, C] in fp64: the reference the
+    kernel and the plain version are measured against."""
+    B, T, H, W, C = x_ext.shape
+    xd = x_ext.double().reshape(B, T, H * W, groups, C // groups)
+    var, mean = torch.var_mean(xd, dim=(2, 4), correction=0)
+    rstd = (var + eps).rsqrt().repeat_interleave(C // groups, dim=-1)
+    scale = rstd * gw.double()
+    return scale, gb.double() - mean.repeat_interleave(C // groups, dim=-1) * scale
+
+
+def max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref| (a shift near 0 in one channel would make
+    an elementwise ratio meaningless)."""
+    return float((got.double() - ref).abs().max() / ref.abs().max())
 
 
 def ablated(csrc: Path, out: Path, kernels) -> dict:
@@ -169,7 +213,8 @@ def build_other(csrc: Path, out: Path):
 def ptxas_report(log: str) -> str:
     """ptxas's spill and register lines of the conv kernels, K7 and K3 / K3q, each after its kernel's name."""
     return "".join(f"\n  {name}: {line}" for name, line in cuda_lib.ptxas_lines(log)
-                   if any(k in name for k in ("conv", "fold", "w8a16", "flash_kernel", "qk_prepare", "WindowPolicy")))
+                   if any(k in name for k in ("conv", "fold", "w8a16", "flash_kernel", "qk_prepare", "WindowPolicy",
+                                              "attention_kernel", "gn_stats")))
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -200,9 +245,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--against", action="append", default=[], help="a csrc/ directory to build and time beside this tree")
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--kernels", default="K1,K4,K6,K2,K7,K3,K3q", help="comma-separated subset of K1,K4,K6,K2,K7,K3,K3q")
+    ap.add_argument("--kernels", default="K1,K4,K6,K2,K7,K3,K3q,K5,K8",
+                    help="comma-separated subset of K1,K4,K6,K2,K7,K3,K3q,K5,K8")
     ap.add_argument("--ablate", action="store_true",
-                    help="also time the conv kernels, K7 and K3 / K3q's flash loop with one part taken out")
+                    help="also time the conv kernels, K7, K3 / K3q's flash loop and K5 with one part taken out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("conv_ab: no CUDA device")
@@ -362,6 +408,46 @@ def main():
                           for n, L in attn_libs.items()})
             timed_rounds(calls, args.rounds)
             del vqkv, tqkv, ref, prep, calls
+
+    flash_libs = {n: L for n, L in libs.items() if ablation_of.get(n, "flash") == "flash"}
+    for name, B, S, H, kv_valid in flash_shapes(dev) if "K5" in kernels else ():
+        D = k5.HEAD_DIM
+        q, k, v = (randn(B, S, H, D) for _ in range(3))
+        o = torch.empty_like(q)
+        ref = k5.flash_attention_plain(q, k, v, kv_valid)
+
+        def run5(lib):
+            cuda_lib.check(lib.seedvr2_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
+                                                       None, o.data_ptr(), B, S, H, k5.padded_len(S) - S, D**-0.5,
+                                                       stream()), "flash_attention")
+            return o
+
+        errs = " ".join(f"{n} {rel_l2(run5(L), ref):.2e}" for n, L in trees.items())
+        live = int(kv_valid.view(B, -1).any(1).sum())
+        print(f"K5 {name} B{B} S{S} H{H} ({int(kv_valid.sum())} valid keys, {live} rows with one): rel L2 {errs}",
+              flush=True)
+        qt, kt, vt, mask = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_valid[:, None, None]
+        calls = {"sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)}
+        calls.update({f"{n} K5": (lambda L=L: run5(L)) for n, L in flash_libs.items()})
+        timed_rounds(calls, args.rounds)
+        del q, k, v, o, ref, calls
+
+    for c, T, H, W in CONV_SHAPES if "K8" in kernels else ():
+        x = randn(1, T + 2, H, W, c)
+        gw, gb = 1 + 0.2 * torch.randn(c, generator=g, device=dev), 0.3 * torch.randn(c, generator=g, device=dev)
+        ref = tables_fp64(x, gw, gb, 32)
+        got = {"plain tables": k1.gn_silu_tables_plain(x, gw, gb, 32)}
+        k8_libs = {n: L for n, L in trees.items() if hasattr(L, "seedvr2_gn_stats")}
+        got.update({f"{n} K8": k1.gn_stats_launch(L, x, gw, gb, 32) for n, L in k8_libs.items()})
+        errs = " ".join(f"{n} {max_rel(a[0], ref[0]):.2e} / {max_rel(a[1], ref[1]):.2e}" for n, a in got.items())
+        print(f"K8 c{c} {T + 2}x{H}x{W} ({x.numel() * 2 / 1e6:.0f} MB): max rel err of scale / shift vs fp64 {errs}",
+              flush=True)
+        xg = x.view(1, T + 2, H * W, 32, c // 32)
+        calls = {"var_mean": lambda: torch.var_mean(xg, dim=(2, 4), correction=0),
+                 "plain tables": lambda: k1.gn_silu_tables_plain(x, gw, gb, 32)}
+        calls.update({f"{n} K8": (lambda L=L: k1.gn_stats_launch(L, x, gw, gb, 32)) for n, L in k8_libs.items()})
+        timed_rounds(calls, args.rounds)
+        del x, xg, ref, got, calls
 
 
 if __name__ == "__main__":

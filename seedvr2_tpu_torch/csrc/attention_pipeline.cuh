@@ -1,12 +1,17 @@
-// The flash-attention loop of K3 / K3q on Hopper's pipeline (TMA, mbarrier
-// rings, wgmma; the primitives of hopper.cuh, the producer / consumer shape
-// of conv_pipeline.cuh). Its one policy is the window attention's
-// (window_attention.cuh: which rows a query tile and a key tile are, and
-// where they lie); q and k arrive prepared (window_qk_prepare.cuh), so the
-// loop does no per-tile work besides the softmax.
+// The flash-attention loop of K3 / K3q and K5 on Hopper's pipeline (TMA,
+// mbarrier rings, wgmma; the primitives of hopper.cuh, the producer /
+// consumer shape of conv_pipeline.cuh). A policy says which rows a query
+// tile and a key tile are, and where they lie: the window attention's
+// (window_attention.cuh; q and k arrive prepared by window_qk_prepare.cuh,
+// key codes and key-tile flags in scratch) and the masked attention's over
+// strided [B, S, H, D] rows (flash_attention.cuh; the key codes made from
+// kv_valid in the producer warp). The loop does no per-tile work besides
+// the softmax.
 //
 // - Block: one producer warp group (one thread issues every TMA and bulk
-//   copy, after setmaxnreg down to 40 registers) and two consumer warp
+//   copy, after setmaxnreg down to 40 registers; with P::kProducerCodes its
+//   warp's 32 lanes also find an item's live key tiles and write each
+//   stage's key codes) and two consumer warp
 //   groups (232 registers), each owning one 64-row query tile of the
 //   block's work item; both consume the same key tiles, so a key tile is
 //   loaded once for 128 query rows. The grid is persistent (one block an
@@ -26,7 +31,9 @@
 //   scale * log2(e) a row, then s_k a key), the key code (0, or -inf for a
 //   key that does not count), the row max and sum over the 4 lanes of a
 //   quad, the running max starting at the JAX masked logit (finite, so a
-//   tile of masked keys rescales nothing).
+//   tile of masked keys rescales nothing; a row whose keys are all masked
+//   ends at that max, and the policy's extra_den adds the terms of keys it
+//   never loaded).
 // - O += P V: wgmma m64n128k16 with P from registers (the score
 //   accumulators re-packed as bf16 A fragments) and V MN-major (tnspB = 1).
 // - Overlap inside a consumer: the Q K^T of tile j is issued, then the P V
@@ -48,16 +55,23 @@
 // the waits between a tile's Q K^T and its softmax) sets the pace; two
 // consumer warp groups are too few warps to hide its latencies.
 //
-// A policy P provides (all const): kQuant; int items(), Item item(i),
-// int key_tiles(), uint64_t live_tiles(item) and int next_tile(live, j)
-// (the key tile after j that holds a key: a tile of masked keys adds
-// exactly 0 to the sums and to O, so it is not loaded); QTile q_tile(item,
-// c) (kind 0: none, 1: video, 2:
-// text; first row, rows); load_q(maps, item, qtile, dst, bar) and
-// uint32_t kv_bytes(j), load_kv(maps, item, j, k, v, code, scale, bar) (the
-// copies of one stage); bool video_tile(j), float text_code(j, col) (the
-// code of a text key, which has no code chunk); float q_scale(item, qtile,
-// r) (K3q); bf16* out_row(item, qtile, r) (null past the tile's rows).
+// A policy P provides (all const): kQuant, kProducerCodes; int items(),
+// Item item(i), int key_tiles(), uint64_t live_tiles(item) (with
+// kProducerCodes: called by the producer warp's 32 lanes together, and
+// handed to the consumers through shared memory beside their Q tile), int
+// next_tile(live, j) (the key tile after j that holds a key: a tile of
+// masked keys adds exactly 0 to the sums and to O, so it is not loaded) and
+// int last_tile(live); QTile q_tile(item, c) (kind 0: none, 1: video, 2:
+// text; first row, rows); load_q(maps, item, qtile, dst, bar) and uint32_t
+// kv_bytes(j), load_kv(maps, item, j, k, v, code, scale, bar) (the copies
+// of one stage); with kProducerCodes, float2 key_codes(item, j, lane) (the
+// codes of keys 64 j + lane and + 32, written to the stage by that lane);
+// bool video_tile(j) (its codes are in the stage), float text_code(j, col)
+// (the code of a key that has none there); float q_scale(item, qtile, r)
+// (K3q); bf16* out_row(item, qtile, r) (null past the tile's rows), bool
+// keep(item, qtile, r) (false: the row is written as zeros); float
+// extra_den(m) (denominator terms of keys never loaded, at the row's final
+// max m).
 #pragma once
 
 #include <math.h>
@@ -87,7 +101,8 @@ struct Layout {
   static constexpr int kOffCode = kOffV + kStages * kVBytes;
   static constexpr int kOffScale = kOffCode + kStages * kBN * 4;
   static constexpr int kOffBar = kOffScale + kStages * kBN * 4;
-  static constexpr int kSmemBytes = kOffBar + (2 * kConsumers + 2 * kStages) * 8 + 1024;  // + alignment slack
+  static constexpr int kOffLive = kOffBar + (2 * kConsumers + 2 * kStages) * 8;  // each consumer's item's live tiles
+  static constexpr int kSmemBytes = kOffLive + kConsumers * 8 + 1024;            // + alignment slack
   static_assert(kOffK % 1024 == 0 && kOffV % 1024 == 0, "swizzled tiles stay 1024-byte aligned");
   static_assert(kSmemBytes <= 232448, "the 227 KB a block may have");
 };
@@ -252,7 +267,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const __grid_constan
   uint64_t* q_empty = q_full + kConsumers;
   uint64_t* full = q_empty + kConsumers;
   uint64_t* empty = full + kStages;
+  uint64_t* q_live = reinterpret_cast<uint64_t*>(smem + L::kOffLive);
   const int nk = p.key_tiles();
+  constexpr int kLanes = P::kProducerCodes ? 32 : 1;  // the producer's threads
 
   if (threadIdx.x == 0) {
     for (int c = 0; c < kConsumers; ++c) {
@@ -260,7 +277,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const __grid_constan
       sm90::mbar_init(q_empty + c, 1);
     }
     for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(full + s, kLanes);
       sm90::mbar_init(empty + s, kConsumers);
     }
     sm90::mbar_fence_init();
@@ -270,30 +287,46 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const __grid_constan
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     sm90::setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
-      // ---- producer: one thread keeps the Q buffers and the key ring full ----
-      maps.prefetch();
+    if (threadIdx.x < kLanes) {
+      // ---- producer: lane 0 keeps the Q buffers and the key ring full; with
+      // kProducerCodes every lane writes its two key codes of each stage and
+      // arrives on the stage's barrier, lane 0 with the stage's bytes ----
+      const int lane = threadIdx.x;
+      if (lane == 0) maps.prefetch();
       int stage = 0;
       uint32_t phase = 0, qph = 0;
       for (int i = blockIdx.x; i < p.items(); i += gridDim.x) {
         const typename P::Item it = p.item(i);
         const uint64_t live = p.live_tiles(it);  // read before the waits below, which hide its latency
-        for (int c = 0; c < kConsumers; ++c) {
-          const QTile qt = p.q_tile(it, c);
-          sm90::mbar_wait(q_empty + c, qph ^ 1);
-          if (qt.kind != 0) {
-            sm90::mbar_arrive_expect_tx(q_full + c, L::kQBytes);
-            p.load_q(maps, it, qt, smem + c * L::kQBytes, q_full + c);
-          } else {
-            sm90::mbar_arrive(q_full + c);  // no tile: the consumer passes the item's key tiles through
+        if (lane == 0) {
+          for (int c = 0; c < kConsumers; ++c) {
+            const QTile qt = p.q_tile(it, c);
+            sm90::mbar_wait(q_empty + c, qph ^ 1);
+            if constexpr (P::kProducerCodes) q_live[c] = live;  // released to the consumer by the arrival below
+            if (qt.kind != 0) {
+              sm90::mbar_arrive_expect_tx(q_full + c, L::kQBytes);
+              p.load_q(maps, it, qt, smem + c * L::kQBytes, q_full + c);
+            } else {
+              sm90::mbar_arrive(q_full + c);  // no tile: the consumer passes the item's key tiles through
+            }
           }
         }
         qph ^= 1;
         for (int j = p.next_tile(live, -1); j < nk; j = p.next_tile(live, j)) {
+          float2 cd;
+          if constexpr (P::kProducerCodes) cd = p.key_codes(it, j, lane);  // loaded before the wait, which hides it
           sm90::mbar_wait(empty + stage, phase ^ 1);
-          sm90::mbar_arrive_expect_tx(full + stage, p.kv_bytes(j));
-          p.load_kv(maps, it, j, kbuf + stage * L::kQBytes, vbuf + stage * L::kVBytes, codes + stage * kBN,
-                    kscales + stage * kBN, full + stage);
+          if constexpr (P::kProducerCodes) {
+            codes[stage * kBN + lane] = cd.x;
+            codes[stage * kBN + 32 + lane] = cd.y;
+          }
+          if (lane == 0) {
+            sm90::mbar_arrive_expect_tx(full + stage, p.kv_bytes(j));
+            p.load_kv(maps, it, j, kbuf + stage * L::kQBytes, vbuf + stage * L::kVBytes, codes + stage * kBN,
+                      kscales + stage * kBN, full + stage);
+          } else {
+            sm90::mbar_arrive(full + stage);  // releases this lane's codes
+          }
           sm90::advance(stage, phase, kStages);
         }
       }
@@ -312,9 +345,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const __grid_constan
   for (int i = blockIdx.x; i < p.items(); i += gridDim.x) {
     const typename P::Item it = p.item(i);
     const QTile qt = p.q_tile(it, c);
-    const uint64_t live = p.live_tiles(it);  // read before the wait for Q, which hides its latency
+    uint64_t live = 0;
+    if constexpr (!P::kProducerCodes) live = p.live_tiles(it);  // read before the wait for Q, which hides its latency
+    const bool keep[2] = {p.keep(it, qt, 16 * warp + g), p.keep(it, qt, 16 * warp + g + 8)};
     sm90::mbar_wait(q_full + c, qph);
     qph ^= 1;
+    if constexpr (P::kProducerCodes) live = q_live[c];
+    const int last = p.last_tile(live);  // the item's last read of Q
     if (qt.kind == 0) {
       for (int j = p.next_tile(live, -1); j < nk; j = p.next_tile(live, j)) {
         sm90::mbar_wait(full + stage, phase);
@@ -341,13 +378,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const __grid_constan
     // The first live key tile: Q K^T alone. Each later one: Q K^T of tile j,
     // then P V of the tile before; the softmax of tile j runs under that P V.
     // No wgmma is issued in a branch (ptxas serialises a warp group's
-    // products when one is). The last key tile, a text one, is always live.
+    // products when one is).
     int j = p.next_tile(live, -1);
     sm90::mbar_wait(full + stage, phase);
     sm90::wgmma_fence();
     qk_product(acc, qa, smem_addr(kbuf + stage * L::kQBytes));
     sm90::wgmma_wait<0>();
-    if (j == nk - 1 && leader) sm90::mbar_arrive(q_empty + c);
+    if (j == last && leader) sm90::mbar_arrive(q_empty + c);
     logits(acc, s, qs, kscales + stage * kBN, p.scale * kLog2e);
     softmax_tile(p, j, codes + stage * kBN, t, s, m, l, pa, o, true);
     int prev = stage;
@@ -358,7 +395,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const __grid_constan
       qk_product(acc, qa, smem_addr(kbuf + stage * L::kQBytes));
       pv_product(o, pa, smem_addr(vbuf + prev * L::kVBytes));
       sm90::wgmma_wait<1>();  // Q K^T of tile j has retired
-      if (j == nk - 1 && leader) sm90::mbar_arrive(q_empty + c);  // the item's last read of Q
+      if (j == last && leader) sm90::mbar_arrive(q_empty + c);
       logits(acc, s, qs, kscales + stage * kBN, p.scale * kLog2e);
       softmax_tile(p, j, codes + stage * kBN, t, s, m, l, pa, o, false, empty + prev, leader);
       prev = stage;
@@ -375,7 +412,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const __grid_constan
     // ends with all 8 columns of block 4 j4 + t
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) {
-      const float den = quad_sum(l[rh]);
+      const float den = quad_sum(l[rh]) + p.extra_den(m[rh]);
       const float inv = den == 0.f ? 1.f : 1.f / den;
       bf16* dst = p.out_row(it, qt, 16 * warp + g + 8 * rh);
 #pragma unroll
@@ -387,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const __grid_constan
           v[jj] = pack_bf16(o[4 * n + 2 * rh] * inv, o[4 * n + 2 * rh + 1] * inv);
         }
         const uint4 out = quad_transpose(v, t);
-        if (dst != nullptr) *reinterpret_cast<uint4*>(dst + 32 * j4 + 8 * t) = out;
+        if (dst != nullptr) *reinterpret_cast<uint4*>(dst + 32 * j4 + 8 * t) = keep[rh] ? out : make_uint4(0, 0, 0, 0);
       }
     }
   }

@@ -1,12 +1,12 @@
 // Shared pieces of the hand-written Hopper kernels: the bf16 type and its
 // helpers.
 //
-// K5 has its own core (attention_core.cuh) on the inline PTX of ptx.cuh:
-// mma.sync fragments in registers, ldmatrix operands, cp.async rings. The
-// convolutions K1 / K4 / K6 and K2 are one pipeline (conv_pipeline.cuh) on
-// Hopper's TMA, mbarrier and wgmma (hopper.cuh), as are K7's video regime
-// and the window attention K3 / K3q (attention_pipeline.cuh, after the q/k
-// preparation of window_qk_prepare.cuh).
+// The convolutions K1 / K4 / K6 and K2 are one pipeline (conv_pipeline.cuh)
+// on Hopper's TMA, mbarrier and wgmma (hopper.cuh), as are K7's video
+// regime and the attention kernels K3 / K3q (attention_pipeline.cuh, after
+// the q/k preparation of window_qk_prepare.cuh) and K5 (the same loop with
+// the policy of flash_attention.cuh). K7's split-K regime runs on the
+// mma.sync and cp.async of ptx.cuh; K8 (gn_stats.cuh) on plain loads.
 #pragma once
 
 #include <cuda_bf16.h>

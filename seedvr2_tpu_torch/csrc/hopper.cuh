@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarrier rings, TMA tensor
 // loads, wgmma shared-memory descriptors and products, and setmaxnreg.
 // The conv pipeline of K1 / K4 / K6 and K2 (conv_pipeline.cuh), K7's video
-// regime (w8a16_linear.cuh) and the window attention K3 / K3q
+// regime (w8a16_linear.cuh) and the attention pipeline of K3 / K3q and K5
 // (attention_pipeline.cuh) use them.
 //
 // - mbarrier: a 64-bit barrier in shared memory that counts thread arrivals
@@ -99,6 +99,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
           smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -208,7 +217,7 @@ __device__ __forceinline__ void wgmma_m64n240k16_rs_bf16(float (&d)[120], const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// The window attention's products (attention_pipeline.cuh). Both operands of
+// The attention pipeline's products (attention_pipeline.cuh). Both operands of
 // Q K^T are K-major in shared memory: the head dim is contiguous in Q's rows
 // and in K's, so B is read untransposed (tnspB = 0, the last immediate);
 // with the 128-byte swizzle a K-major operand is rows of 128 bytes (64 bf16

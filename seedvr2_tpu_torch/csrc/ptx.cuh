@@ -1,8 +1,8 @@
-// Inline-PTX building blocks of the register-resident kernels: asynchronous
-// global -> shared copies (cp.async), warp-wide shared-memory fragment loads
-// (ldmatrix) and the warp-level tensor-core products (mma.sync) whose
-// register layouts the PTX ISA documents, so that accumulators can be
-// read, rescaled and re-packed in registers (WMMA fragments are opaque).
+// Inline-PTX building blocks below Hopper's own (hopper.cuh): the shared
+// address of a pointer, asynchronous global -> shared copies (cp.async) and
+// the warp-level tensor-core product (mma.sync), whose register layouts the
+// PTX ISA documents; K7's split-K regime (w8a16_linear.cuh) runs on them,
+// and pack_bf16 serves every kernel that rounds accumulators to bf16.
 //
 // Layouts, with g = lane / 4 and t = lane % 4 (PTX ISA, "Matrix fragments
 // for mma.m16n8k16"):
@@ -10,13 +10,7 @@
 //     g+8, the same cols;
 //   bf16 A 16x16: a0 row g, cols 2t..2t+1; a1 row g+8; a2 row g, cols
 //     8+2t..; a3 row g+8, cols 8+2t..; B 16x8: b0 rows 2t..2t+1, col g;
-//     b1 rows 8+2t.., col g;
-// ldsm_x4 at frag_row(lane) / frag_col(lane) of a 16x16 bf16 region returns
-// the four 8x8 quarters as r0 = rows 0-7 / cols 0-7, r1 = rows 8-15 / cols
-// 0-7, r2 = rows 0-7 / cols 8-15, r3 = rows 8-15 / cols 8-15: {r0, r1, r2, r3} is an A operand, (r0, r2) and (r1, r3)
-// are the B operands of rows 0-7 and 8-15 when those rows are B's columns
-// (K in Q K^T); with ldsm_x4_trans, (r0, r1) and (r2, r3) are the B operands
-// of cols 0-7 and 8-15 when the rows are B's k index (V in P V).
+//     b1 rows 8+2t.., col g.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,24 +37,6 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Row and column (in 16-byte units) of the 16x16 region this lane addresses.
-__device__ __forceinline__ int frag_row(int lane) { return lane & 15; }
-__device__ __forceinline__ int frag_col(int lane) { return lane >> 4; }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
 }
 
 // c += a (16x16 bf16) * b (16x8 bf16), fp32 accumulation.

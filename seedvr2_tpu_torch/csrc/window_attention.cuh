@@ -14,8 +14,8 @@
 // outputs in bf16 are 4 * 463 * 256 bytes against 4 * 463^2 * 128 flops
 // (3B 720p: S 405, Lt 58), ~230 flops a byte, under the card's ~295 for
 // bf16, and the fp32 RoPE tables add bytes. The kernel it replaces (a
-// register-resident mma.sync core, now K5's alone: attention_core.cuh) ran
-// at ~1.5x SDPA: it normalised and roped every K row in shared memory once
+// register-resident mma.sync core, deleted since K5 left it too) ran at
+// ~1.5x SDPA: it normalised and roped every K row in shared memory once
 // per 128-row query block (4 times a window at R = 463, each text row 4 x
 // nW times), ~44% of its time with the tensor cores idle; every warp
 // reloaded every K and V fragment by ldmatrix for its 16 rows; and one
@@ -92,6 +92,7 @@ struct Item {
 template <bool kQuant_>
 struct WindowTiles {
   static constexpr bool kQuant = kQuant_;
+  static constexpr bool kProducerCodes = false;  // the codes and tile flags come from the preparation's scratch
   using Item = window::Item;
   int B, H, nW, S, Lt, Sp, Ltp;
   int nvt, ntt, npairs;   // video tiles, text tiles (64 rows or keys each), query tile pairs
@@ -129,6 +130,7 @@ struct WindowTiles {
     while (j < nvt && j < 64 && !((live >> j) & 1));
     return j;
   }
+  __device__ int last_tile(uint64_t) const { return nvt + ntt - 1; }  // a text tile: always live
   __device__ QTile q_tile(const Item& it, int c) const {
     const int qi = 2 * it.pair + c;
     if (qi < nvt) return QTile{1, 64 * qi, min(64, S - 64 * qi)};
@@ -177,6 +179,8 @@ struct WindowTiles {
     const long bhw = ((long)it.b * H + it.h) * nW + it.w;
     return qt.kind == 1 ? ovid + (bhw * S + qt.row0 + r) * kD : otxt + (bhw * Lt + qt.row0 + r) * kD;
   }
+  __device__ bool keep(const Item&, const QTile&, int) const { return true; }  // padded slots' rows are written too
+  __device__ float extra_den(float) const { return 0.f; }  // every key is loaded
 };
 
 // ---- host side ----

@@ -6,6 +6,9 @@ Counterpart of seedvr2_tpu/ops/conv3d_kernel.py:
   silu(x * scale + shift) applied to its input as it is loaded (the
   resnet's per-frame GroupNorm + SiLU, folded into tables by
   ``gn_silu_tables``; template flag of the same kernel);
+- ``gn_silu_tables(x_ext, gw, gb, groups)`` is K8, those tables: not a TPU
+  kernel (the JAX package leaves them to XLA's reductions), a hand-written
+  one because their plain version cost more than K4 (csrc/gn_stats.cuh);
 - ``conv3d_3x3x3_im2col(x_ext, w, b)`` is K6, the conv as one product over
   the folded [M, 27*Cin] axis: the kernel K1 runs too.
 All three are csrc/conv3d.cuh's policy on the TMA + wgmma pipeline of
@@ -15,7 +18,7 @@ hand-written kernel; on a CPU tensor it runs the plain version below.
 There is no other route: a CUDA tensor the kernel does not take raises.
 Each has its own C entry and launch counter: ``conv3d_3x3x3.launches``
 (K1), ``conv3d_3x3x3.launches_gn`` (K4), ``conv3d_3x3x3_im2col.launches``
-(K6).
+(K6), ``gn_silu_tables.launches`` (K8).
 """
 
 from __future__ import annotations
@@ -35,7 +38,63 @@ def enabled_for(w_shape: Tuple[int, ...], stride: Tuple[int, int, int]) -> bool:
     return (kt, kh, kw) == (3, 3, 3) and tuple(stride) == (1, 1, 1) and cin % 128 == 0 and cout % 128 == 0
 
 
+def gn_stats_geometry(C: int) -> Tuple[int, int]:
+    """(pixels a block step, steps a thread) of K8's partials kernel at C
+    channels: C / 8 threads a pixel (16 bytes each), blocks of about 256
+    threads, 64 steps, so a chunk of the frame is ppb * 64 pixels (256 KB of
+    x at C = 128, 256 and 512). The kernel takes both from here, and so does
+    the CPU emulation of its merge order (tests/test_torch_gn_stats.py)."""
+    return max(1, 256 // (C // 8)), 64
+
+
+def gn_stats_launch(lib, x_ext: torch.Tensor, gw: torch.Tensor, gb: torch.Tensor, groups: int, eps: float = 1e-6):
+    """K8's launches from ``lib`` (this tree's library, or another tree's in
+    conv_ab): the tables (scale, shift) [B, T, C] fp32 of a CUDA x_ext. The
+    contract: x_ext bf16 [B, T, H, W, C], contiguous (a view at a 16-byte
+    aligned storage offset is taken as it is), C % 8 == 0 (a pixel is whole
+    16-byte words), C % groups == 0 and (C / groups) % 4 == 0, C <= 8192,
+    B * T <= 65535; gw and gb [C], both fp32 or both bf16 (the VAE's norm
+    weights). Anything else raises. Not counted: the caller counts."""
+    cuda_lib.require(x_ext.dim() == 5, f"gn_silu_tables: x_ext of shape {tuple(x_ext.shape)}")
+    B, T, H, W, C = x_ext.shape
+    cuda_lib.require_cuda_tensor(x_ext, "x_ext", torch.bfloat16)
+    cuda_lib.require(C % 8 == 0 and C <= 8192 and groups >= 1 and C % groups == 0 and (C // groups) % 4 == 0,
+                     f"gn_silu_tables: C={C}, groups={groups}")
+    cuda_lib.require(1 <= B * T <= 65535 and H * W >= 1 and H * W < 2**31, f"gn_silu_tables: x_ext {tuple(x_ext.shape)}")
+    cuda_lib.require(gw.dtype in (torch.float32, torch.bfloat16) and gb.dtype == gw.dtype,
+                     f"gn_silu_tables: gw {gw.dtype}, gb {gb.dtype}")
+    for t, n in ((gw, "gw"), (gb, "gb")):
+        cuda_lib.require_cuda_tensor(t, n, gw.dtype, (C,), device=x_ext.device)
+    ppb, steps = gn_stats_geometry(C)
+    chunks = -(-(H * W) // (ppb * steps))
+    part = torch.empty((B * T, chunks, groups, 2), dtype=torch.float32, device=x_ext.device)
+    scale = torch.empty((B, T, C), dtype=torch.float32, device=x_ext.device)
+    shift = torch.empty_like(scale)
+    with torch.cuda.device(x_ext.device):
+        code = lib.seedvr2_gn_stats(
+            x_ext.data_ptr(), gw.data_ptr(), gb.data_ptr(), part.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            B * T, H * W, C, groups, ppb, steps, int(gw.dtype == torch.bfloat16), eps, cuda_lib.stream_ptr(x_ext),
+        )
+    cuda_lib.check(code, "gn_silu_tables")
+    return scale, shift
+
+
 def gn_silu_tables(x_ext: torch.Tensor, gw: torch.Tensor, gb: torch.Tensor, groups: int, eps: float = 1e-6):
+    """K4's tables (scale, shift) [B, T, C] fp32 of a RAW x_ext [B, T, H, W,
+    C]: x * scale + shift == GroupNorm(x) * gw + gb per frame (b, t). On a
+    CUDA tensor K8 computes them (gn_stats_launch's contract); on a CPU
+    tensor the plain version does."""
+    if x_ext.device.type == "cpu":
+        return gn_silu_tables_plain(x_ext, gw, gb, groups, eps)
+    out = gn_stats_launch(cuda_lib.library(), x_ext, gw, gb, groups, eps)
+    gn_silu_tables.launches += 1
+    return out
+
+
+gn_silu_tables.launches = 0
+
+
+def gn_silu_tables_plain(x_ext: torch.Tensor, gw: torch.Tensor, gb: torch.Tensor, groups: int, eps: float = 1e-6):
     """Per-frame GroupNorm folded into fp32 tables (scale, shift) [B, T, C]
     with x * scale + shift == GroupNorm(x) * gw + gb per (b, t), for a RAW
     x_ext [B, T, H, W, C]. Two-pass fp32 variance, as the JAX package

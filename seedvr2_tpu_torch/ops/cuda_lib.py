@@ -54,6 +54,8 @@ _SIGNATURES = {
     "seedvr2_window_flash": [_vp] * 14 + [_i] * 6 + [_f] + [_vp],
     "seedvr2_window_flash_attributes": [_i] + [ctypes.POINTER(_i)] * 3,
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
+    "seedvr2_flash_attention_attributes": [ctypes.POINTER(_i)] * 3,
+    "seedvr2_gn_stats": [_vp] * 6 + [_i] * 7 + [_f] + [_vp],
     "seedvr2_w8a16_linear": [_vp] * 5 + [_i] * 3 + [_vp],
     "seedvr2_w8a16_linear_splitk": [_vp] * 6 + [_i] * 4 + [_vp],
     "seedvr2_w8a16_splitk_splits": [_i, _i, ctypes.POINTER(_i)],
@@ -151,7 +153,9 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-ENCODE_ERROR = 1 << 20  # + CUresult: a failed cuTensorMapEncodeTiled (conv_pipeline.cuh, w8a16_linear.cu, window_attention.cuh)
+# + CUresult: a failed cuTensorMapEncodeTiled (conv_pipeline.cuh, w8a16_linear.cu, window_attention.cuh,
+# flash_attention.cuh)
+ENCODE_ERROR = 1 << 20
 
 
 def check(code: int, what: str) -> None:

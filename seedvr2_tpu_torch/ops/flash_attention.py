@@ -3,8 +3,8 @@
 Counterpart of seedvr2_tpu/ops/flash_attention.py:flash_attention, which the
 DiT's unfused window attention calls under attention_mode flash_attn_2/3
 ("pallas"). On a CUDA tensor it launches the hand-written kernel (the
-strided policy of csrc/flash_attention.cuh on the flash core
-csrc/attention_core.cuh, which K3 shares); on a CPU tensor it runs the
+masked policy of csrc/flash_attention.cuh on the TMA + wgmma flash loop of
+csrc/attention_pipeline.cuh, which K3 shares); on a CPU tensor it runs the
 plain version.
 
 The JAX function pads S to Sp = max(ceil(S / 128) * 128, 128) with masked
@@ -93,3 +93,10 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def kernel_attributes() -> dict:
+    """K5's kernel as the CUDA runtime holds it: registers a thread, local
+    memory (spills) a thread, and the dynamic shared memory it launches
+    with."""
+    return cuda_lib.attributes("seedvr2_flash_attention_attributes")

@@ -20,14 +20,24 @@ of the 4-phase pipeline) the range's span on the device timeline, idle gaps
 inside it included; per kernel its device time; and the idle share,
 1 - (device time) / (profiled wall), not clamped (a negative share would
 mean device time counted twice). A range's own device total on the host
-side is not used: it misses the kernels launched through ctypes (K1-K6),
-which have no PyTorch op above them. Prints one JSON line. Needs a CUDA
-card.
+side is not used: it misses the kernels launched through ctypes (K1-K8),
+which have no PyTorch op above them. In the profiled run only, the VAE's
+passes outside the hand-written kernels are ranges of their own (OP_RANGES:
+the GroupNorm table pass of K4's route, the unfused route's GroupNorm +
+SiLU + casts, the mid attention's GroupNorm, the convs that the routing
+rule keeps off K1), each given as its calls and its summed device span
+(``op_span_ms``). Every kernel is listed by name with its calls and device
+ms (``kernels``); a kernel wrapper's launch count does not move in the
+profiled run (its range's copy of the count does). Prints one JSON line.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+import importlib
 import json
 import time
 
@@ -41,6 +51,13 @@ from .pipeline import phases
 from .pipeline.runner import Runner
 
 STAGE_PREFIXES = ("runner.", "phase.")
+# range -> (module, function): called inside a range of that name in the profiled run
+OP_RANGES = {
+    "op.gn_tables": (("seedvr2_tpu_torch.ops.conv3d_kernel", "gn_silu_tables"),),
+    "op.gn_silu": (("seedvr2_tpu_torch.models.vae.causal_conv", "gn_silu"),
+                   ("seedvr2_tpu_torch.models.vae.model", "gn_silu")),
+    "op.mid_group_norm": (("seedvr2_tpu_torch.models.vae.model", "group_norm"),),
+}
 
 
 def long_clip_config(cfg: PipelineConfig) -> PipelineConfig:
@@ -51,6 +68,41 @@ def long_clip_config(cfg: PipelineConfig) -> PipelineConfig:
 
 def long_clip_frames() -> np.ndarray:
     return np.random.RandomState(8).randint(0, 256, (15, 540, 960, 3)).astype(np.uint8)
+
+
+@contextlib.contextmanager
+def op_ranges():
+    """OP_RANGES, and "op.conv_off_k1" around each CausalConv3d call that
+    the routing rule sends to F.conv3d (layout copies included), for the
+    length of the block; undone after it."""
+    from .models.vae.causal_conv import CausalConv3d
+
+    def ranged(name, fn):
+        @functools.wraps(fn)  # with its attributes: a wrapper counts its launches on its module's name
+        def call(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    targets = [(name, importlib.import_module(mod), attr) for name, pairs in OP_RANGES.items() for mod, attr in pairs]
+    saved = [(m, attr, getattr(m, attr)) for _, m, attr in targets]
+    conv_forward = CausalConv3d.forward
+
+    def forward(self, *a, **kw):
+        if self.k1:
+            return conv_forward(self, *a, **kw)
+        with torch.profiler.record_function("op.conv_off_k1"):
+            return conv_forward(self, *a, **kw)
+
+    try:
+        for name, m, attr in targets:
+            setattr(m, attr, ranged(name, getattr(m, attr)))
+        CausalConv3d.forward = forward
+        yield
+    finally:
+        for m, attr, fn in saved:
+            setattr(m, attr, fn)
+        CausalConv3d.forward = conv_forward
 
 
 def timed_generate(runner: Runner, frames: np.ndarray) -> float:
@@ -86,16 +138,18 @@ def main(argv=None):
     walls = [timed_generate(runner, frames) for _ in range(args.runs)]
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with op_ranges(), torch.profiler.profile(activities=acts) as prof:
         prof_wall = timed_generate(runner, frames)
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    stages_ms, kernels = {}, []
+    stages_ms, ops_ms, kernels = {}, {}, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if e.key.startswith(STAGE_PREFIXES):  # the range's span on the device timeline
+        if e.key.startswith("op."):  # summed spans of the range's calls on the device timeline
+            ops_ms[e.key] = {"calls": e.count, "ms": e.self_device_time_total / 1e3}
+        elif e.key.startswith(STAGE_PREFIXES):  # the range's span on the device timeline
             stages_ms[e.key] = e.self_device_time_total / 1e3
         elif e.key != "Command Buffer Full" and e.self_device_time_total > 0:
             kernels.append({"name": e.key[:120], "calls": e.count, "ms": e.self_device_time_total / 1e3})
@@ -106,7 +160,7 @@ def main(argv=None):
         "gn_fusion": args.gn_fusion, "phasewise": args.phasewise, "frames": list(frames.shape),
         "wall_s": walls, "profiled_wall_s": prof_wall, "device_kernel_s": device_s,
         "idle_share": 1.0 - device_s / prof_wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "stage_span_ms": stages_ms, "top_kernels": kernels[:25],
+        "stage_span_ms": stages_ms, "op_span_ms": ops_ms, "kernels": kernels,
     }
     print(json.dumps(out))
 

@@ -83,7 +83,8 @@ def _gn_case(cuda, cin, cout, H, W, T=3, B=2):
     b = torch.randn(cout, device=cuda, generator=g)
     gw = 1 + 0.2 * torch.randn(cin, device=cuda, generator=g)
     gb = 0.3 * torch.randn(cin, device=cuda, generator=g)
-    scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
+    # the plain tables: K4's cases include Cin 64, which K8 does not take at 32 groups (C / groups = 2)
+    scale, shift = k1.gn_silu_tables_plain(x, gw, gb, 32)
     return x, w, b, scale, shift
 
 
@@ -426,6 +427,120 @@ def test_flash_attention_kernel_matches_plain(cuda, S):
     assert not bool(o[1, S // 2 :].any())
 
 
+# K5 on the attention pipeline (csrc/flash_attention.cuh): the 3B and 7B
+# head counts, more work items than the card has SMs (B = 32 windows of 24
+# heads, 4 query blocks each), and key tiles skipped for their masks: valid
+# keys behind a fully masked 64-key tile, a masked tile between valid ones,
+# the last tiles masked (the item's last read of Q is then an earlier tile);
+# one batch row with no valid key in each case (nothing skipped there).
+FLASH_CASES = [(3, 463, 20, "behind a masked tile"), (3, 463, 24, "between"), (32, 463, 24, "windows"),
+               (4, 200, 4, "last tiles masked"), (2, 129, 2, "behind a masked tile")]
+
+
+@pytest.mark.parametrize("B,S,H,case", FLASH_CASES)
+def test_flash_attention_kernel_skips_masked_tiles(cuda, B, S, H, case):
+    """Against the plain version (rel L2 <= 1e-2, each batch row too),
+    q_valid zeroing its rows, and two launches with the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    D = 128
+    q, k, v = (torch.randn(B, S, H, D, device=cuda, generator=g).bfloat16() for _ in range(3))
+    kv_valid = torch.ones(B, S, dtype=torch.bool, device=cuda)
+    if case == "behind a masked tile":
+        kv_valid[0, :64] = False
+        kv_valid[1, : S - 3] = False  # three valid keys at the end
+    elif case == "between":
+        kv_valid[0, 64:192] = False
+        kv_valid[1, 128:] = False
+    elif case == "windows":  # padded window slots, then the always-valid text keys
+        slots = torch.arange(S, device=cuda)[None, :]
+        kv_valid &= (slots >= 405) | (slots < 405 - 6 * torch.arange(B, device=cuda)[:, None])
+    else:
+        kv_valid[:, 128:] = False
+    kv_valid[-1] = False
+    q_valid = torch.arange(S, device=cuda)[None, :].expand(B, S) % 5 != 2
+    n0 = k5.flash_attention.launches
+    for qv in (None, q_valid):
+        o = k5.flash_attention(q, k, v, kv_valid, qv)
+        torch.cuda.synchronize()
+        p = k5.flash_attention_plain(q, k, v, kv_valid, qv)
+        assert bool(torch.isfinite(o).all())
+        assert _rel(o, p) <= REL_BOUND
+        for b in range(B):
+            assert _rel(o[b], p[b]) <= REL_BOUND
+        assert torch.equal(o, k5.flash_attention(q, k, v, kv_valid, qv))
+    assert k5.flash_attention.launches == n0 + 4
+    assert not bool(o[~q_valid].any())
+
+
+def test_flash_attention_kernel_resources(cuda):
+    """K5's kernel: no spills, the shared memory of K3's flash loop."""
+    a = k5.kernel_attributes()
+    assert a["local_bytes"] == 0, a
+    assert 48 * 1024 < a["smem_bytes"] <= 232448, a
+
+
+# K8 (csrc/gn_stats.cuh) against fp64: the VAE's widths at 32 groups (one
+# frame above a chunk: 33 x 47 = 1551 pixels against 1024 at C = 128), the
+# GN_SHAPES of tests/test_torch_conv_kernels.py at 32 and 4 groups
+# ((C / groups) % 4 == 0 in each), H * W not a multiple of the chunk, B * T
+# frames of several chunks.
+GN_STATS_CASES = [(1, 3, 33, 47, 128, 32), (1, 3, 30, 40, 256, 32), (2, 2, 20, 31, 512, 32),
+                  (1, 5, 16, 256, 128, 32), (2, 4, 10, 130, 256, 32), (1, 3, 9, 17, 128, 32), (2, 3, 5, 7, 256, 32),
+                  (1, 3, 6, 10, 512, 32), (1, 4, 9, 17, 128, 32), (1, 5, 16, 256, 128, 4), (2, 4, 10, 130, 256, 4),
+                  (1, 3, 6, 10, 512, 4), (1, 7, 150, 97, 128, 32)]
+
+
+def _tables_case(cuda, B, Tt, H, W, C, seed, offset=0.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(B, Tt, H, W, C, device=cuda, generator=g) + offset).bfloat16()
+    gw = 1 + 0.2 * torch.randn(C, device=cuda, generator=g)
+    gb = 0.3 * torch.randn(C, device=cuda, generator=g)
+    return x, gw, gb
+
+
+@pytest.mark.parametrize("B,Tt,H,W,C,groups", GN_STATS_CASES)
+def test_gn_stats_kernel_matches_fp64(cuda, B, Tt, H, W, C, groups):
+    """Scale and shift within 1e-6 (max |k - ref| / max |ref|) of fp64, and
+    near the plain version; one count a call; two launches, the same bits."""
+    x, gw, gb = _tables_case(cuda, B, Tt, H, W, C, 8)
+    n0 = k1.gn_silu_tables.launches
+    got = k1.gn_silu_tables(x, gw, gb, groups)
+    torch.cuda.synchronize()
+    assert k1.gn_silu_tables.launches == n0 + 1
+    ref = conv_ab.tables_fp64(x, gw, gb, groups)
+    plain = k1.gn_silu_tables_plain(x, gw, gb, groups)
+    for a, r, p in zip(got, ref, plain):
+        assert a.shape == (B, Tt, C) and a.dtype == torch.float32
+        assert conv_ab.max_rel(a, r) <= 1e-6
+        assert conv_ab.max_rel(a, p.double()) <= 2e-6
+    again = k1.gn_silu_tables(x, gw, gb, groups)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the VAE's norm weights are bf16: the same tables from their values
+    gwb, gbb = gw.bfloat16(), gb.bfloat16()
+    for a, r in zip(k1.gn_silu_tables(x, gwb, gbb, groups), conv_ab.tables_fp64(x, gwb.float(), gbb.float(), groups)):
+        assert conv_ab.max_rel(a, r) <= 1e-6
+
+
+@pytest.mark.parametrize("C", [128, 256, 512])
+def test_gn_stats_kernel_offset_mean(cuda, C):
+    """8 + N(0, 1) in bf16 (E[x^2] - E[x]^2 would lose ~8 bits): within
+    1e-6 of fp64 and no more than 2x the plain version's own error; then K4
+    on these tables against K4 on the plain tables."""
+    x, gw, gb = _tables_case(cuda, 1, 4, 64, 96, C, 9, offset=8.0)
+    got = k1.gn_silu_tables(x, gw, gb, 32)
+    ref = conv_ab.tables_fp64(x, gw, gb, 32)
+    plain = k1.gn_silu_tables_plain(x, gw, gb, 32)
+    for a, r, p in zip(got, ref, plain):
+        err, plain_err = conv_ab.max_rel(a, r), conv_ab.max_rel(p, r)
+        assert err <= 1e-6 and err <= 2 * plain_err, (err, plain_err)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    w = (torch.randn(3, 3, 3, C, 128, device=cuda, generator=g) / (27 * C) ** 0.5).bfloat16()
+    b = torch.randn(128, device=cuda, generator=g)
+    y = k1.conv3d_3x3x3(x, w, b, *got)
+    assert _rel(y, k1.conv3d_3x3x3(x, w, b, *plain)) <= REL_BOUND
+    assert _rel(y, k1.conv3d_3x3x3_plain(x, w, b, *plain)) <= REL_BOUND
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros(1, 3, 4, 4, 128, device=cuda)  # fp32: the kernel takes bf16
     w = torch.zeros(3, 3, 3, 128, 128, device=cuda, dtype=torch.bfloat16)
@@ -437,6 +552,16 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         k5.flash_attention(q, q, q.float())
+    # K8: fp32 x, a view 2 bytes off 16-byte alignment, C / groups = 2 or
+    # not a multiple of 4, fp16 or mixed norm weights
+    x, gw, gb = _tables_case(cuda, 1, 3, 4, 5, 128, 0)
+    buf = torch.zeros(x.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    view = buf[1:].view(x.shape)
+    for args in ((x.float(), gw, gb, 32), (view, gw, gb, 32), (x, gw, gb, 64),
+                 (x[..., :96].contiguous(), gw[:96].contiguous(), gb[:96].contiguous(), 16),
+                 (x, gw.half(), gb.half(), 32), (x, gw, gb.bfloat16(), 32)):
+        with pytest.raises(ValueError):
+            k1.gn_silu_tables(*args)
 
 
 def test_conv_kernels_reject_what_they_do_not_take(cuda):
