@@ -8,7 +8,7 @@ Phases (any failure raises and the script exits non-zero without a result):
   2. build: compile csrc/ with nvcc for sm_90a (build time, -Xptxas -v);
   3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K7 (3B, 7B), K4 (K1 with the GroupNorm +
      SiLU prologue, tables from GroupNorm weights, at K1's shapes), K8 (those
-     tables) and K6 (the tap-folded conv) against their plain PyTorch
+     tables), K9 (the GroupNorm (+ SiLU) pass on them) and K6 (the tap-folded conv) against their plain PyTorch
      versions at the shapes of the 720p paths, and K3 and K4 again at the
      long clip's shapes (phase 7's DiT latent 3 x 68 x 120; the c128 and
      c256 convs of one 608 x 1024 decode tile), bf16 inputs, bound
@@ -37,7 +37,15 @@ Phases (any failure raises and the script exits non-zero without a result):
      ``plain_fp64_rel_err``; at most 1e-6), the library call
      torch.var_mean over the grouped bf16 view, and two launches must give
      the same bits; a K4 row's ms leaves its tables out (the K8 row at the
-     same shape times them);
+     same shape times them); K9 rows (K9_SHAPES: the VAE's GroupNorms
+     outside K4 at 720p and on the long clip's decode tile, with and
+     without the SiLU) run K9 on K8's tables: without the SiLU the plain
+     version's bits, with it no code more than one step away and at most
+     1e-3 of them moved; K8 + K9 against the plain route they replace
+     under conv_ab.gn_codes's rule (at most 1e-3 moved); the library call
+     is a chain (a channels-first copy, F.group_norm, F.silu), and
+     ``with_tables_ms`` / ``plain_route_ms`` time the VAE's whole call on
+     each route;
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
@@ -48,8 +56,9 @@ Phases (any failure raises and the script exits non-zero without a result):
   5. main path: NaDiT-3B (32 layers, width 2560) and the VAE at full width
      with random weights drawn on the card, the bundled text embedding, a
      5-frame 640x360 clip upscaled to 1280x720 with the default pipeline
-     settings through seedvr2_tpu_torch.pipeline.phases.generate; then the
-     same with the VAE's GroupNorm fusion on (K4 48 launches, K1 none);
+     settings through seedvr2_tpu_torch.pipeline.phases.generate (every
+     GroupNorm on K8 + K9: 52 each); then the same with the VAE's
+     GroupNorm fusion on (K4 48 launches, K1 none, K8 52, K9 4);
      each driven run of phases 5-7 also prints the device-timeline spans
      of its VAE encode and decode calls (CUDA events around each
      Runner._encode / _decode call, summed: vae_encode_ms, vae_decode_ms);
@@ -145,7 +154,7 @@ Phases (any failure raises and the script exits non-zero without a result):
      main path's clip with decode_tiled at 1024 / 128 px (the plan asserted:
      columns (0, 72), chunk ends (544, 1280)), (b) 960x540 -> 1920x1080 at
      1088 x 1024 px tiles ((0, 112), (864, 1920)): wall, peak, codes within
-     2, K1 / K2 / K3 equal on both routes and non-zero; (c) 15 frames in
+     2, K1 / K2 / K3 / K8 / K9 equal on both routes and non-zero; (c) 15 frames in
      three batches under torch.profiler: the device -> host copies' bytes
      and ms, the ms of them under a compute-stream kernel, the device's
      idle share, and the synchronizing calls of each route
@@ -161,14 +170,15 @@ Phases (any failure raises and the script exits non-zero without a result):
      source makes the next load cold again: (c) in this process that cold
      load and a warm one, every DiT and VAE tensor bit-equal (buffers, K1's
      layout, K2's folds), one phases.generate batch of the main path's
-     clip from each, 0 codes apart, K1, K2 and K3 = phase 5's a batch.
+     clip from each, 0 codes apart, K1, K2, K3, K8 and K9 = phase 5's a batch.
      Phase 10 holds its two int8 DiTs (--quantize int8, the .gguf) the
      same way, cold against warm. Phase 9's first CLI run is the cold load
      of its files; phases 10 (the VAE) and 11 load them warm.
 Budgets (H100 80GB HBM3, 700 W; PERF.md): phases 1-8 ~180 s, phase 9
-~115-130 s (its first run converts), phase 10 ~190-240 s, phase 11 ~40 s
-(warm loads), phase 12 ~60 s, phase 13 ~105-140 s (the whole script
-~640-830 s); it must end within 1200 s. K7 may
+~115-130 s (its first run converts), phase 10 ~190-240 s, phase 11 ~20-40 s
+(warm loads), phase 12 ~30-60 s, phase 13 ~105-140 s (the whole script
+~640-830 s; 702 s with every GroupNorm on K8 + K9); it must end within
+1200 s. K7 may
 launch only in phases 3 and 10 (read_counts raises elsewhere).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
@@ -176,9 +186,11 @@ of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4,
 K8: phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run; the 1080p K3
 rows and the long-clip K4 and K8 rows: phase 7); phase 7's counts also stand under
 ``e2e.long_clip.launches``; a phase-8 row's is its rank's count in the
-phase-8 run of its path (K3s over K3 or over K3q, or K5, per rank). K6 is on no path (the JAX package reaches it
-only from its benchmark scripts): its row's count is its sum over every
-driven run, which must be 0.
+phase-8 run of its path (K3s over K3 or over K3q, or K5, per rank); K9's
+rows carry phase 5's count (the long-clip rows phase 7's). Every expect of
+phases 4-13 that runs the VAE counts K8 and K9 too. K6 is on no path (the
+JAX package reaches it only from its benchmark scripts): its row's count is
+its sum over every driven run, which must be 0.
 Then: the kernels JSON line, the card line, and the final JSON line.
 """
 
@@ -238,6 +250,7 @@ def kernel_counters():
     from seedvr2_tpu_torch.ops import flash_attention as k5
     from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
     from seedvr2_tpu_torch.ops import fused_window_attention as k3
+    from seedvr2_tpu_torch.ops import normalization as norm
     from seedvr2_tpu_torch.ops import quant
 
     return {
@@ -248,6 +261,7 @@ def kernel_counters():
         "K5": (k5.flash_attention, "launches"),
         "K4": (k1.conv3d_3x3x3, "launches_gn"),
         "K8": (k1.gn_silu_tables, "launches"),
+        "K9": (norm.gn_apply, "launches"),
         "K6": (k1.conv3d_3x3x3_im2col, "launches"),
         "K3s": (k3.fused_window_attention_sharded, "launches"),
         "K3s_int8": (k3.fused_window_attention_sharded, "launches_int8"),
@@ -269,6 +283,9 @@ def reset_counts():
     quant.reset_launches()  # and K7's counts by shape
 
 
+# the counts a batch of phase 5's clip fixes on the default (unfused) route: K8 and K9 run every GroupNorm of
+# the VAE there (the 48 resnets', K1's count, + norm_out and the mid attention's in the encoder and the decoder)
+PER_BATCH = ("K1", "K2", "K3", "K8", "K9")
 # K7 runs int8 weights only: a driven run outside phase 10 that launches it leaks int8 into a bf16 path
 INT8_RUNS = {"allowed": False}
 
@@ -612,6 +629,82 @@ def _tables_row(x, gw, gb, shape, path):
     return row
 
 
+# K9's rows: (x [1, T, H, W, C], SiLU, which GroupNorm, the run whose count the row carries). The 720p
+# resnets' extended inputs (decoder; the encoder's are the same shapes), the decoder's norm_out at full
+# resolution, the encoder's norm_out and the mid attention's GroupNorm at 1/8; the long clip's decode tile
+# (norm_out of its first slice, and a c256 resnet input of the default, unfused route there)
+K9_SHAPES = [((5, 180, 320, 512), True, "resnet c512 x_ext", "main"),
+             ((7, 360, 640, 256), True, "resnet c256 x_ext", "main"),
+             ((7, 720, 1280, 128), True, "resnet c128 x_ext", "main"),
+             ((5, 720, 1280, 128), True, "decoder norm_out", "main"),
+             ((2, 90, 160, 512), True, "encoder norm_out", "main"),
+             ((2, 90, 160, 512), False, "mid attention", "main"),
+             ((5, 608, 1024, 128), True, "decode tile norm_out", "long_clip"),
+             ((7, 304, 512, 256), True, "decode tile resnet c256 x_ext (unfused route)", "long_clip")]
+
+
+def _gn_apply_rows(dev, g):
+    """K9 on K8's tables of random bf16 x with the VAE's bf16 norm weights:
+    against its plain version (without the SiLU the same bits; with it no
+    code more than one step away, at most 1e-3 of them moved), the whole
+    wrapper (K8 then K9) against the plain route it replaces
+    (conv_ab.gn_codes: no far code, at most 1e-3 moved), two launches the
+    same bits. ``ms`` is K9 alone; ``with_tables_ms`` K8 + K9, the VAE's
+    call; ``plain_route_ms`` the plain route. The library call is the chain
+    of a channels-first copy, F.group_norm and F.silu (no single call
+    computes the pass)."""
+    import torch.nn.functional as F
+
+    from seedvr2_tpu_torch.conv_ab import bf16_steps, gn_codes
+    from seedvr2_tpu_torch.ops import conv3d_kernel as k1
+    from seedvr2_tpu_torch.ops import normalization as norm
+
+    rows = []
+    for (T, H, W, c), silu, what, path in K9_SHAPES:
+        x = torch.randn((1, T, H, W, c), generator=g, device=dev).bfloat16()
+        gw = (1 + 0.2 * torch.randn(c, generator=g, device=dev)).bfloat16()
+        gb = (0.3 * torch.randn(c, generator=g, device=dev)).bfloat16()
+        scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
+        name = f"{'gn_silu' if silu else 'group_norm'} c{c} {T}x{H}x{W} ({what})"
+        steps = bf16_steps(norm.gn_apply(x, scale, shift, silu), norm.gn_apply_plain(x, scale, shift, silu))
+        moved, max_steps = float((steps > 0).float().mean()), int(steps.max())
+        del steps
+        if max_steps > (1 if silu else 0) or moved > 1e-3:
+            raise RuntimeError(f"K9 {name}: {moved:.2e} of the codes moved from the plain version, up to "
+                               f"{max_steps} steps")
+        mag = (x.float() * scale[:, :, None, None, :]).abs() + shift[:, :, None, None, :].abs()
+        pair = [(norm.group_norm_frames(x, gw, gb, 32, s), norm.group_norm_frames_plain(x, gw, gb, 32, s))
+                for s in ((False, True) if silu else (False,))]
+        route = gn_codes(*pair[0], mag, *(pair[1] if silu else ()))
+        del pair, mag
+        if route["far"] or route["share"] > 1e-3:
+            raise RuntimeError(f"K9 {name}: K8 + K9 against the plain route {route}")
+
+        def chain():
+            y = F.group_norm(x.permute(0, 1, 4, 2, 3).reshape(T, c, H, W), 32, gw, gb, eps=1e-6)
+            return F.silu(y) if silu else y
+
+        extra = {"path": path, "silu": silu, "codes_moved": moved, "max_steps": max_steps, "route_codes": route,
+                 "with_tables_ms": cuda_ms(lambda: norm.group_norm_frames(x, gw, gb, 32, silu), 20),
+                 "plain_route_ms": cuda_ms(lambda: norm.group_norm_frames_plain(x, gw, gb, 32, silu), 3),
+                 "not_a_tpu_kernel": "XLA's fused elementwise ops"}
+        rows.append(compare(
+            "K9", name, "seedvr2_tpu_torch/csrc/gn_apply.cuh",
+            "none: XLA's fused elementwise ops of seedvr2_tpu/models/vae/causal_conv.py:124-136 (and model.py:141-149, "
+            ":173)", lambda: norm.gn_apply(x, scale, shift, silu), lambda: norm.gn_apply_plain(x, scale, shift, silu),
+            2 * nbytes(x) + nbytes(scale, shift), {}, chain,
+            "chain: a channels-first copy of x, per-frame F.group_norm" + (", F.silu" if silu else "") + ", bf16",
+            extra_row=extra,
+        ))
+        r = rows[-1]
+        print(f"    K9 codes moved from the plain version {moved:.2e} (up to {max_steps} step); K8 + K9 against the "
+              f"plain route {route['share']:.2e}; K8 + K9 {r['with_tables_ms']:.3f} ms, plain route "
+              f"{r['plain_route_ms']:.3f} ms; {r['bound_ms'] / r['ms']:.1%} of the bound", flush=True)
+        same_bits("K9", name, lambda: norm.gn_apply(x, scale, shift, silu))
+        del x, scale, shift
+    return rows
+
+
 def int8_linear_calls(dit) -> int:
     """K7 launches in one forward of an int8 NaDiT: each layer's qkv and
     out projections run for the video and the text stream (a shared layer's
@@ -697,6 +790,7 @@ def kernel_phase(dev):
         rows += _conv_rows(dev, g, c, T, H, W, k1_ms, builds)
     for c, T, H, W in long_clip_conv_shapes():
         rows += _conv_rows(dev, g, c, T, H, W, k1_ms, builds, path="long_clip")
+    rows += _gn_apply_rows(dev, g)
     for c, T, H, W in ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280)):
         x = randn(1, T + 2, H, W, c)
         w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
@@ -790,8 +884,12 @@ def reference_phase(dev, text, rope_type, mode, long_clip=False):
     label = f"small {rope_type} {mode}" + (" 4-phase tiled gn_fusion" if long_clip else "")
     if ran[want] != cfg.dit.num_layers * n_batches:
         raise RuntimeError(f"{label}: {want} ran {ran[want]} times, expected {cfg.dit.num_layers * n_batches}")
-    if long_clip and not (ran["K4"] > 0 and ran["K1"] == 0 and ran["K8"] == ran["K4"]):
-        raise RuntimeError(f"{label}: expected K4, a K8 a K4 and no K1 launches, got {ran}")
+    # every GroupNorm through K8: the resnets' (K1's or K4's count), norm_out and the mid attention's, which K9
+    # applies (with K4, only those four)
+    if long_clip and not (ran["K4"] > 0 and ran["K1"] == 0 and ran["K9"] > 0 and ran["K8"] == ran["K4"] + ran["K9"]):
+        raise RuntimeError(f"{label}: expected K4, K9, K8 = K4 + K9 and no K1 launches, got {ran}")
+    if not long_clip and not (ran["K4"] == 0 and ran["K1"] > 0 and ran["K8"] == ran["K9"] == ran["K1"] + 4):
+        raise RuntimeError(f"{label}: expected K1 and K8 = K9 = K1 + 4 launches, got {ran}")
     gpu, cpu = outs
     mean_err = float(np.abs(gpu - cpu).mean())
     rel = float(np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu - 0.5))
@@ -889,13 +987,16 @@ def main_path_phase(dev, text, frames):
     print(f"  3B weights on the card in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     launches, e2e = drive(runner, frames, "3B fused")
-    # 48 resnet convs (20 in the encoder, 28 in the decoder); K2 per decoder upsample and latent slice
-    expect("3B fused", launches, {"K1": 48, "K2": 6, "K3": cfg.dit.num_layers, "K3q": 0, "K5": 0, "K4": 0, "K8": 0})
+    # 48 resnet convs (20 in the encoder, 28 in the decoder); K2 per decoder upsample and latent slice; K8 then K9
+    # for each GroupNorm: the 48 resnet convs' inputs, and norm_out and the mid attention's in each half (+ 4)
+    expect("3B fused", launches, {"K1": 48, "K2": 6, "K3": cfg.dit.num_layers, "K3q": 0, "K5": 0, "K4": 0, "K8": 52,
+                                  "K9": 52})
     # the same path with the resnets' GroupNorm + SiLU folded into their convs
     runner.vae.set_gn_fusion(True)
     launches_gn, e2e_gn = drive(runner, frames, "3B fused gn_fusion")
-    # K8: the tables of each K4 conv's input, one launch a conv
-    expect("3B fused gn_fusion", launches_gn, {"K4": 48, "K8": 48, "K1": 0, "K2": 6, "K3": cfg.dit.num_layers})
+    # K8: the tables of each K4 conv's input, one launch a conv, and of the 4 GroupNorms outside K4, which K9 applies
+    expect("3B fused gn_fusion", launches_gn, {"K4": 48, "K8": 52, "K9": 4, "K1": 0, "K2": 6,
+                                               "K3": cfg.dit.num_layers})
     return launches, launches_gn, {"3b_fused": e2e, "3b_fused_gn_fusion": e2e_gn}
 
 
@@ -911,8 +1012,10 @@ def long_clip_phase(dev, text):
     g = torch.Generator(device=dev).manual_seed(44)
     runner = Runner(cfg, random_dit(cfg.dit, g), random_vae(cfg.vae, g).set_gn_fusion(True), text, device=dev)
     launches, e2e = drive(runner, long_clip_frames(), "3B long clip", out_shape=(15, 1080, 1920, 3), runs=1)
-    # 2 batches x (20 resnet convs x 2 encode slices + 28 x 2 decode slices) x 4 tiles; 32 layers x 2 batches
-    expect("3B long clip", launches, {"K4": 768, "K8": 768, "K1": 0, "K2": 72, "K3": 64, "K3q": 0, "K5": 0})
+    # 2 batches x (20 resnet convs x 2 encode slices + 28 x 2 decode slices) x 4 tiles; 32 layers x 2 batches; K9:
+    # norm_out and the mid attention's GroupNorm in each of those 32 encoder and decoder calls, K8 their tables too
+    expect("3B long clip", launches, {"K4": 768, "K8": 832, "K9": 64, "K1": 0, "K2": 72, "K3": 64, "K3q": 0,
+                                      "K5": 0})
     return launches, e2e
 
 
@@ -932,10 +1035,10 @@ def path_7b_phase(dev, text, frames):
     n = cfg.dit.num_layers
     out = {}
     launches, out["sageattn_2"] = drive(runner, frames, "7B sageattn_2")
-    expect("7B sageattn_2", launches, {"K3q": n, "K3": 0, "K5": 0, "K8": 0})
+    expect("7B sageattn_2", launches, {"K3q": n, "K3": 0, "K5": 0, "K8": 52, "K9": 52})  # 3B's VAE, unfused
     runner.dit.set_attention_mode("flash_attn_2")
     launches_f, out["flash_attn_2"] = drive(runner, frames, "7B flash_attn_2")
-    expect("7B flash_attn_2", launches_f, {"K5": n, "K3": 0, "K3q": 0, "K8": 0})
+    expect("7B flash_attn_2", launches_f, {"K5": n, "K3": 0, "K3q": 0, "K8": 52, "K9": 52})
     return launches, launches_f, out
 
 
@@ -1146,7 +1249,7 @@ def _phase8_rank(rank, text, frames, device="cuda:0"):
     ref720 = _phase8_step(single, lat720, 5)[0]
     ref1080 = _phase8_step(single, lat1080, 5)[0]
     seq_runner = Runner(cfg, dit, None, text, device=dev, mesh=meshes[(1, 2, 1)])
-    run("seq_720p", seq_runner, lat720, ref720, {"K3s": n3, "K3": n3, "K3q": 0, "K3s_int8": 0})
+    run("seq_720p", seq_runner, lat720, ref720, {"K3s": n3, "K3": n3, "K3q": 0, "K3s_int8": 0, "K8": 0, "K9": 0})
     run("seq_1080p", seq_runner, lat1080, ref1080, {"K3s": n3, "K3": n3})
     # flash_attn_2: the unfused window path, K5 on the rank's windows (seq) or heads (tensor)
     dit.set_attention_mode("flash_attn_2")
@@ -1194,7 +1297,8 @@ def _phase8_rank(rank, text, frames, device="cuda:0"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    expect(f"rank {rank} multichip", counts, {"K1": 48, "K2": 6, "K3": n3, "K3s": 0})
+    # a rank's 5-frame segment: phase 5's batch (K8 = K9 = 52, every GroupNorm of the unfused VAE)
+    expect(f"rank {rank} multichip", counts, {"K1": 48, "K2": 6, "K3": n3, "K3s": 0, "K8": 52, "K9": 52})
     entry = {"launches": counts, "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     if rank == 0:
         mean_err = float(np.abs(out - single_out).mean())
@@ -1234,7 +1338,8 @@ def _phase8_rank(rank, text, frames, device="cuda:0"):
                              meshes[(2, 1, 1)])
     torch.cuda.synchronize()
     entry.update(launches=read_counts(), wall_s=time.perf_counter() - t0)
-    expect(f"rank {rank} tiled fallback", entry["launches"], {"K3": n3, "K3s": 0})
+    # K8 = K9 on the unfused route: each of the rank's tile passes runs both for every GroupNorm
+    expect(f"rank {rank} tiled fallback", entry["launches"], {"K3": n3, "K3s": 0, "K9": entry["launches"]["K8"]})
     if entry["launches"]["K1"] == 0:
         raise RuntimeError(f"rank {rank} tiled fallback: no VAE tile ran on this rank")
     if rank == 0:
@@ -1272,7 +1377,7 @@ def multi_rank_phase(dev, text):
         counts = reports[row.pop("rank")]["runs"][row["path"]]["launches"]
         row["launches"] = counts["K3s_int8" if row.pop("quant_qk") else row["kernel"]]
     tiled = [r["runs"]["tiled_fallback"] for r in reports]
-    for kid in ("K1", "K2"):  # every tile ran on exactly one rank
+    for kid in ("K1", "K2", "K8", "K9"):  # every tile ran on exactly one rank
         if sum(t["launches"][kid] for t in tiled) != tiled[0]["single_launches"][kid]:
             raise RuntimeError(f"tile-parallel VAE: {kid} launches {[t['launches'][kid] for t in tiled]} over the "
                                f"ranks, {tiled[0]['single_launches'][kid]} on one rank")
@@ -1533,10 +1638,10 @@ def cli_phase(dev, per_batch, d):
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         if batches is not None:
-            expect(f"CLI {label}", counts, {k: per_batch[k] * batches for k in ("K1", "K2", "K3")})
+            expect(f"CLI {label}", counts, {k: per_batch[k] * batches for k in PER_BATCH})
         n = n if processed is None else processed
         runs[label] = {"frames": n, "wall_s": wall, "fps": n / wall, "peak_gib": peak,
-                       "launches": {k: counts[k] for k in ("K1", "K2", "K3", "K3q", "K4", "K5")}}
+                       "launches": {k: counts[k] for k in ("K1", "K2", "K3", "K3q", "K4", "K5", "K8", "K9")}}
         if cold:
             cache = sum(f.stat().st_size for f in Path(d, "torch_cache").iterdir()) / 2**30
             runs[label]["cache_gib"] = cache
@@ -1548,14 +1653,14 @@ def cli_phase(dev, per_batch, d):
 
     def image_reference(label, cfg, path):
         """phases.generate on the image at ``path`` (its launches counted
-        alone): the CLI run ``label`` must have launched as many K1, K2
-        and K3 (an image is one batch: phase 5's K1 and K3 a batch; K2
-        3, one latent frame)."""
+        alone): the CLI run ``label`` must have launched as many K1, K2,
+        K3, K8 and K9 (an image is one batch: phase 5's K1, K3, K8 and K9 a
+        batch; K2 3, one latent frame)."""
         reset_counts()
         ref = phases.generate(runner.with_config(cfg), video.read_image(path)[None], packed=True)
         counts = read_counts()
-        want = {k: counts[k] for k in ("K1", "K2", "K3")}
-        if want["K1"] != per_batch["K1"] or want["K3"] != per_batch["K3"] or want["K2"] == 0:
+        want = {k: counts[k] for k in PER_BATCH}
+        if any(want[k] != per_batch[k] for k in ("K1", "K3", "K8", "K9")) or want["K2"] == 0:
             raise RuntimeError(f"{label}: phases.generate on the image launched {want}")
         expect(f"CLI {label}", runs[label]["launches"], want)
         return ref
@@ -1636,7 +1741,7 @@ def cli_phase(dev, per_batch, d):
         reset_counts()
         planes = phases.generate(runner.with_config(rgb_cfg.replace(output_pixfmt="yuv420")), decoded,
                                  packed=True)
-        expect("yuv420 planes", read_counts(), {k: per_batch[k] * 3 for k in ("K1", "K2", "K3")})
+        expect("yuv420 planes", read_counts(), {k: per_batch[k] * 3 for k in PER_BATCH})
     if not (is_planar(planes) and planes.depth == 10 and planes.shape == (12, out_h, out_w, 3)):
         raise RuntimeError(f"yuv420: got {type(planes).__name__} {getattr(planes, 'shape', None)}")
     want = rgb01_to_yuv420_np(rgb, 10)
@@ -1679,13 +1784,13 @@ def cli_phase(dev, per_batch, d):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = read_counts()
-    expect("cfg_scale 2", counts, {"K1": per_batch["K1"], "K2": per_batch["K2"], "K3": 2 * per_batch["K3"]})
+    expect("cfg_scale 2", counts, {**{k: per_batch[k] for k in PER_BATCH}, "K3": 2 * per_batch["K3"]})
     if not (out2.shape == (5, out_h, out_w, 3) and np.isfinite(out2).all()
             and np.abs(out2 - rgb[:5]).max() > 1e-3):
         raise RuntimeError("cfg_scale 2: bad output, or the same as cfg_scale 1")
     runs["cfg_scale 2 (5 frames, phases.generate)"] = {
         "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": {k: counts[k] for k in ("K1", "K2", "K3")}}
+        "launches": {k: counts[k] for k in PER_BATCH}}
     print(f"  cfg_scale 2: 5 frames in {wall:.2f} s, K3 {counts['K3']} (two DiT passes)", flush=True)
     # the guided step against two unguided ones: one Euler step is affine in the DiT's prediction, so with
     # cfg_rescale 0 it is neg + 2 (pos - neg) of two cfg_scale 1 steps, the second with the negative prompt
@@ -1773,7 +1878,8 @@ def int8_phase(dev, text, frames, d, per_batch):
           f"GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
     launches, e2e = drive(runner, frames, "7B int8 sageattn_2")
     per_step = int8_linear_calls(dit)
-    expect("7B int8 sageattn_2", launches, {"K7": per_step, "K3q": cfg.dit.num_layers, "K3": 0, "K5": 0})
+    expect("7B int8 sageattn_2", launches, {"K7": per_step, "K3q": cfg.dit.num_layers, "K3": 0, "K5": 0,
+                                            "K8": per_batch["K8"], "K9": per_batch["K9"]})
     if not (launches["K7_wgmma"] > 0 and launches["K7_splitk"] > 0
             and launches["K7_wgmma"] + launches["K7_splitk"] == per_step):
         raise RuntimeError(f"7B int8: K7's regimes {launches['K7_wgmma']} wgmma + {launches['K7_splitk']} split-K")
@@ -1872,8 +1978,7 @@ def int8_phase(dev, text, frames, d, per_batch):
             counts = read_counts()
             peak = torch.cuda.max_memory_allocated() / 2**30
             want = int8_linear_calls(runner.dit)
-            expect(f"CLI {label}", counts, {"K7": want, "K1": per_batch["K1"], "K2": per_batch["K2"],
-                                            "K3": per_batch["K3"]})
+            expect(f"CLI {label}", counts, {"K7": want, **{k: per_batch[k] for k in PER_BATCH}})
             # the loaded int8 leaves: the file's weight converted and quantized whole (bit-equal)
             qkv = quantize_linear(np.ascontiguousarray(qkv_t[source].T).reshape(qkv_t[source].shape[1], 3, -1))
             leaf = runner.dit.blocks[0].attn.qkv["vid"]
@@ -1885,8 +1990,8 @@ def int8_phase(dev, text, frames, d, per_batch):
             diff = _same_codes(label, got, ref)
             dit_gib = tree_bytes(runner.dit) / 2**30
             out[label] = {"frames": n, "wall_s": wall, "peak_gib": peak, "dit_gib": dit_gib,
-                          "launches": {k: counts[k] for k in ("K7", "K7_wgmma", "K7_splitk", "K7_shapes", "K1",
-                                                              "K2", "K3")}, "max_abs_diff_codes": diff}
+                          "launches": {k: counts[k] for k in ("K7", "K7_wgmma", "K7_splitk", "K7_shapes",
+                                                              *PER_BATCH)}, "max_abs_diff_codes": diff}
             print(f"  CLI {label}: {n} frames in {wall:.2f} s (the warm load from the cache included), "
                   f"DiT {dit_gib:.2f} GiB, peak {peak:.2f} GiB, launches {out[label]['launches']}, max |diff| vs "
                   f"phases.generate {diff} codes", flush=True)
@@ -1983,15 +2088,15 @@ def load_phase(dev, frames, d, per_batch):
     for runner in (cold, warm):
         reset_counts()
         outs.append(phases.generate(runner, frames))
-        expect("phase 13 batch", read_counts(), {k: per_batch[k] for k in ("K1", "K2", "K3")})
+        expect("phase 13 batch", read_counts(), {k: per_batch[k] for k in PER_BATCH})
     diff = _max_code_diff(*outs)
     if diff != 0 or len(outs[0]) != len(frames) or not np.isfinite(outs[0]).all():
         raise RuntimeError(f"phase 13: the cold and warm runners' batches are {diff} codes apart ({outs[0].shape})")
     out["in_process"] = {"cold_after_utime_s": cold_s, "warm_s": warm_s, "tensors_equal": n_equal,
                          "max_abs_diff_codes": diff}
     print(f"  (d) source touched: the next load converts again; (c) in this process: cold {cold_s:.2f} s, warm "
-          f"{warm_s:.2f} s, {n_equal} DiT and VAE tensors equal, one batch from each {diff} codes apart, K1 / K2 / "
-          f"K3 = phase 5's a batch", flush=True)
+          f"{warm_s:.2f} s, {n_equal} DiT and VAE tensors equal, one batch from each {diff} codes apart, "
+          f"{' / '.join(PER_BATCH)} = phase 5's a batch", flush=True)
     del cold, warm
     shutil.rmtree(fresh)
     return out
@@ -2007,14 +2112,13 @@ PHASE11_INTERRUPT_FRAMES = 10
 PHASE11_LADDER_HW = (540, 960)
 PHASE11_LADDER_RESOLUTION = 1080
 # (d) the card's share that the ladder runs under, from the peaks that (d)
-# measures first (PERF.md section 6; on the H100 80GB, of 79.18 GiB, the
-# 7.02 GiB of weights included): the fused route 61.01 GiB, the encode
-# untiled / 1024 px / 512 px tiles 36.54 / 15.94 / 9.69, the DiT step 8.29,
-# the decode untiled / 1024 / 512 60.89 / 23.26 / 11.85. A quarter (19.79
-# GiB) is above the 1024 px encode and the 512 px decode, below the 1024 px
-# decode: the ladder must take the fused fallback, one encode rung and two
-# decode rungs.
-PHASE11_MEMORY_FRACTION = 0.25
+# measures first (on the H100 80GB, of 79.18 GiB, the weights included; every
+# GroupNorm on K8 + K9): the fused route 26.15 GiB, the encode untiled /
+# 1024 px / 512 px tiles 19.40 / 10.74 / 8.20, the DiT step 8.29, the decode
+# untiled / 1024 / 512 26.02 / 12.87 / 8.85. 0.15 (11.88 GiB) is above the
+# 1024 px encode and the 512 px decode, below the 1024 px decode: the ladder
+# must take the fused fallback, one encode rung and two decode rungs.
+PHASE11_MEMORY_FRACTION = 0.15
 PHASE11_RUNGS = [(False, (1024, 1024)), (True, (1024, 1024)), (True, (512, 512)), (True, (256, 256))]
 # (e) the staged decode's tiles, against the device-tiled decode at the same tiles
 PHASE11_STAGED_TILE = ((512, 512), (64, 64))
@@ -2135,13 +2239,13 @@ def node_phase(dev, per_batch, d, frames):
         if not (isinstance(res, torch.Tensor) and res.dtype == torch.float32 and res.device.type == "cpu"
                 and tuple(res.shape) == shape):
             raise RuntimeError(f"node output {type(res)} {getattr(res, 'shape', None)} is not a ComfyUI IMAGE")
-        expect("node (a)", counts, {k: per_batch[k] for k in ("K1", "K2", "K3")})
+        expect("node (a)", counts, {k: per_batch[k] for k in PER_BATCH})
         ref = phases.generate(runner, image.numpy())
         diff = float(np.abs(res.numpy() - ref).max())
         ups = comfy.progress_bars[-1].updates
         if diff != 0 or ups != sorted(ups) or ups[-1] != 100:
             raise RuntimeError(f"node (a): max |diff| {diff} from phases.generate, progress {ups}")
-        out["a"] = {"wall_s": wall, "peak_gib": peak, "launches": {k: counts[k] for k in ("K1", "K2", "K3")},
+        out["a"] = {"wall_s": wall, "peak_gib": peak, "launches": {k: counts[k] for k in PER_BATCH},
                     "max_abs_diff": diff, "progress": ups}
         print(f"  (a) V3 workflow, {frames.shape} -> {shape}: first execute {wall:.2f} s (the 3B and VAE loaded "
               f"warm from phase 9's weights cache, not converted), peak {peak:.2f} GiB, launches {out['a']['launches']}, max |diff| vs phases.generate "
@@ -2186,7 +2290,7 @@ def node_phase(dev, per_batch, d, frames):
             after = read_counts()
             comfy.interrupted = False
             batches = 0 if at == 0 else 1
-            want = {k: per_batch[k] * batches for k in ("K1", "K2", "K3")}
+            want = {k: per_batch[k] * batches for k in PER_BATCH}
             if after != seen["counts"]:
                 raise RuntimeError(f"node (c) {label}: launches after the flag: {seen['counts']} -> {after}")
             expect(f"node (c) {label}", after, want)
@@ -2255,7 +2359,7 @@ def node_phase(dev, per_batch, d, frames):
             raise RuntimeError(f"node (d): ladder output {got.shape} is {codes} codes from the run at its tiles")
         out["d"] = {"memory_fraction": PHASE11_MEMORY_FRACTION, "cap_gib": cap, "peaks_gib": peaks,
                     "rungs": log.lines, "attempts": attempts, "wall_s": wall_d, "peak_gib": peak_d,
-                    "launches": {k: counts_d[k] for k in ("K1", "K2", "K3")}, "reference_wall_s": ref_wall,
+                    "launches": {k: counts_d[k] for k in PER_BATCH}, "reference_wall_s": ref_wall,
                     "reference_peak_gib": ref_peak, "max_abs_diff_codes": codes}
         print(f"  (d) ladder: {big.shape} -> {got.shape} in {wall_d:.2f} s under the cap, peak {peak_d:.2f} GiB, "
               f"launches {out['d']['launches']}; encode {enc[1:4]}, decode {dec[1:4]}; the same tiles without the "
@@ -2325,7 +2429,7 @@ def _routes(runner, frames, label, out_hw, want_plan, **generate_kw):
     """phases.generate on the chunk route ("auto") and on one fused_batch a
     batch ("off"), two runs each (the first counted and its peak read);
     each route's batches asserted on their route, the codes compared and
-    the K1 / K2 / K3 counts asserted equal and non-zero."""
+    the K1 / K2 / K3 / K8 / K9 counts asserted equal and non-zero."""
     from seedvr2_tpu_torch.ops.yuv import is_planar
     from seedvr2_tpu_torch.pipeline import phases
 
@@ -2353,7 +2457,8 @@ def _routes(runner, frames, label, out_hw, want_plan, **generate_kw):
             raise RuntimeError(f"{label} {route}: batches by route {seen}")
         outs[route] = out
         res[route] = {"wall_s": walls, "peak_gib": peak,
-                      "launches": {k: launches[k] for k in ("K1", "K2", "K3", "K4", "K3q", "K5", "K6", "K7")}}
+                      "launches": {k: launches[k] for k in ("K1", "K2", "K3", "K4", "K3q", "K5", "K6", "K7", "K8",
+                                                            "K9")}}
     auto, off = outs["auto"], outs["off"]
     if tuple(auto.shape) != tuple(off.shape) or tuple(auto.shape[1:3]) != out_hw:
         raise RuntimeError(f"{label}: shapes {auto.shape} vs {off.shape}")
@@ -2365,7 +2470,7 @@ def _routes(runner, frames, label, out_hw, want_plan, **generate_kw):
     bound = 1 if planar else 2
     res["max_code_diff"] = diff
     la, lo = res["auto"]["launches"], res["off"]["launches"]
-    if diff > bound or any(la[k] != lo[k] or la[k] == 0 for k in ("K1", "K2", "K3")):
+    if diff > bound or any(la[k] != lo[k] or la[k] == 0 for k in PER_BATCH):
         raise RuntimeError(f"{label}: chunked vs off {diff} codes (bound {bound}), launches {la} vs {lo}")
     print(f"  {label}: plan cols {plan.cols} emit {plan.emit} ({plan.tw} px tiles); auto {res['auto']['wall_s'][0]:.3f}"
           f" / {res['auto']['wall_s'][1]:.3f} s, peak {res['auto']['peak_gib']:.2f} GiB; off "
@@ -2412,7 +2517,7 @@ def stream_phase(dev, text, frames):
         wall = time.perf_counter() - t0
         launches = read_counts()
         tr = trace_copies(r, clip)
-        tr.update(unprofiled_wall_s=wall, launches={k: launches[k] for k in ("K1", "K2", "K3")})
+        tr.update(unprofiled_wall_s=wall, launches={k: launches[k] for k in PER_BATCH})
         out["c"][route] = tr
         print(f"  (c) {PHASE12_FLUSH_FRAMES} frames, 3 batches, {route}: {wall:.3f} s ({tr['wall_s']:.3f} s profiled); "
               f"{tr['d2h_count']} D2H copies, {tr['d2h_bytes'] / 1e6:.1f} MB, {tr['d2h_ms']:.3f} ms, "

@@ -172,6 +172,44 @@ def max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got.double() - ref).abs().max() / ref.abs().max())
 
 
+def bf16_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per value, how many bf16 codes apart two bf16 tensors are, the codes
+    taken in value order (-0 and +0 alike)."""
+
+    def key(t):
+        k = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(k < 0, -(k & 0x7FFF), k)
+
+    return (key(a) - key(b)).abs()
+
+
+# fp32 rounding of a GroupNorm's summands (|x * scale| + |shift|), in units of
+# their magnitude: 8 ulps (fp32 tables, or a mean and rstd in another order,
+# move a normalised value by a few)
+GN_ABS = 2.0**-20
+
+
+def gn_codes(pre: torch.Tensor, pre_ref: torch.Tensor, mag: torch.Tensor, out=None, out_ref=None) -> dict:
+    """Where two per-frame GroupNorm passes (bf16 results) part: ``pre`` the
+    normalised values, ``out`` (optional) those after the SiLU, ``mag`` |x *
+    scale| + |shift| of each value in fp32. ``share``: the share of output
+    codes that differ (of ``pre`` without ``out``); ``far``: normalised codes
+    more than one step apart where they also differ by more than the fp32
+    rounding of the summands (GN_ABS * mag: a value near its group's mean
+    cancels, and near 0 bf16 codes are dense), plus SiLU outputs more than
+    one step apart where the normalised codes agree. A pass that keeps the
+    JAX package's op order has ``far`` 0."""
+    steps = bf16_steps(pre, pre_ref)
+    gap = (pre.float() - pre_ref.float()).abs()
+    far = int(((steps > 1) & (gap > GN_ABS * mag)).sum())
+    if out is None:
+        return {"share": float((steps > 0).float().mean()), "far": far}
+    out_steps = bf16_steps(out, out_ref)
+    far += int(((out_steps > 1) & (steps == 0)).sum())
+    return {"share": float((out_steps > 0).float().mean()), "pre_share": float((steps > 0).float().mean()),
+            "far": far}
+
+
 def ablated(csrc: Path, out: Path, kernels) -> dict:
     """{name: (family, csrc copy)} with each of ABLATIONS of a family with a
     kernel in ``kernels`` applied, where its header in csrc has the design

@@ -14,7 +14,8 @@ The weight is stored once, at load, in the layout of its route.
 GroupNorm + SiLU fusion (``gn_fusion``, set for the whole model by
 VAE.set_gn_fusion; off by default, as the JAX package's set_gn_fusion):
 a K1-routed conv given ``gn=`` then runs K4 with the per-frame tables of
-its raw extended input, instead of normalising the input first.
+its raw extended input, instead of normalising the input first (``gn_silu``:
+on the card K8's tables, then K9's pass; ops/normalization.py).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops import conv3d_kernel
-from ...ops.normalization import group_norm
+from ...ops.normalization import group_norm_frames
 from ..params import NORMAL, ZEROS, Leaf
 
 State = Dict[str, torch.Tensor]
@@ -77,10 +78,9 @@ class StreamCtx:
 
 
 def gn_silu(x: torch.Tensor, norm: Leaf, groups: int) -> torch.Tensor:
-    """Per-frame GroupNorm (stats per (b, t)) then SiLU in fp32, on NDHWC."""
-    B, T, H, W, C = x.shape
-    y = group_norm(x.reshape(B * T, H, W, C), groups, norm.w, norm.b, eps=1e-6)
-    return F.silu(y.float()).to(x.dtype).reshape(x.shape)
+    """Per-frame GroupNorm (stats per (b, t)) then SiLU in fp32, on NDHWC
+    (on the card: K8's tables, then K9)."""
+    return group_norm_frames(x, norm.w, norm.b, groups, silu=True)
 
 
 class CausalConv3d(Leaf):

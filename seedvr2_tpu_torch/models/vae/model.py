@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ...config import VAEConfig
-from ...ops.normalization import group_norm
+from ...ops.normalization import group_norm_frames
 from ..params import ONES, ZEROS, Leaf, Linear
 from .causal_conv import CausalConv3d, StreamCtx, gn_silu
 from .folded_upsample import FoldedUpsample
@@ -23,11 +23,6 @@ from .folded_upsample import FoldedUpsample
 
 def _norm(c: int, device, dtype) -> Leaf:
     return Leaf({"w": ((c,), (ONES, 0.0)), "b": ((c,), (ZEROS, 0.0))}, device, dtype)
-
-
-def _group_norm_frames(norm: Leaf, x: torch.Tensor, groups: int) -> torch.Tensor:
-    B, T, H, W, C = x.shape
-    return group_norm(x.reshape(B * T, H, W, C), groups, norm.w, norm.b, eps=1e-6).reshape(x.shape)
 
 
 class Resnet(nn.Module):
@@ -64,7 +59,8 @@ class MidAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, H, W, C = x.shape
-        h = _group_norm_frames(self.group_norm, x, self.groups).reshape(B * T, H * W, C)
+        h = group_norm_frames(x, self.group_norm.w, self.group_norm.b, self.groups, silu=False)
+        h = h.reshape(B * T, H * W, C)
         out = torch.empty_like(h)
         for i in range(B * T):
             q, k, v = self.to_q(h[i]), self.to_k(h[i]), self.to_v(h[i])

@@ -48,11 +48,12 @@ def gn_stats_geometry(C: int) -> Tuple[int, int]:
 
 
 def gn_stats_launch(lib, x_ext: torch.Tensor, gw: torch.Tensor, gb: torch.Tensor, groups: int, eps: float = 1e-6):
-    """K8's launches from ``lib`` (this tree's library, or another tree's in
-    conv_ab): the tables (scale, shift) [B, T, C] fp32 of a CUDA x_ext. The
-    contract: x_ext bf16 [B, T, H, W, C], contiguous (a view at a 16-byte
-    aligned storage offset is taken as it is), C % 8 == 0 (a pixel is whole
-    16-byte words), C % groups == 0 and (C / groups) % 4 == 0, C <= 8192,
+    """K8's launches from ``lib`` (None: this tree's library, loaded once the
+    arguments pass; or another tree's in conv_ab): the tables (scale,
+    shift) [B, T, C] fp32 of a CUDA x_ext. The contract: x_ext bf16 [B, T,
+    H, W, C], contiguous (a view at a 16-byte aligned storage offset is
+    taken as it is), C % 8 == 0 (a pixel is whole 16-byte words), C %
+    groups == 0 and (C / groups) % 4 == 0, C <= 8192,
     B * T <= 65535; gw and gb [C], both fp32 or both bf16 (the VAE's norm
     weights). Anything else raises. Not counted: the caller counts."""
     cuda_lib.require(x_ext.dim() == 5, f"gn_silu_tables: x_ext of shape {tuple(x_ext.shape)}")
@@ -71,7 +72,7 @@ def gn_stats_launch(lib, x_ext: torch.Tensor, gw: torch.Tensor, gb: torch.Tensor
     scale = torch.empty((B, T, C), dtype=torch.float32, device=x_ext.device)
     shift = torch.empty_like(scale)
     with torch.cuda.device(x_ext.device):
-        code = lib.seedvr2_gn_stats(
+        code = (cuda_lib.library() if lib is None else lib).seedvr2_gn_stats(
             x_ext.data_ptr(), gw.data_ptr(), gb.data_ptr(), part.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             B * T, H * W, C, groups, ppb, steps, int(gw.dtype == torch.bfloat16), eps, cuda_lib.stream_ptr(x_ext),
         )
@@ -86,7 +87,7 @@ def gn_silu_tables(x_ext: torch.Tensor, gw: torch.Tensor, gb: torch.Tensor, grou
     tensor the plain version does."""
     if x_ext.device.type == "cpu":
         return gn_silu_tables_plain(x_ext, gw, gb, groups, eps)
-    out = gn_stats_launch(cuda_lib.library(), x_ext, gw, gb, groups, eps)
+    out = gn_stats_launch(None, x_ext, gw, gb, groups, eps)
     gn_silu_tables.launches += 1
     return out
 

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
     "seedvr2_flash_attention_attributes": [ctypes.POINTER(_i)] * 3,
     "seedvr2_gn_stats": [_vp] * 6 + [_i] * 7 + [_f] + [_vp],
+    "seedvr2_gn_apply": [_vp] * 4 + [_i] * 6 + [_vp],
     "seedvr2_w8a16_linear": [_vp] * 5 + [_i] * 3 + [_vp],
     "seedvr2_w8a16_linear_splitk": [_vp] * 6 + [_i] * 4 + [_vp],
     "seedvr2_w8a16_splitk_splits": [_i, _i, ctypes.POINTER(_i)],

@@ -20,14 +20,15 @@ of the 4-phase pipeline) the range's span on the device timeline, idle gaps
 inside it included; per kernel its device time; and the idle share,
 1 - (device time) / (profiled wall), not clamped (a negative share would
 mean device time counted twice). A range's own device total on the host
-side is not used: it misses the kernels launched through ctypes (K1-K8),
+side is not used: it misses the kernels launched through ctypes (K1-K9),
 which have no PyTorch op above them. In the profiled run only, the VAE's
-passes outside the hand-written kernels are ranges of their own (OP_RANGES:
-the GroupNorm table pass of K4's route, the unfused route's GroupNorm +
-SiLU + casts, the mid attention's GroupNorm, the convs that the routing
-rule keeps off K1), each given as its calls and its summed device span
-(``op_span_ms``). Every kernel is listed by name with its calls and device
-ms (``kernels``); a kernel wrapper's launch count does not move in the
+passes around the convs are ranges of their own (OP_RANGES: the GroupNorm
+table pass of K4's route, the GroupNorm + SiLU passes outside K4 (the
+unfused route's and ``norm_out``'s: K8's tables then K9), the mid
+attention's GroupNorm (K8, K9), the convs that the routing rule keeps off
+K1), each given as its calls and its summed device span (``op_span_ms``).
+Every kernel is listed by name with its calls and device ms
+(``kernels``); a kernel wrapper's launch count does not move in the
 profiled run (its range's copy of the count does). Prints one JSON line.
 Needs a CUDA card.
 """
@@ -56,7 +57,7 @@ OP_RANGES = {
     "op.gn_tables": (("seedvr2_tpu_torch.ops.conv3d_kernel", "gn_silu_tables"),),
     "op.gn_silu": (("seedvr2_tpu_torch.models.vae.causal_conv", "gn_silu"),
                    ("seedvr2_tpu_torch.models.vae.model", "gn_silu")),
-    "op.mid_group_norm": (("seedvr2_tpu_torch.models.vae.model", "group_norm"),),
+    "op.mid_group_norm": (("seedvr2_tpu_torch.models.vae.model", "group_norm_frames"),),
 }
 
 

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu.pipeline import batching as jbatching
 from seedvr2_tpu.pipeline import diffusion as jdiffusion

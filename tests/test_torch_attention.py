@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu.ops import attention as jattention
 from seedvr2_tpu.ops.flash_attention import flash_attention as j_flash

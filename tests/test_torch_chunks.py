@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu.config import PipelineConfig, dit_tiny, vae_config, vae_tiny
 from seedvr2_tpu.models.dit.nadit import init_params as init_dit

@@ -32,6 +32,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 import inference_cli
 from fake_hub import FakeHub

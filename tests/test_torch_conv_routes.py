@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu.models.vae import folded_upsample as jfold
 from seedvr2_tpu.ops import conv3d_kernel as jck

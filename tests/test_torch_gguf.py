@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 import inference_cli
 from seedvr2_tpu import config as jconfig

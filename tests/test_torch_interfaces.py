@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 import comfy_stub
 import seedvr2_tpu.interfaces as jI

@@ -15,6 +15,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu import config as jconfig
 from seedvr2_tpu.io import frameops as jframeops

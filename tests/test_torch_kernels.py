@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu.models.vae import folded_upsample as jfold
 from seedvr2_tpu.ops.conv3d_kernel import conv3d_3x3x3 as j_conv3d

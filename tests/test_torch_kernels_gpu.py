@@ -22,6 +22,7 @@ from seedvr2_tpu_torch.ops import cuda_lib
 from seedvr2_tpu_torch.ops import flash_attention as k5
 from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
 from seedvr2_tpu_torch.ops import fused_window_attention as k3
+from seedvr2_tpu_torch.ops import normalization as norm
 from seedvr2_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.gpu
@@ -541,6 +542,104 @@ def test_gn_stats_kernel_offset_mean(cuda, C):
     assert _rel(y, k1.conv3d_3x3x3_plain(x, w, b, *plain)) <= REL_BOUND
 
 
+# K9 (csrc/gn_apply.cuh): the VAE's GroupNorm shapes on the card (x of the
+# 720p resnets c512 5x180x320, c256 7x360x640, c128 7x720x1280; the
+# decoder's norm_out c128 5x720x1280; the encoder's norm_out and the mid
+# attention c512 2x90x160; the long clip's tiles c128 5x608x1024, c256
+# 5x304x512), then ragged ones: H * W not a multiple of a block's pixels,
+# B * T > 1, a single pixel, C 8 and 1024 (K9 alone: K8 takes C / groups a
+# multiple of 4).
+GN_APPLY_PATH = [(1, 5, 180, 320, 512), (1, 7, 360, 640, 256), (1, 7, 720, 1280, 128), (1, 5, 720, 1280, 128),
+                 (1, 2, 90, 160, 512), (1, 5, 608, 1024, 128), (1, 5, 304, 512, 256)]
+GN_APPLY_RAGGED = [(2, 3, 9, 17, 128), (3, 2, 13, 7, 256), (2, 2, 5, 3, 512), (1, 1, 1, 1, 512), (2, 3, 33, 31, 1024),
+                   (1, 2, 3, 5, 8)]
+
+
+def _gn_apply_case(cuda, B, T, H, W, C, groups=32):
+    """x, the VAE's bf16 norm weights, K8's tables of x (K8 where it takes
+    C, else the plain tables) and |x * scale| + |shift| (conv_ab.gn_codes)."""
+    x, gw, gb = _tables_case(cuda, B, T, H, W, C, C + H)
+    gw, gb = gw.bfloat16(), gb.bfloat16()
+    tables = k1.gn_silu_tables if (C // groups) % 4 == 0 and C % groups == 0 else k1.gn_silu_tables_plain
+    scale, shift = tables(x, gw, gb, min(groups, C))
+    mag = (x.float() * scale[:, :, None, None, :]).abs() + shift[:, :, None, None, :].abs()
+    return x, gw, gb, scale, shift, mag
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("B,T,H,W,C", GN_APPLY_PATH + GN_APPLY_RAGGED)
+def test_gn_apply_kernel_matches_plain(cuda, B, T, H, W, C, silu):
+    """K9 against gn_apply_plain on K8's tables: without the SiLU to the bit
+    (a rounded multiply and add, then bf16, on both sides); with it, no
+    code more than one step away and at most 1e-3 of them moved (the
+    normalised codes agree; __expf against expf moves a code at a tie);
+    rel L2 <= 1e-2; one count a call; two launches, the same bits."""
+    x, gw, gb, scale, shift, mag = _gn_apply_case(cuda, B, T, H, W, C)
+    n0 = norm.gn_apply.launches
+    got = norm.gn_apply(x, scale, shift, silu)
+    torch.cuda.synchronize()
+    assert norm.gn_apply.launches == n0 + 1
+    assert got.shape == x.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
+    plain = norm.gn_apply_plain(x, scale, shift, silu)
+    if silu:
+        steps = conv_ab.bf16_steps(got, plain)
+        assert int(steps.max()) <= 1 and float((steps > 0).float().mean()) <= 1e-3
+    else:
+        assert torch.equal(got, plain)
+    assert _rel(got, plain) <= REL_BOUND
+    assert torch.equal(got, norm.gn_apply(x, scale, shift, silu))
+
+
+@pytest.mark.parametrize("B,T,H,W,C", GN_APPLY_PATH[:5] + GN_APPLY_RAGGED[:3])
+def test_group_norm_frames_kernels_match_the_plain_route(cuda, B, T, H, W, C):
+    """The VAE's wrapper on the card (K8, then K9; one count each a call)
+    against its plain route on the same tensors (GroupNorm, bf16, SiLU in
+    fp32, bf16): conv_ab.gn_codes's rule, at most 1e-3 of the codes moved,
+    the bound tests/test_torch_gn_apply.py holds K8 + K9's arithmetic to
+    against the JAX package. A strided x is taken (made contiguous first)."""
+    x, gw, gb, _, _, mag = _gn_apply_case(cuda, B, T, H, W, C)
+    n0 = (k1.gn_silu_tables.launches, norm.gn_apply.launches)
+    pre, out = (norm.group_norm_frames(x, gw, gb, 32, silu) for silu in (False, True))
+    torch.cuda.synchronize()
+    assert (k1.gn_silu_tables.launches, norm.gn_apply.launches) == (n0[0] + 2, n0[1] + 2)
+    ref_pre, ref_out = (norm.group_norm_frames_plain(x, gw, gb, 32, silu) for silu in (False, True))
+    codes = conv_ab.gn_codes(pre, ref_pre, mag, out, ref_out)
+    assert codes["far"] == 0 and codes["share"] <= 1e-3 and codes["pre_share"] <= 1e-3, codes
+    strided = torch.empty(B, T, H, W, 2 * C, device=cuda, dtype=torch.bfloat16)[..., ::2]
+    strided.copy_(x)
+    assert torch.equal(norm.group_norm_frames(strided, gw, gb, 32, True), out)
+
+
+def test_vae_runs_every_group_norm_on_the_kernels(cuda):
+    """A 128 / 256-channel VAE (chip_smoke.py's small config) encoding and
+    decoding 5 frames on each route: unfused, K8 = K9 = the resnets'
+    GroupNorms (K1's count) + norm_out and the mid attention's in each half;
+    with GN fusion, K8 = K4 + K9 and K9 = those four. Both routes within
+    the card checks' bound of each other."""
+    from seedvr2_tpu_torch.config import VAEConfig
+    from seedvr2_tpu_torch.models.params import init_random
+    from seedvr2_tpu_torch.models.vae.causal_conv import StreamCtx
+    from seedvr2_tpu_torch.models.vae.model import VAE
+
+    vc = VAEConfig(block_out_channels=(128, 128, 256, 256), layers_per_block=1)
+    vae = init_random(VAE(vc, cuda, torch.bfloat16), torch.Generator(device=cuda).manual_seed(12))
+    x = torch.rand(1, 5, 32, 48, 3, generator=torch.Generator(device=cuda).manual_seed(13), device=cuda).bfloat16()
+    outs, counts = [], []
+    for fusion in (False, True):
+        vae.set_gn_fusion(fusion)
+        n0 = [k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn, k1.gn_silu_tables.launches,
+              norm.gn_apply.launches]
+        z = vae.encoder(x, StreamCtx("disabled"))[..., : vc.latent_channels].contiguous()
+        outs.append(vae.decoder(z, StreamCtx("disabled")).float())
+        torch.cuda.synchronize()
+        counts.append([a - b for a, b in zip([k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn,
+                                              k1.gn_silu_tables.launches, norm.gn_apply.launches], n0)])
+    resnet_gn = 2 * vc.layers_per_block * vc.num_blocks + 2 * (vc.layers_per_block + 1) * vc.num_blocks + 8
+    assert counts[0] == [resnet_gn, 0, resnet_gn + 4, resnet_gn + 4], counts
+    assert counts[1] == [0, resnet_gn, resnet_gn + 4, 4], counts
+    assert _rel(outs[1], outs[0]) <= 5e-2
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     x = torch.zeros(1, 3, 4, 4, 128, device=cuda)  # fp32: the kernel takes bf16
     w = torch.zeros(3, 3, 3, 128, 128, device=cuda, dtype=torch.bfloat16)
@@ -562,6 +661,20 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                  (x, gw.half(), gb.half(), 32), (x, gw, gb.bfloat16(), 32)):
         with pytest.raises(ValueError):
             k1.gn_silu_tables(*args)
+    # K9: fp32 x, a view 2 bytes off 16-byte alignment, a strided x, C not a
+    # multiple of 8, tables in bf16, of another shape or strided; its
+    # wrapper at C / groups = 2 (K8 refuses it)
+    scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
+    strided = torch.zeros(1, 3, 256, device=cuda)[..., ::2]
+    x12 = torch.zeros(1, 3, 4, 5, 12, device=cuda, dtype=torch.bfloat16)
+    t12 = torch.zeros(1, 3, 12, device=cuda)
+    for args in ((x.float(), scale, shift), (view, scale, shift), (x.transpose(2, 3), scale, shift),
+                 (x12, t12, t12), (x, scale.bfloat16(), shift), (x, scale, shift[:, :2].contiguous()),
+                 (x, strided, shift)):
+        with pytest.raises(ValueError):
+            norm.gn_apply(*args, True)
+    with pytest.raises(ValueError):
+        norm.group_norm_frames(x, gw, gb, 64, True)
 
 
 def test_conv_kernels_reject_what_they_do_not_take(cuda):

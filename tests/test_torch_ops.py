@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu.ops import color as jcolor
 from seedvr2_tpu.ops import normalization as jnorm

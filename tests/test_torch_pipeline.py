@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu.config import PipelineConfig, dit_tiny, vae_tiny
 from seedvr2_tpu.io import weights as jweights

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 import torch_rank_worker as ranks
 from seedvr2_tpu.config import dit_tiny

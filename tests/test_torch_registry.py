@@ -18,6 +18,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from fake_hub import FakeHub, hub_url
 from seedvr2_tpu.io import registry as jregistry

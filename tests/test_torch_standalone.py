@@ -15,6 +15,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu import config as jconfig
 from seedvr2_tpu.io import registry as jregistry

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch CPU thread a test process)
 
 from seedvr2_tpu.models.vae.model import posterior_sample as j_posterior_sample
 from seedvr2_tpu_torch.models.vae.model import posterior_mode, posterior_sample

@@ -21,6 +21,9 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# one torch CPU thread in this process and in the ranks it spawns (they inherit the environment): the ranks
+# share the machine's cores with each other and with the other test workers (tests/torch_threads.py)
+os.environ.setdefault("OMP_NUM_THREADS", "1")
 
 import torch  # noqa: E402
 
