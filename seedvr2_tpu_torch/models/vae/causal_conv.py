@@ -16,6 +16,11 @@ VAE.set_gn_fusion; off by default, as the JAX package's set_gn_fusion):
 a K1-routed conv given ``gn=`` then runs K4 with the per-frame tables of
 its raw extended input, instead of normalising the input first (``gn_silu``:
 on the card K8's tables, then K9's pass; ops/normalization.py).
+
+Profiler ranges (utils/spans.py): "vae.causal_pad" around the temporal
+extension and the next slice's carry, "vae.group_norm" around every
+GroupNorm pass (K4's tables included), "vae.conv_plain" around the
+F.conv3d route with its layout copies.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 
 from ...ops import conv3d_kernel
 from ...ops.normalization import group_norm_frames
+from ...utils.spans import span
 from ..params import NORMAL, ZEROS, Leaf
 
 State = Dict[str, torch.Tensor]
@@ -80,7 +86,8 @@ class StreamCtx:
 def gn_silu(x: torch.Tensor, norm: Leaf, groups: int) -> torch.Tensor:
     """Per-frame GroupNorm (stats per (b, t)) then SiLU in fp32, on NDHWC
     (on the card: K8's tables, then K9)."""
-    return group_norm_frames(x, norm.w, norm.b, groups, silu=True)
+    with span("vae.group_norm"):
+        return group_norm_frames(x, norm.w, norm.b, groups, silu=True)
 
 
 class CausalConv3d(Leaf):
@@ -124,7 +131,7 @@ class CausalConv3d(Leaf):
         (it commutes with the temporal extension, so the carry stays raw);
         under gn_fusion a K1-routed conv folds it into its load (K4)."""
         kt = self.spec["w"][0][0]
-        with ctx.scope(name):
+        with ctx.scope(name), span("vae.causal_pad"):
             mem = ctx.get("mem") if ctx.mode == "active" else None
             if mem is not None:
                 x_ext = torch.cat([mem.to(x.dtype), x], dim=1)
@@ -138,16 +145,18 @@ class CausalConv3d(Leaf):
                 ctx.put("mem", x_ext[:, -cache:].clone())
         if gn is not None and self.k1 and self.gn_fusion:
             (norm, groups), x_ext = gn, x_ext.contiguous()
-            scale, shift = conv3d_kernel.gn_silu_tables(x_ext, norm.w, norm.b, groups)
+            with span("vae.group_norm"):
+                scale, shift = conv3d_kernel.gn_silu_tables(x_ext, norm.w, norm.b, groups)
             return conv3d_kernel.conv3d_3x3x3(x_ext, self.w, self.b, scale, shift)
         if gn is not None:
             x_ext = gn_silu(x_ext, *gn)
         if self.k1:
             return conv3d_kernel.conv3d_3x3x3(x_ext.contiguous(), self.w, self.b)
-        (ht, hb), (wl, wr) = self.spatial_pad
-        xc = x_ext.permute(0, 4, 1, 2, 3)
-        if (ht, wl) == (hb, wr):
-            y = F.conv3d(xc, self.w, None, self.stride, padding=(0, ht, wl))
-        else:
-            y = F.conv3d(F.pad(xc, (wl, wr, ht, hb)), self.w, None, self.stride)
-        return y.permute(0, 2, 3, 4, 1) + self.b
+        with span("vae.conv_plain"):
+            (ht, hb), (wl, wr) = self.spatial_pad
+            xc = x_ext.permute(0, 4, 1, 2, 3)
+            if (ht, wl) == (hb, wr):
+                y = F.conv3d(xc, self.w, None, self.stride, padding=(0, ht, wl))
+            else:
+                y = F.conv3d(F.pad(xc, (wl, wr, ht, hb)), self.w, None, self.stride)
+            return y.permute(0, 2, 3, 4, 1) + self.b

@@ -16,6 +16,7 @@ from torch import nn
 
 from ...config import VAEConfig
 from ...ops.normalization import group_norm_frames
+from ...utils.spans import span
 from ..params import ONES, ZEROS, Leaf, Linear
 from .causal_conv import CausalConv3d, StreamCtx, gn_silu
 from .folded_upsample import FoldedUpsample
@@ -48,7 +49,8 @@ class Resnet(nn.Module):
 
 class MidAttention(nn.Module):
     """Per-frame single-head 2D self-attention with residual: matmuls with
-    fp32 logits and an fp32 softmax, one frame at a time."""
+    fp32 logits and an fp32 softmax, one frame at a time; the whole call a
+    "vae.mid_attention" range (utils/spans.py)."""
 
     def __init__(self, c: int, cfg: VAEConfig, device, dtype):
         super().__init__()
@@ -59,14 +61,16 @@ class MidAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, H, W, C = x.shape
-        h = group_norm_frames(x, self.group_norm.w, self.group_norm.b, self.groups, silu=False)
-        h = h.reshape(B * T, H * W, C)
-        out = torch.empty_like(h)
-        for i in range(B * T):
-            q, k, v = self.to_q(h[i]), self.to_k(h[i]), self.to_v(h[i])
-            logits = (q.float() @ k.float().T) * (1.0 / C**0.5)
-            out[i] = torch.softmax(logits, dim=-1).to(v.dtype) @ v
-        return self.to_out(out).reshape(B, T, H, W, C) + x
+        with span("vae.mid_attention"):
+            with span("vae.group_norm"):
+                h = group_norm_frames(x, self.group_norm.w, self.group_norm.b, self.groups, silu=False)
+            h = h.reshape(B * T, H * W, C)
+            out = torch.empty_like(h)
+            for i in range(B * T):
+                q, k, v = self.to_q(h[i]), self.to_k(h[i]), self.to_v(h[i])
+                logits = (q.float() @ k.float().T) * (1.0 / C**0.5)
+                out[i] = torch.softmax(logits, dim=-1).to(v.dtype) @ v
+            return self.to_out(out).reshape(B, T, H, W, C) + x
 
 
 class Mid(nn.Module):

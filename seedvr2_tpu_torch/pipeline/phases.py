@@ -12,9 +12,8 @@ Two routes, chosen as the JAX package's ``generate`` chooses them:
   on the device or go to host memory as the run budget (``_run_budget``)
   or ``tensor_offload`` says. RGBA frames take this path: their alpha
   skips the models and is upscaled in phase 4 against the upscaled RGB
-  (pipeline/alpha.py). Each phase is a
-  ``torch.profiler.record_function`` range ("phase.<name>"), read by
-  profile_batch.py.
+  (pipeline/alpha.py). Each phase is a profiler range ("phase.<name>",
+  utils/spans.py), read by profile_batch.py.
 
 Planar yuv420 input (ops/yuv.py) uploads as raw planes on the fused path
 and is converted to RGB once up front on the 4-phase path; with
@@ -40,7 +39,10 @@ memory on a side copy stream as soon as its kernels are queued
 codes unpacked or the planes converted on the host) only after batch
 i+1's work has been queued, so that the copies and the host's unpack
 overlap the next batch's compute. On a CPU runner the same code reads the
-chunks where they lie.
+chunks where they lie. Its host steps are profiler ranges inside
+``generate``'s: "stream.upload" (a batch's host preparation and upload),
+"stream.copy_wait" (the wait on a batch's started copies) and
+"stream.unpack" (its codes or planes written into the output).
 
 Out of memory: where the chunk route raises torch.cuda.OutOfMemoryError,
 ``generate`` logs it, disables the route on the runner
@@ -58,7 +60,6 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import PipelineConfig
 from ..ops import color as color_ops
@@ -66,6 +67,7 @@ from ..ops.blending import blend_overlapping_frames
 from ..ops.resize import pipeline_transform, to_f01, true_target_dims
 from ..ops.yuv import PlanarYUV420, is_planar, yuv420_to_rgb01_np
 from ..utils.debug import Debug
+from ..utils.spans import span
 from ..utils.transfer import HostCopies, to_device
 from . import batching
 from .runner import InputNoise, Runner, as_draws, check_supported
@@ -130,25 +132,28 @@ def generate_streaming(
 
     def flush(parts, ori):
         nonlocal final, write
-        host = [(lo, hi, _landed(c)) for lo, hi, c in parts]
-        if is_planar(host[0][2]):
-            planes = host[0][2] if len(host) == 1 else PlanarYUV420(
-                *(np.concatenate([getattr(h, k) for _, _, h in host], axis=2) for k in "yuv"), host[0][2].depth)
-            planes = planes.to_numpy()
-            if packed:
-                if final is None:
-                    final = planes.tmap(lambda p: np.zeros((total,) + p.shape[1:], p.dtype))
-                for dst, src in zip((final.y, final.u, final.v), (planes.y, planes.u, planes.v)):
-                    dst[write : write + ori] = src
+        with span("stream.copy_wait"):
+            host = [(lo, hi, _landed(c)) for lo, hi, c in parts]
+        with span("stream.unpack"):
+            if is_planar(host[0][2]):
+                planes = host[0][2] if len(host) == 1 else PlanarYUV420(
+                    *(np.concatenate([getattr(h, k) for _, _, h in host], axis=2) for k in "yuv"),
+                    host[0][2].depth)
+                planes = planes.to_numpy()
+                if packed:
+                    if final is None:
+                        final = planes.tmap(lambda p: np.zeros((total,) + p.shape[1:], p.dtype))
+                    for dst, src in zip((final.y, final.u, final.v), (planes.y, planes.u, planes.v)):
+                        dst[write : write + ori] = src
+                else:
+                    if final is None:
+                        final = np.zeros((total, true_h, true_w, 3), np.float32)
+                    final[write : write + ori] = yuv420_to_rgb01_np(planes)
             else:
                 if final is None:
-                    final = np.zeros((total, true_h, true_w, 3), np.float32)
-                final[write : write + ori] = yuv420_to_rgb01_np(planes)
-        else:
-            if final is None:
-                final = np.zeros((total, true_h, true_w, 3), _packed_dtype(cfg) if packed else np.float32)
-            for lo, hi, codes in host:
-                final[write : write + ori, :, lo:hi] = codes if packed else _unpack(codes, cfg)
+                    final = np.zeros((total, true_h, true_w, 3), _packed_dtype(cfg) if packed else np.float32)
+                for lo, hi, codes in host:
+                    final[write : write + ori, :, lo:hi] = codes if packed else _unpack(codes, cfg)
         write += ori
 
     debug.start_timer("streaming_pipeline")
@@ -163,8 +168,9 @@ def generate_streaming(
         if interrupt_fn is not None:
             interrupt_fn()
         debug.start_timer(f"batch_{bi+1}")
-        video = batching.prepare_batch(images, spec)
-        fr = upload_frames(video if is_planar(video) else video[..., :3], runner.device)
+        with span("stream.upload"):
+            video = batching.prepare_batch(images, spec)
+            fr = upload_frames(video if is_planar(video) else video[..., :3], runner.device)
         ori = spec.ori_length
         plan = runner.supports_chunked(fr.shape, true_h, true_w)
         if plan is not None:
@@ -258,7 +264,7 @@ def encode_all_batches(runner: Runner, ctx: Dict[str, Any], images: np.ndarray,
     ctx["all_latents"] = [None] * len(specs)
     ctx["all_alpha"] = [None] * len(specs)
     input_noise = input_noise or InputNoise(cfg, runner.device)
-    with record_function("phase.encode"):
+    with span("phase.encode"):
         for bi, spec in enumerate(specs):
             _check_interrupt(ctx)
             debug.start_timer(f"encode_batch_{bi+1}")
@@ -289,7 +295,7 @@ def upscale_all_batches(runner: Runner, ctx: Dict[str, Any], progress_callback: 
     debug.start_timer("phase2_upscaling")
     n = len(ctx["all_latents"])
     ctx["all_upscaled"] = [None] * n
-    with record_function("phase.upscale"):
+    with span("phase.upscale"):
         for bi in range(n):
             _check_interrupt(ctx)
             debug.start_timer(f"upscale_batch_{bi+1}")
@@ -321,7 +327,7 @@ def decode_all_batches(runner: Runner, ctx: Dict[str, Any],
     write = 0
     ctx["decode_info"] = []
     n = len(ctx["all_upscaled"])
-    with record_function("phase.decode"):
+    with span("phase.decode"):
         for bi, up in enumerate(ctx["all_upscaled"]):
             _check_interrupt(ctx)
             debug.start_timer(f"decode_batch_{bi+1}")
@@ -361,7 +367,7 @@ def postprocess_all_batches(runner: Runner, ctx: Dict[str, Any],
     specs = ctx["batches"]
     true_h, true_w = ctx["true_dims"]
     n = len(ctx["decode_info"])
-    with record_function("phase.postprocess"):
+    with span("phase.postprocess"):
         for i, (ws, we, bi, ori) in enumerate(ctx["decode_info"]):
             _check_interrupt(ctx)
             out = final[ws:we, ..., :3]
@@ -405,7 +411,7 @@ def decode_and_postprocess_fused(runner: Runner, ctx: Dict[str, Any],
     final = np.zeros((ctx["total_frames"], true_h, true_w, 3), _packed_dtype(cfg) if packed else np.float32)
     write = 0
     n = len(ctx["all_upscaled"])
-    with record_function("phase.decode"):
+    with span("phase.decode"):
         for bi, up in enumerate(ctx["all_upscaled"]):
             _check_interrupt(ctx)
             debug.start_timer(f"finalize_batch_{bi+1}")
@@ -468,57 +474,60 @@ def generate(
     generators' draws (tests). Out of memory: a run on the column-chunk
     route is rerun with one fused_batch a batch; a fused run that runs out
     of memory again, or that never used column chunks, is rerun on the
-    4-phase path."""
-    cfg = cfg or runner.cfg
-    check_supported(cfg)
-    debug = debug or Debug()
-    t0 = time.perf_counter()
-    can_stream = (
-        cfg.fused_pipeline != "off"
-        and batching.effective_overlap(cfg.batch_size, cfg.temporal_overlap) == 0
-        and images.shape[-1] == 3
-        and cfg.prepend_frames == 0
-        and not cfg.phased_weights
-        and cfg.tensor_offload != "always"
-        and len(images) > 0
-    )
-    while can_stream:
-        try:
-            out = generate_streaming(runner, images, cfg, debug, progress_callback, interrupt_fn, packed, noise=noise)
-        except torch.cuda.OutOfMemoryError:
-            pass  # retried below, once this block has let go of the failed batch's tensors
+    4-phase path. The whole call, reruns included, is one profiler range,
+    "generate" (utils/spans.py)."""
+    with span("generate"):
+        cfg = cfg or runner.cfg
+        check_supported(cfg)
+        debug = debug or Debug()
+        t0 = time.perf_counter()
+        can_stream = (
+            cfg.fused_pipeline != "off"
+            and batching.effective_overlap(cfg.batch_size, cfg.temporal_overlap) == 0
+            and images.shape[-1] == 3
+            and cfg.prepend_frames == 0
+            and not cfg.phased_weights
+            and cfg.tensor_offload != "always"
+            and len(images) > 0
+        )
+        while can_stream:
+            try:
+                out = generate_streaming(runner, images, cfg, debug, progress_callback, interrupt_fn, packed,
+                                         noise=noise)
+            except torch.cuda.OutOfMemoryError:
+                pass  # retried below, once this block has let go of the failed batch's tensors
+            else:
+                _log_rate(debug, len(out), t0)
+                return out
+            if runner.device.type == "cuda":
+                gc.collect()
+                torch.cuda.empty_cache()
+            if _chunked_was_in_play(runner, images, cfg):
+                runner._disable_chunked = True
+                debug.log("HBM exhausted in the streamed column-chunk path; retrying the fused pipeline with one "
+                          "fused_batch a batch", category="memory", force=True)
+                continue
+            debug.log("HBM exhausted in the fused pipeline; falling back to the phase-wise path with the tiling "
+                      "ladder", category="memory", force=True)
+            break
+        if is_planar(images):
+            # the 4-phase path works on RGB frames on the host: convert once here
+            images = yuv420_to_rgb01_np(images.to_numpy()).astype(np.float32)
+        ctx = make_context(cfg, debug, interrupt_fn)
+        ctx["packed"] = packed
+        debug.start_timer("generation")
+        encode_all_batches(runner, ctx, images, progress_callback,
+                           input_noise=InputNoise(cfg, runner.device, as_draws(noise).inputs))
+        upscale_all_batches(runner, ctx, progress_callback, noise=noise)
+        if ctx["actual_overlap"] == 0 and cfg.prepend_frames == 0 and not ctx["is_rgba"]:
+            decode_and_postprocess_fused(runner, ctx, progress_callback)
         else:
-            _log_rate(debug, len(out), t0)
-            return out
-        if runner.device.type == "cuda":
-            gc.collect()
-            torch.cuda.empty_cache()
-        if _chunked_was_in_play(runner, images, cfg):
-            runner._disable_chunked = True
-            debug.log("HBM exhausted in the streamed column-chunk path; retrying the fused pipeline with one "
-                      "fused_batch a batch", category="memory", force=True)
-            continue
-        debug.log("HBM exhausted in the fused pipeline; falling back to the phase-wise path with the tiling ladder",
-                  category="memory", force=True)
-        break
-    if is_planar(images):
-        # the 4-phase path works on RGB frames on the host: convert once here
-        images = yuv420_to_rgb01_np(images.to_numpy()).astype(np.float32)
-    ctx = make_context(cfg, debug, interrupt_fn)
-    ctx["packed"] = packed
-    debug.start_timer("generation")
-    encode_all_batches(runner, ctx, images, progress_callback,
-                       input_noise=InputNoise(cfg, runner.device, as_draws(noise).inputs))
-    upscale_all_batches(runner, ctx, progress_callback, noise=noise)
-    if ctx["actual_overlap"] == 0 and cfg.prepend_frames == 0 and not ctx["is_rgba"]:
-        decode_and_postprocess_fused(runner, ctx, progress_callback)
-    else:
-        decode_all_batches(runner, ctx, progress_callback)
-        postprocess_all_batches(runner, ctx, progress_callback)
-    debug.end_timer("generation", "All phases complete", show_breakdown=True)
-    debug.peak_memory_summary()
-    _log_rate(debug, len(ctx["final_video"]), t0)
-    return ctx["final_video"]
+            decode_all_batches(runner, ctx, progress_callback)
+            postprocess_all_batches(runner, ctx, progress_callback)
+        debug.end_timer("generation", "All phases complete", show_breakdown=True)
+        debug.peak_memory_summary()
+        _log_rate(debug, len(ctx["final_video"]), t0)
+        return ctx["final_video"]
 
 
 def _log_rate(debug: Debug, n: int, t0: float) -> None:

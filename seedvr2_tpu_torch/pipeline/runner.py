@@ -14,8 +14,8 @@ ladder, as the JAX package's fused program does: its OOM propagates to
 phases.generate, which reruns the clip on the 4-phase path. With
 ``output_pixfmt="yuv420"`` ``fused_batch`` returns the sink's planes
 (ops/yuv.py) instead of RGB codes. Each stage of ``fused_batch`` is a
-``torch.profiler.record_function`` range ("runner.<stage>"), read by
-profile_batch.py; without a running profiler a range is one small host call.
+profiler range ("runner.<stage>", utils/spans.py), read by profile_batch.py
+and the benchmark; without a running profiler a range is a shared no-op.
 
 With a ``mesh`` (parallel/mesh.py) the runner is one rank of a multi-rank
 job: the DiT step runs under ``sharded_dit`` over the mesh's seq and
@@ -34,7 +34,6 @@ from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import PipelineConfig
 from ..models.dit.nadit import NaDiT, build_attn_plans, device_plans
@@ -46,6 +45,7 @@ from ..ops.yuv import PlanarYUV420, is_planar, rgb01_to_yuv420
 from ..parallel.mesh import Mesh
 from ..parallel.sp import sharded_dit
 from ..utils.debug import Debug
+from ..utils.spans import span
 from ..utils.transfer import to_device
 from . import diffusion as dm
 
@@ -345,13 +345,13 @@ class Runner:
         the clean transformed frames (fp32 [-1, 1], the colour fix's
         style)."""
         c = self.cfg
-        with record_function("runner.transform"):
+        with span("runner.transform"):
             tv = pipeline_transform(to_f01(frames), c.resolution, c.max_resolution)  # fp32 [-1, 1]
             video = tv if input_noise is None else input_noise.apply(tv)
-        with record_function("runner.vae_encode"):
+        with span("runner.vae_encode"):
             latent = self._encode(video[None].to(self.compute_dtype), c.encode_tiled, c.encode_tile_size,
                                   c.encode_tile_overlap, tile_parallel)
-        with record_function("runner.dit_step"):
+        with span("runner.dit_step"):
             up = self.upscale(latent, seed, noise)
         return up, tv
 
@@ -378,9 +378,9 @@ class Runner:
         input (cfg.input_noise_scale)."""
         c = self.cfg
         up, tv = self._head(frames, seed, noise, input_noise, tile_parallel)
-        with record_function("runner.vae_decode"):
+        with span("runner.vae_decode"):
             dec = self._decode(up, c.decode_tiled, c.decode_tile_size, c.decode_tile_overlap, tile_parallel)
-        with record_function("runner.color_pack"):
+        with span("runner.color_pack"):
             return self.finalize_batch(dec, tv, tv.shape[0] if ori is None else ori, true_h, true_w, True, planes)
 
     # ----------------------- the streamed column chunks --------------------- #
@@ -453,7 +453,7 @@ class Runner:
             emit_lo, emit_hi = (0 if i == 0 else plan.emit[i - 1]), plan.emit[i]
             cin_lo = max(0, emit_lo - (plan.halo if i else 0))
             cin_hi = min(true_w, emit_hi + (0 if last else plan.halo))
-            with record_function("runner.vae_decode"):
+            with span("runner.vae_decode"):
                 z = up[:, :, :, col : col + plan.lt_w] / vc.scaling_factor + vc.shifting_factor
                 dec = tiling.slicing_decode(self.vae, z)
                 w = to_device(plan.tile_weights(i), self.device)[None, None, None, :, None]
@@ -470,7 +470,7 @@ class Runner:
                 del dec
                 blended = (strip[:, :, :, cin_lo - strip_lo : cin_hi - strip_lo]
                            / weight[:, :, :, cin_lo - strip_lo : cin_hi - strip_lo].clamp_min(1e-6))
-            with record_function("runner.color_pack"):
+            with span("runner.color_pack"):
                 out = self.finalize_batch(blended.to(self.compute_dtype), tv[:, :, cin_lo:cin_hi], ori, true_h,
                                           cin_hi - cin_lo, True, planes)
                 a, b = emit_lo - cin_lo, emit_hi - cin_lo

@@ -1,6 +1,5 @@
-"""Where the time of one run goes on the card: stage times, device kernel
-time by kernel and the device's idle share, for a full-width model with
-random weights.
+"""Where the time of one run goes on the card: stage times and device
+kernel time by kernel, for a full-width model with random weights.
 
     python -m seedvr2_tpu_torch.profile_batch --dit 7b --attention sageattn_2 [--runs 3] [--trace out.json]
     python -m seedvr2_tpu_torch.profile_batch --gn-fusion          # the same, resnet GroupNorm folded into K4
@@ -14,31 +13,26 @@ VAE at its default tiles, through the 4-phase pipeline. ``--gn-fusion``
 turns the VAE's GroupNorm + SiLU fusion (K4) on.
 
 ``--runs`` timed ``phases.generate`` calls give the wall times; one more
-runs under ``torch.profiler``, and its events give the rest: per stage (the
-"runner.<stage>" ranges of Runner.fused_batch, or the "phase.<name>" ranges
-of the 4-phase pipeline) the range's span on the device timeline, idle gaps
-inside it included; per kernel its device time; and the idle share,
-1 - (device time) / (profiled wall), not clamped (a negative share would
-mean device time counted twice). A range's own device total on the host
-side is not used: it misses the kernels launched through ctypes (K1-K9),
-which have no PyTorch op above them. In the profiled run only, the VAE's
-passes around the convs are ranges of their own (OP_RANGES: the GroupNorm
-table pass of K4's route, the GroupNorm + SiLU passes outside K4 (the
-unfused route's and ``norm_out``'s: K8's tables then K9), the mid
-attention's GroupNorm (K8, K9), the convs that the routing rule keeps off
-K1), each given as its calls and its summed device span (``op_span_ms``).
-Every kernel is listed by name with its calls and device ms
-(``kernels``); a kernel wrapper's launch count does not move in the
-profiled run (its range's copy of the count does). Prints one JSON line.
+runs under ``torch.profiler``, and its events give the rest, read from the
+program's own ranges (utils/spans.py): per stage (the "runner.<stage>"
+ranges of Runner.fused_batch, or the "phase.<name>" ranges of the 4-phase
+pipeline; "generate" and the fused path's "stream.*" host steps) the
+range's span on the device timeline, idle gaps inside it included
+(``stage_span_ms``); per VAE pass around the convs ("vae.*":
+every GroupNorm outside K4 and K4's tables, the mid attention, the causal
+padding, the convs that the routing rule keeps off K1) its calls and its
+summed device span (``op_span_ms``); every kernel by name with its calls
+and device ms (``kernels``), and their sum (``device_kernel_s``; copies on
+another stream overlap kernels, so it is no measure of idle time: the
+benchmark's ``idle_share`` is, ``portbench/``). A range's own device total
+on the host side is not used: it misses the kernels launched through
+ctypes (K1-K9), which have no PyTorch op above them. Prints one JSON line.
 Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
-import functools
-import importlib
 import json
 import time
 
@@ -51,14 +45,8 @@ from .io.weights import random_dit, random_vae
 from .pipeline import phases
 from .pipeline.runner import Runner
 
-STAGE_PREFIXES = ("runner.", "phase.")
-# range -> (module, function): called inside a range of that name in the profiled run
-OP_RANGES = {
-    "op.gn_tables": (("seedvr2_tpu_torch.ops.conv3d_kernel", "gn_silu_tables"),),
-    "op.gn_silu": (("seedvr2_tpu_torch.models.vae.causal_conv", "gn_silu"),
-                   ("seedvr2_tpu_torch.models.vae.model", "gn_silu")),
-    "op.mid_group_norm": (("seedvr2_tpu_torch.models.vae.model", "group_norm_frames"),),
-}
+STAGE_PREFIXES = ("generate", "stream.", "runner.", "phase.")
+OP_PREFIX = "vae."
 
 
 def long_clip_config(cfg: PipelineConfig) -> PipelineConfig:
@@ -69,41 +57,6 @@ def long_clip_config(cfg: PipelineConfig) -> PipelineConfig:
 
 def long_clip_frames() -> np.ndarray:
     return np.random.RandomState(8).randint(0, 256, (15, 540, 960, 3)).astype(np.uint8)
-
-
-@contextlib.contextmanager
-def op_ranges():
-    """OP_RANGES, and "op.conv_off_k1" around each CausalConv3d call that
-    the routing rule sends to F.conv3d (layout copies included), for the
-    length of the block; undone after it."""
-    from .models.vae.causal_conv import CausalConv3d
-
-    def ranged(name, fn):
-        @functools.wraps(fn)  # with its attributes: a wrapper counts its launches on its module's name
-        def call(*a, **kw):
-            with torch.profiler.record_function(name):
-                return fn(*a, **kw)
-        return call
-
-    targets = [(name, importlib.import_module(mod), attr) for name, pairs in OP_RANGES.items() for mod, attr in pairs]
-    saved = [(m, attr, getattr(m, attr)) for _, m, attr in targets]
-    conv_forward = CausalConv3d.forward
-
-    def forward(self, *a, **kw):
-        if self.k1:
-            return conv_forward(self, *a, **kw)
-        with torch.profiler.record_function("op.conv_off_k1"):
-            return conv_forward(self, *a, **kw)
-
-    try:
-        for name, m, attr in targets:
-            setattr(m, attr, ranged(name, getattr(m, attr)))
-        CausalConv3d.forward = forward
-        yield
-    finally:
-        for m, attr, fn in saved:
-            setattr(m, attr, fn)
-        CausalConv3d.forward = conv_forward
 
 
 def timed_generate(runner: Runner, frames: np.ndarray) -> float:
@@ -139,7 +92,7 @@ def main(argv=None):
     walls = [timed_generate(runner, frames) for _ in range(args.runs)]
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with op_ranges(), torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         prof_wall = timed_generate(runner, frames)
     if args.trace:
         prof.export_chrome_trace(args.trace)
@@ -148,7 +101,7 @@ def main(argv=None):
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if e.key.startswith("op."):  # summed spans of the range's calls on the device timeline
+        if e.key.startswith(OP_PREFIX):  # summed spans of the range's calls on the device timeline
             ops_ms[e.key] = {"calls": e.count, "ms": e.self_device_time_total / 1e3}
         elif e.key.startswith(STAGE_PREFIXES):  # the range's span on the device timeline
             stages_ms[e.key] = e.self_device_time_total / 1e3
@@ -160,7 +113,7 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0), "dit": args.dit, "attention": args.attention,
         "gn_fusion": args.gn_fusion, "phasewise": args.phasewise, "frames": list(frames.shape),
         "wall_s": walls, "profiled_wall_s": prof_wall, "device_kernel_s": device_s,
-        "idle_share": 1.0 - device_s / prof_wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "stage_span_ms": stages_ms, "op_span_ms": ops_ms, "kernels": kernels,
     }
     print(json.dumps(out))

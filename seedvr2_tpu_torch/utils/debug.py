@@ -113,7 +113,10 @@ class Debug:
         return torch.cuda.max_memory_allocated(self.device) / 2**30 if self._cuda() else None
 
     def peak_memory_summary(self, force: bool = False) -> None:
-        """The device's peak allocated memory and the host's resident set."""
+        """The device's peak allocated memory and the host's resident set;
+        read only where a line will print (``enabled`` or ``force``)."""
+        if not (self.enabled or force):
+            return
         peak = self.peak_memory_gib()
         if peak is not None:
             self.log(f"Peak device memory: {peak:.2f} GiB (torch.cuda.max_memory_allocated)", category="memory",
