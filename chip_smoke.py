@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero without a result):
   1. card: name, power limit, versions;
   2. build: compile csrc/ with nvcc for sm_90a (build time, -Xptxas -v);
-  3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K7 (3B, 7B), K4 (K1 with the GroupNorm +
+  3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K7 (3B, 7B), K10 (the VAE mid attention), K4 (K1 with the GroupNorm +
      SiLU prologue, tables from GroupNorm weights, at K1's shapes), K8 (those
      tables), K9 (the GroupNorm (+ SiLU) pass on them) and K6 (the tap-folded conv) against their plain PyTorch
      versions at the shapes of the 720p paths, and K3 and K4 again at the
@@ -45,7 +45,16 @@ Phases (any failure raises and the script exits non-zero without a result):
      under conv_ab.gn_codes's rule (at most 1e-3 moved); the library call
      is a chain (a channels-first copy, F.group_norm, F.silu), and
      ``with_tables_ms`` / ``plain_route_ms`` time the VAE's whole call on
-     each route;
+     each route; K10 rows (K10_SHAPES: the mid attention of phase 5's
+     batch, of phase 7's decode tile, of a video1080 batch's two
+     135 x 240 latent frames and of a 1440 x 2560 image's, all at
+     C = 512, and C = 256 at a ragged n; launches only for the first two,
+     from the run that gives the shape) against the plain
+     version it replaces (the per-frame fp32 logits, softmax and bf16
+     copy), with SDPA on the same bf16 q, k, v as the library call, the
+     bound by operations and the share of it (``share``), K10's ptxas
+     lines, registers and shared memory at both widths, and the same bits
+     on a second launch;
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
@@ -58,7 +67,9 @@ Phases (any failure raises and the script exits non-zero without a result):
      5-frame 640x360 clip upscaled to 1280x720 with the default pipeline
      settings through seedvr2_tpu_torch.pipeline.phases.generate (every
      GroupNorm on K8 + K9: 52 each); then the same with the VAE's
-     GroupNorm fusion on (K4 48 launches, K1 none, K8 52, K9 4);
+     GroupNorm fusion on (K4 48 launches, K1 none, K8 52, K9 4); on
+     both routes the encoder's and the decoder's mid attention on K10
+     (2 launches);
      each driven run of phases 5-7 also prints the device-timeline spans
      of its VAE encode and decode calls (CUDA events around each
      Runner._encode / _decode call, summed: vae_encode_ms, vae_decode_ms);
@@ -250,6 +261,7 @@ def kernel_counters():
     from seedvr2_tpu_torch.ops import flash_attention as k5
     from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
     from seedvr2_tpu_torch.ops import fused_window_attention as k3
+    from seedvr2_tpu_torch.ops import mid_attention as k10
     from seedvr2_tpu_torch.ops import normalization as norm
     from seedvr2_tpu_torch.ops import quant
 
@@ -262,6 +274,7 @@ def kernel_counters():
         "K4": (k1.conv3d_3x3x3, "launches_gn"),
         "K8": (k1.gn_silu_tables, "launches"),
         "K9": (norm.gn_apply, "launches"),
+        "K10": (k10.mid_attention, "launches"),
         "K6": (k1.conv3d_3x3x3_im2col, "launches"),
         "K3s": (k3.fused_window_attention_sharded, "launches"),
         "K3s_int8": (k3.fused_window_attention_sharded, "launches_int8"),
@@ -490,6 +503,56 @@ def _flash_attention_rows(dev, g, cfg, build):
         rows.append(_flash_row(f"{cfg.variant} {which} B{nW} S{S} H{H}", q, k, v, kv_valid, build,
                                "F.scaled_dot_product_attention on the [B, H, S, D] views with the key mask"))
         del q, k, v
+    return rows
+
+
+# K10's rows: (frames, pixels a frame, C, which call, the driven run that gives the shape): phase 5's 720p batch
+# (two 90 x 160 latent frames), the first temporal slice of phase 7's decode tile (two 76 x 128), a video1080
+# batch's two latent frames (135 x 240), a 1440 x 2560 image's one (180 x 320), and the small config's width at a
+# ragged n (64 query tiles and one row); the last three no driven run of this script gives at that shape
+K10_SHAPES = [(2, 14400, 512, "phase 5 720p batch", "main"),
+              (2, 9728, 512, "long clip decode tile, first slice", "long_clip"),
+              (2, 32400, 512, "video1080 batch", None), (1, 57600, 512, "image2x 720x1280", None),
+              (1, 4097, 256, "small config, ragged n", None)]
+
+
+def mid_attention_build() -> dict:
+    """K10's kernel at both widths as built: ptxas's register and spill
+    lines, and the runtime's registers, spill and dynamic shared memory."""
+    from seedvr2_tpu_torch.ops import cuda_lib
+    from seedvr2_tpu_torch.ops import mid_attention as k10
+
+    out = {f"c{C}": k10.kernel_attributes(C) for C in k10.WIDTHS}
+    out["ptxas"] = [line for name, line in cuda_lib.ptxas_lines(cuda_lib.build().log, "mid_attention_kernel")]
+    print(f"  K10 kernel: {out}", flush=True)
+    return out
+
+
+def _mid_attention_rows(dev, g):
+    """K10 against its plain version, SDPA on the same bf16 q, k, v as the
+    library call, the same bits on a second launch."""
+    import torch.nn.functional as F
+
+    from seedvr2_tpu_torch.ops import mid_attention as k10
+
+    build = mid_attention_build()
+    rows = []
+    for frames, n, C, what, path in K10_SHAPES:
+        q, k, v = (torch.randn((frames, n, C), generator=g, device=dev).bfloat16() for _ in range(3))
+        qh, kh, vh = (t[:, None] for t in (q, k, v))
+        row = compare(
+            "K10", f"mid_attention {what} F{frames} n{n} c{C}", "seedvr2_tpu_torch/csrc/mid_attention.cuh",
+            "none (XLA's einsums of seedvr2_tpu/models/vae/model.py:168 _mid_attention)",
+            lambda: k10.mid_attention(q, k, v), lambda: k10.mid_attention_plain(q, k, v),
+            nbytes(q, k, v) + nbytes(q), {"bf16": 4 * frames * n * n * C},  # + the bf16 output
+            lambda: F.scaled_dot_product_attention(qh, kh, vh), "F.scaled_dot_product_attention on [F, 1, n, C] views",
+            extra_row={"path": path, **build},
+        )
+        row["share"] = row["bound_ms"] / row["ms"]
+        print(f"  {row['name']}: {100 * row['share']:.1f}% of its bound", flush=True)
+        same_bits("K10", row["name"], lambda: k10.mid_attention(q, k, v))
+        rows.append(row)
+        del q, k, v, qh, kh, vh
     return rows
 
 
@@ -832,6 +895,7 @@ def kernel_phase(dev):
     rows += _window_attention_rows(dev, g, dit_3b(), False, wbuilds, thw=(3, 68, 120), res="1080p ", path="long_clip")
     rows += _window_attention_rows(dev, g, dit_7b(), True, wbuilds)
     rows += _flash_attention_rows(dev, g, dit_7b(), flash_build())
+    rows += _mid_attention_rows(dev, g)
     rows += _k7_rows(dev, g)
     return rows
 
@@ -989,14 +1053,15 @@ def main_path_phase(dev, text, frames):
     launches, e2e = drive(runner, frames, "3B fused")
     # 48 resnet convs (20 in the encoder, 28 in the decoder); K2 per decoder upsample and latent slice; K8 then K9
     # for each GroupNorm: the 48 resnet convs' inputs, and norm_out and the mid attention's in each half (+ 4)
+    # K10: the encoder's and the decoder's mid attention, every frame of each in one launch
     expect("3B fused", launches, {"K1": 48, "K2": 6, "K3": cfg.dit.num_layers, "K3q": 0, "K5": 0, "K4": 0, "K8": 52,
-                                  "K9": 52})
+                                  "K9": 52, "K10": 2})
     # the same path with the resnets' GroupNorm + SiLU folded into their convs
     runner.vae.set_gn_fusion(True)
     launches_gn, e2e_gn = drive(runner, frames, "3B fused gn_fusion")
     # K8: the tables of each K4 conv's input, one launch a conv, and of the 4 GroupNorms outside K4, which K9 applies
     expect("3B fused gn_fusion", launches_gn, {"K4": 48, "K8": 52, "K9": 4, "K1": 0, "K2": 6,
-                                               "K3": cfg.dit.num_layers})
+                                               "K3": cfg.dit.num_layers, "K10": 2})
     return launches, launches_gn, {"3b_fused": e2e, "3b_fused_gn_fusion": e2e_gn}
 
 
@@ -1015,7 +1080,7 @@ def long_clip_phase(dev, text):
     # 2 batches x (20 resnet convs x 2 encode slices + 28 x 2 decode slices) x 4 tiles; 32 layers x 2 batches; K9:
     # norm_out and the mid attention's GroupNorm in each of those 32 encoder and decoder calls, K8 their tables too
     expect("3B long clip", launches, {"K4": 768, "K8": 832, "K9": 64, "K1": 0, "K2": 72, "K3": 64, "K3q": 0,
-                                      "K5": 0})
+                                      "K5": 0, "K10": 32})  # K10: one launch a mid attention, half of K9's
     return launches, e2e
 
 
@@ -1035,10 +1100,10 @@ def path_7b_phase(dev, text, frames):
     n = cfg.dit.num_layers
     out = {}
     launches, out["sageattn_2"] = drive(runner, frames, "7B sageattn_2")
-    expect("7B sageattn_2", launches, {"K3q": n, "K3": 0, "K5": 0, "K8": 52, "K9": 52})  # 3B's VAE, unfused
+    expect("7B sageattn_2", launches, {"K3q": n, "K3": 0, "K5": 0, "K8": 52, "K9": 52, "K10": 2})  # 3B's VAE, unfused
     runner.dit.set_attention_mode("flash_attn_2")
     launches_f, out["flash_attn_2"] = drive(runner, frames, "7B flash_attn_2")
-    expect("7B flash_attn_2", launches_f, {"K5": n, "K3": 0, "K3q": 0, "K8": 52, "K9": 52})
+    expect("7B flash_attn_2", launches_f, {"K5": n, "K3": 0, "K3q": 0, "K8": 52, "K9": 52, "K10": 2})
     return launches, launches_f, out
 
 

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ...config import VAEConfig
+from ...ops.mid_attention import mid_attention
 from ...ops.normalization import group_norm_frames
 from ...utils.spans import span
 from ..params import ONES, ZEROS, Leaf, Linear
@@ -48,9 +49,11 @@ class Resnet(nn.Module):
 
 
 class MidAttention(nn.Module):
-    """Per-frame single-head 2D self-attention with residual: matmuls with
-    fp32 logits and an fp32 softmax, one frame at a time; the whole call a
-    "vae.mid_attention" range (utils/spans.py)."""
+    """Per-frame single-head 2D self-attention with residual: the q, k and v
+    projections once over every frame's pixels, then ops/mid_attention.py
+    (K10 on the card: fp32 logits and softmax, never the n x n logits in
+    memory; the plain version on the CPU) for all frames at once; the whole
+    call a "vae.mid_attention" range (utils/spans.py)."""
 
     def __init__(self, c: int, cfg: VAEConfig, device, dtype):
         super().__init__()
@@ -65,11 +68,7 @@ class MidAttention(nn.Module):
             with span("vae.group_norm"):
                 h = group_norm_frames(x, self.group_norm.w, self.group_norm.b, self.groups, silu=False)
             h = h.reshape(B * T, H * W, C)
-            out = torch.empty_like(h)
-            for i in range(B * T):
-                q, k, v = self.to_q(h[i]), self.to_k(h[i]), self.to_v(h[i])
-                logits = (q.float() @ k.float().T) * (1.0 / C**0.5)
-                out[i] = torch.softmax(logits, dim=-1).to(v.dtype) @ v
+            out = mid_attention(self.to_q(h), self.to_k(h), self.to_v(h))
             return self.to_out(out).reshape(B, T, H, W, C) + x
 
 

@@ -55,6 +55,8 @@ _SIGNATURES = {
     "seedvr2_window_flash_attributes": [_i] + [ctypes.POINTER(_i)] * 3,
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
     "seedvr2_flash_attention_attributes": [ctypes.POINTER(_i)] * 3,
+    "seedvr2_mid_attention": [_vp] * 4 + [_i] * 3 + [_f] + [_vp],
+    "seedvr2_mid_attention_attributes": [_i] + [ctypes.POINTER(_i)] * 3,
     "seedvr2_gn_stats": [_vp] * 6 + [_i] * 7 + [_f] + [_vp],
     "seedvr2_gn_apply": [_vp] * 4 + [_i] * 6 + [_vp],
     "seedvr2_w8a16_linear": [_vp] * 5 + [_i] * 3 + [_vp],
@@ -155,7 +157,7 @@ def library() -> ctypes.CDLL:
 
 
 # + CUresult: a failed cuTensorMapEncodeTiled (conv_pipeline.cuh, w8a16_linear.cu, window_attention.cuh,
-# flash_attention.cuh)
+# flash_attention.cuh, mid_attention.cuh)
 ENCODE_ERROR = 1 << 20
 
 

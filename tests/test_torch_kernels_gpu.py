@@ -22,6 +22,7 @@ from seedvr2_tpu_torch.ops import cuda_lib
 from seedvr2_tpu_torch.ops import flash_attention as k5
 from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
 from seedvr2_tpu_torch.ops import fused_window_attention as k3
+from seedvr2_tpu_torch.ops import mid_attention as k10
 from seedvr2_tpu_torch.ops import normalization as norm
 from seedvr2_tpu_torch.ops import quant
 
@@ -480,6 +481,42 @@ def test_flash_attention_kernel_resources(cuda):
     assert 48 * 1024 < a["smem_bytes"] <= 232448, a
 
 
+# K10 (csrc/mid_attention.cuh) at the released VAE's width: a video1080 batch's two latent frames of
+# 135 x 240 pixels, a 1440 x 2560 image's 180 x 320, a 720p batch's two of 90 x 160 and a 1080p decode
+# tile's two of 76 x 128 (1024 px tiles); at the small config's width a ragged n (64 query tiles and one
+# row, 128 key tiles and one key)
+K10_CASES = [(2, 32400, 512), (1, 57600, 512), (2, 14400, 512), (2, 9728, 512), (1, 4097, 256)]
+
+
+@pytest.mark.parametrize("F,n,C", K10_CASES)
+def test_mid_attention_kernel_matches_plain(cuda, F, n, C):
+    """Against the plain version on fp32 copies of the same bf16 inputs
+    (rel L2 <= 1e-2, each frame), one launch a call, two launches with the
+    same bits."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v = (torch.randn(F, n, C, device=cuda, generator=g).bfloat16() for _ in range(3))
+    n0 = k10.mid_attention.launches
+    o = k10.mid_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert k10.mid_attention.launches == n0 + 1
+    assert bool(torch.isfinite(o).all())
+    for f in range(F):
+        ref = k10.mid_attention_plain(q[f:f + 1].float(), k[f:f + 1].float(), v[f:f + 1].float())
+        assert _rel(o[f], ref[0]) <= REL_BOUND, f
+        del ref
+    assert torch.equal(o, k10.mid_attention(q, k, v))
+    assert k10.mid_attention.launches == n0 + 2
+
+
+@pytest.mark.parametrize("C", k10.WIDTHS)
+def test_mid_attention_kernel_resources(cuda, C):
+    """K10's kernel at each width: no spills, shared memory opted in above
+    48 KB and within the 227 KB a block may have."""
+    a = k10.kernel_attributes(C)
+    assert a["local_bytes"] == 0, a
+    assert 48 * 1024 < a["smem_bytes"] <= 232448, a
+
+
 # K8 (csrc/gn_stats.cuh) against fp64: the VAE's widths at 32 groups (one
 # frame above a chunk: 33 x 47 = 1551 pixels against 1024 at C = 128), the
 # GN_SHAPES of tests/test_torch_conv_kernels.py at 32 and 4 groups
@@ -614,8 +651,9 @@ def test_vae_runs_every_group_norm_on_the_kernels(cuda):
     """A 128 / 256-channel VAE (chip_smoke.py's small config) encoding and
     decoding 5 frames on each route: unfused, K8 = K9 = the resnets'
     GroupNorms (K1's count) + norm_out and the mid attention's in each half;
-    with GN fusion, K8 = K4 + K9 and K9 = those four. Both routes within
-    the card checks' bound of each other."""
+    with GN fusion, K8 = K4 + K9 and K9 = those four; on both, the mid
+    attention of each half on K10 (C = 256). Both routes within the card
+    checks' bound of each other."""
     from seedvr2_tpu_torch.config import VAEConfig
     from seedvr2_tpu_torch.models.params import init_random
     from seedvr2_tpu_torch.models.vae.causal_conv import StreamCtx
@@ -628,15 +666,16 @@ def test_vae_runs_every_group_norm_on_the_kernels(cuda):
     for fusion in (False, True):
         vae.set_gn_fusion(fusion)
         n0 = [k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn, k1.gn_silu_tables.launches,
-              norm.gn_apply.launches]
+              norm.gn_apply.launches, k10.mid_attention.launches]
         z = vae.encoder(x, StreamCtx("disabled"))[..., : vc.latent_channels].contiguous()
         outs.append(vae.decoder(z, StreamCtx("disabled")).float())
         torch.cuda.synchronize()
         counts.append([a - b for a, b in zip([k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn,
-                                              k1.gn_silu_tables.launches, norm.gn_apply.launches], n0)])
+                                              k1.gn_silu_tables.launches, norm.gn_apply.launches,
+                                              k10.mid_attention.launches], n0)])
     resnet_gn = 2 * vc.layers_per_block * vc.num_blocks + 2 * (vc.layers_per_block + 1) * vc.num_blocks + 8
-    assert counts[0] == [resnet_gn, 0, resnet_gn + 4, resnet_gn + 4], counts
-    assert counts[1] == [0, resnet_gn, resnet_gn + 4, 4], counts
+    assert counts[0] == [resnet_gn, 0, resnet_gn + 4, resnet_gn + 4, 2], counts
+    assert counts[1] == [0, resnet_gn, resnet_gn + 4, 4, 2], counts
     assert _rel(outs[1], outs[0]) <= 5e-2
 
 
@@ -651,6 +690,13 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         k5.flash_attention(q, q, q.float())
+    # K10: fp32 q, a width it has no instance for, k of another shape, a strided v, a 4-D q
+    q = torch.zeros(2, 70, 512, device=cuda, dtype=torch.bfloat16)
+    strided = torch.zeros(2, 70, 1024, device=cuda, dtype=torch.bfloat16)[..., ::2]
+    for args in ((q.float(), q, q), (q[..., :384].contiguous(),) * 3, (q, q[:, :64].contiguous(), q), (q, q, strided),
+                 (q[None], q[None], q[None])):
+        with pytest.raises(ValueError):
+            k10.mid_attention(*args)
     # K8: fp32 x, a view 2 bytes off 16-byte alignment, C / groups = 2 or
     # not a multiple of 4, fp16 or mixed norm weights
     x, gw, gb = _tables_case(cuda, 1, 3, 4, 5, 128, 0)
