@@ -46,9 +46,11 @@ time is the flash loop's alone. K5 on the same loop (trees whose
 ``flash_attention.cuh`` is a policy of ``attention_pipeline.cuh``): the
 products, the TMA loads (the key codes are still written), and the
 skipping of key tiles whose 64 keys are all masked. K7 runs at every row of chip_smoke.py's phase
-3 (3B and 7B, video M 7200 and 24,480, text M 58), each tree through its
-own entry points: this one through ops/quant.py:launch (its regime of M),
-an older tree through its single entry.
+3 (3B and 7B, video M 7200 and 24,480, text M 58) and at the video rows
+of the benchmark's image mix (7B, M 4096, 6912 and 14,400: IMAGE_ROWS),
+each tree through its own entry points: this one through
+ops/quant.py:launch (its regime of M), an older tree through its single
+entry.
 Prints ptxas's register and spill report of every build, then per shape
 each build's rel L2 against the plain version and, for ``--rounds`` rounds,
 ms per call (CUDA events over 10 calls after a warm-up) of the library
@@ -130,6 +132,9 @@ ABLATIONS = {
     "K5-skip": ("flash", (("flash_attention.cuh", r"(uint64_t live_tiles\(const Item& it\) const \{).*?\n  \}",
                           r"\1\n    return all_tiles();\n  }"),)),
 }
+
+
+IMAGE_ROWS = (4096, 6912, 14400)  # DiT video rows of a 512x512, 576x768 / 768x576 and 720x1280 image upscaled 2x
 
 
 def int8_linear_shapes(cfg: DiTConfig) -> list:
@@ -382,6 +387,7 @@ def main():
     k7_rows = [(cfg.variant, name, M, K, N) for cfg in (dit_3b(), dit_7b()) for M in (7200, 58)
                for name, K, N, _ in int8_linear_shapes(cfg)]
     k7_rows.append(("3b", "qkv", 24480, *int8_linear_shapes(dit_3b())[0][1:3]))
+    k7_rows += [("7b", name, M, K, N) for M in IMAGE_ROWS for name, K, N, _ in int8_linear_shapes(dit_7b())]
     for variant, name, M, K, N in k7_rows if "K7" in kernels else ():
         q = quant.quantize_linear(torch.randn(K, N, generator=g, device=dev) * K**-0.5)
         w_q, w_s, w_deq = q["w_q"].t().contiguous(), q["w_s"], quant.dequantize_weight(q)

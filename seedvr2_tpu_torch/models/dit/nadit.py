@@ -49,6 +49,7 @@ from ...ops.rope import axial_freqs_lang, axial_freqs_pixel, pad_angles, rotate
 from ...parallel.comm import all_gather_cat, all_reduce_sum, pad_to
 from ...parallel.sharding import check_tensor_split
 from ...parallel.sp import ShardingHints, current_hints
+from ...utils.spans import span
 from ..params import NORMAL, ONES, ONES_PLUS_NORMAL, Leaf, Linear, branch, leaf_paths
 from .windows import WindowPlan, window_plan
 
@@ -162,6 +163,16 @@ def mlp_hidden(cfg: DiTConfig) -> int:
     return cfg.vid_dim * cfg.expand_ratio
 
 
+class DiTLinear(Linear):
+    """A linear of the DiT: each product (K7 on an int8 weight, the matmul
+    in the compute type otherwise) is one profiler range "dit.linear"
+    (utils/spans.py); the VAE's linears are plain ``Linear``."""
+
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        with span("dit.linear"):
+            return super().forward(x, bias)
+
+
 def _row_linear(lin: Linear, x: torch.Tensor, hints: Optional[ShardingHints]) -> torch.Tensor:
     """x @ w + b for a row-parallel layer: under tensor sharding the partial
     products (int8: already scaled, the scale being per output column) are
@@ -184,12 +195,12 @@ class MLP(nn.Module):
         hidden = mlp_hidden(cfg) // tensor
         self.swiglu = cfg.mlp_type == "swiglu"
         if self.swiglu:
-            self.proj_in_gate = Linear(D, hidden, device, dtype, bias=False, quant=int8("proj_in_gate"))
-            self.proj_in = Linear(D, hidden, device, dtype, bias=False, quant=int8("proj_in"))
-            self.proj_out = Linear(hidden, D, device, dtype, bias=False, quant=int8("proj_out"))
+            self.proj_in_gate = DiTLinear(D, hidden, device, dtype, bias=False, quant=int8("proj_in_gate"))
+            self.proj_in = DiTLinear(D, hidden, device, dtype, bias=False, quant=int8("proj_in"))
+            self.proj_out = DiTLinear(hidden, D, device, dtype, bias=False, quant=int8("proj_out"))
         else:
-            self.proj_in = Linear(D, hidden, device, dtype, quant=int8("proj_in"))
-            self.proj_out = Linear(hidden, D, device, dtype, quant=int8("proj_out"))
+            self.proj_in = DiTLinear(D, hidden, device, dtype, quant=int8("proj_in"))
+            self.proj_out = DiTLinear(hidden, D, device, dtype, quant=int8("proj_out"))
 
     def forward(self, x: torch.Tensor, hints: Optional[ShardingHints] = None) -> torch.Tensor:
         if self.swiglu:
@@ -207,9 +218,9 @@ class Attention(nn.Module):
     def __init__(self, cfg: DiTConfig, shared: bool, device, dtype, tensor: int = 1, int8=lambda path: False):
         super().__init__()
         D, inner, hd = cfg.vid_dim, cfg.inner_dim // tensor, cfg.head_dim
-        self.qkv = _mm(lambda b: Linear(D, (3, inner), device, dtype, bias=cfg.qk_bias, quant=int8(f"qkv/{b}")),
+        self.qkv = _mm(lambda b: DiTLinear(D, (3, inner), device, dtype, bias=cfg.qk_bias, quant=int8(f"qkv/{b}")),
                        shared, False)
-        self.out = _mm(lambda b: Linear(inner, D, device, dtype, quant=int8(f"out/{b}")), shared, False)
+        self.out = _mm(lambda b: DiTLinear(inner, D, device, dtype, quant=int8(f"out/{b}")), shared, False)
         self.norm_q = _mm(lambda b: Leaf({"w": ((hd,), (ONES, 0.0))}, device, dtype), shared, False)
         self.norm_k = _mm(lambda b: Leaf({"w": ((hd,), (ONES, 0.0))}, device, dtype), shared, False)
 
@@ -232,9 +243,9 @@ class TimeEmbedding(nn.Module):
         super().__init__()
         D = cfg.vid_dim
         self.sinusoidal_dim = cfg.sinusoidal_dim
-        self.proj_in = Linear(cfg.sinusoidal_dim, D, device, dtype)
-        self.proj_hid = Linear(D, D, device, dtype)
-        self.proj_out = Linear(D, cfg.emb_dim, device, dtype)
+        self.proj_in = DiTLinear(cfg.sinusoidal_dim, D, device, dtype)
+        self.proj_hid = DiTLinear(D, D, device, dtype)
+        self.proj_out = DiTLinear(D, cfg.emb_dim, device, dtype)
 
     def forward(self, timestep: torch.Tensor, dtype) -> torch.Tensor:
         """Sinusoid [sin | cos] (diffusers layout) + SiLU MLP -> [B, 6D]."""
@@ -292,10 +303,10 @@ class NaDiT(nn.Module):
         self.set_attention_mode(attention_mode)
         D = cfg.vid_dim
         patch = int(np.prod(cfg.patch_size))
-        self.vid_in = Linear(cfg.vid_in_channels * patch, D, device, dtype)
-        self.txt_in = Linear(cfg.txt_in_dim, cfg.txt_dim, device, dtype)
+        self.vid_in = DiTLinear(cfg.vid_in_channels * patch, D, device, dtype)
+        self.txt_in = DiTLinear(cfg.txt_in_dim, cfg.txt_dim, device, dtype)
         self.emb_in = TimeEmbedding(cfg, device, dtype)
-        self.vid_out = Linear(D, cfg.vid_out_channels * patch, device, dtype)
+        self.vid_out = DiTLinear(D, cfg.vid_out_channels * patch, device, dtype)
         if cfg.vid_out_norm:
             self.vid_out_norm = Leaf({"w": ((D,), (ONES, 0.0))}, device, dtype)
             self.vid_out_ada = nn.ModuleDict(

@@ -18,7 +18,11 @@ Every range of the port goes through here:
   (pipeline/phases.py): the stages of a batch and the 4-phase path;
 - ``vae.mid_attention``, ``vae.causal_pad``, ``vae.group_norm``,
   ``vae.conv_plain`` (models/vae/): the VAE's passes around its conv
-  kernels.
+  kernels;
+- ``dit.linear`` (models/dit/nadit.py:DiTLinear): every linear of the
+  DiT, one range a product (patch in and out, text in, the time
+  embedding, each layer's qkv, out and MLP of both streams), K7 on an
+  int8 weight; the bias of a row-parallel layer is added outside it.
 
 A request's ranges are those nested in its ``generate`` range on its
 thread.

@@ -871,6 +871,34 @@ def test_w8a16_linear_rejects_what_it_does_not_take(cuda):
     assert quant.linear_apply(x, w_q, w_s).shape == (4, 256)
 
 
+def test_int8_7b_forward_runs_every_block_linear_on_k7(cuda):
+    """One NaDiT-7B forward with int8 block linears (random weights) at the
+    image mix's smallest size, a 512 x 512 image upscaled 2x (latent 1 x 128
+    x 128: 4,096 video rows), with the 58 text rows: 36 layers x 2 streams x
+    (qkv, out, 2 MLP) = 288 K7 launches, the video rows on wgmma, the text
+    rows on split-K."""
+    from seedvr2_tpu_torch.io.weights import random_dit
+    from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
+
+    cfg = dit_7b()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dit = random_dit(cfg, g, torch.bfloat16, quantize="int8").set_attention_mode("flash_attn_2")
+    vid = torch.randn(1, 1, 128, 128, cfg.vid_in_channels, device=cuda, generator=g).bfloat16()
+    txt = torch.randn(1, 58, cfg.txt_in_dim, device=cuda, generator=g).bfloat16()
+    plans = device_plans(build_attn_plans(cfg, (1, 64, 64), 58), cfg.head_dim, cuda)
+    quant.reset_launches()
+    with torch.inference_mode():
+        out = dit(vid, txt, torch.full((1,), 1000.0, device=cuda), plans)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 1, 128, 128, cfg.vid_out_channels) and bool(out.float().isfinite().all())
+    k7 = quant.linear_apply
+    assert (k7.launches, k7.launches_wgmma, k7.launches_splitk) == (288, 144, 144)
+    D, hid = cfg.vid_dim, 4 * cfg.vid_dim
+    shapes = {(M, K, N): cfg.num_layers for M in (4096, 58)
+              for K, N in ((D, 3 * cfg.inner_dim), (cfg.inner_dim, D), (D, hid), (hid, D))}
+    assert k7.launches_by_shape == shapes
+
+
 @pytest.fixture
 def memory_cap(cuda):
     """cap(gib) limits this process's share of the card

@@ -69,7 +69,8 @@ def test_generate_ranges_nest(runner, tmp_path, frames, batches):
     r = _traced(lambda: out.append(phases.generate(runner, clip, runner.cfg, packed=True)), tmp_path / "t.json")
     assert out[0].shape[0] == frames and out[0].dtype == np.uint8
     assert len(r["generate"]) == 1
-    assert set(r) == {"generate", *STREAM, *STAGES, *VAE, "vae.conv_plain"}  # no other name, none renamed
+    assert set(r) == {"generate", *STREAM, *STAGES, *VAE, "vae.conv_plain", "dit.linear"}  # no other, none renamed
+    assert r["dit.linear"] and all(_inside(c, r["runner.dit_step"]) for c in r["dit.linear"])
     for name in STREAM + STAGES:
         assert len(r[name]) == batches, name  # one upload, one wait and one unpack a batch
         assert all(_inside(c, r["generate"]) for c in r[name]), name
@@ -81,6 +82,38 @@ def test_generate_ranges_nest(runner, tmp_path, frames, batches):
     assert all(any(_inside(c, [m]) for c in r["vae.group_norm"]) for m in r["vae.mid_attention"])
     # the stream's host steps lie outside the model stages
     assert not any(_inside(c, r[s]) for c in r["stream.upload"] + r["stream.unpack"] for s in STAGES)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_dit_linear_ranges(tmp_path, quantize):
+    """One dit.linear range a DiT linear (a DiT of NaDiT-7B's shape calls
+    each once a forward; at width 256 every block linear is int8 under
+    quantize="int8"), all inside the DiT step; none in the VAE's mid
+    attention, whose q, k, v and out are linears too."""
+    from seedvr2_tpu_torch.models.dit.nadit import DiTLinear
+    from seedvr2_tpu_torch.models.params import Linear
+
+    vc = config.vae_tiny()
+    dc = dataclasses.replace(config.dit_tiny("window_pixel"), vid_dim=256, txt_dim=256, emb_dim=6 * 256, heads=2,
+                             head_dim=128, rope_dim=64, mm_layers=2, vid_in_channels=2 * vc.latent_channels + 1,
+                             vid_out_channels=vc.latent_channels)
+    cfg = config.PipelineConfig(dit=dc, vae=vc, compute_dtype="float32", resolution=32, batch_size=5, output_bits=8)
+    g = torch.Generator().manual_seed(5)
+    dit = random_dit(dc, g, torch.float32, quantize=quantize)
+    vae = random_vae(vc, g, torch.float32)
+    text = np.random.RandomState(0).randn(7, dc.txt_in_dim).astype(np.float32)
+    runner = Runner(cfg, dit.set_attention_mode("flash_attn_2"), vae, text, device="cpu")
+    linears = [m for m in dit.modules() if isinstance(m, Linear)]
+    assert all(isinstance(m, DiTLinear) for m in linears)
+    assert not any(isinstance(m, DiTLinear) for m in vae.modules())
+    assert sum("w_q" in m.spec for m in linears) == (16 if quantize else 0)
+    clip = np.random.RandomState(6).randint(0, 256, (5, 24, 32, 3)).astype(np.uint8)
+    r = _traced(lambda: phases.generate(runner, clip, cfg, packed=True), tmp_path / "t.json")
+    assert len(r["runner.dit_step"]) == 1
+    assert len(r["dit.linear"]) == len(linears) == 5 + 2 * 2 * 4 + 1  # patch in, text in, time embedding 3, ...
+    assert all(_inside(c, r["runner.dit_step"]) for c in r["dit.linear"])
+    assert len(r["vae.mid_attention"]) == 2
+    assert not any(_inside(c, r["vae.mid_attention"]) for c in r["dit.linear"])
 
 
 def _conv(cin, cout, kernel, fusion):
