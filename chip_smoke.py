@@ -6,8 +6,8 @@
 Phases (any failure raises and the script exits non-zero without a result):
   1. card: name, power limit, versions;
   2. build: compile csrc/ with nvcc for sm_90a (build time, -Xptxas -v);
-  3. kernels: K1, K2, K3 (3B), K3q and K5 (7B), K7 (3B, 7B), K10 (the VAE mid attention), K4 (K1 with the GroupNorm +
-     SiLU prologue, tables from GroupNorm weights, at K1's shapes), K8 (those
+  3. kernels: K1, K2, K3 (3B), K3q, K5 and K11 (7B), K7 (3B, 7B), K10 (the VAE mid attention), K4 (K1 with
+     the GroupNorm + SiLU prologue, tables from GroupNorm weights, at K1's shapes), K8 (those
      tables), K9 (the GroupNorm (+ SiLU) pass on them) and K6 (the tap-folded conv) against their plain PyTorch
      versions at the shapes of the 720p paths, and K3 and K4 again at the
      long clip's shapes (phase 7's DiT latent 3 x 68 x 120; the c128 and
@@ -54,7 +54,12 @@ Phases (any failure raises and the script exits non-zero without a result):
      copy), with SDPA on the same bf16 q, k, v as the library call, the
      bound by operations and the share of it (``share``), K10's ptxas
      lines, registers and shared memory at both widths, and the same bits
-     on a second launch;
+     on a second launch; K11 rows (K11_SHAPES: the 7B's plans at phase 6's
+     720p batch, a video1080 batch's latent, plain and shifted, and a
+     720x1280 image's) against the plain version, which is the unfused
+     route's op chain it replaced (``factor``: ms / that chain's ms), the
+     bound by bytes and the share of it, K11's ptxas lines, and the same
+     bits on a second launch;
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
@@ -75,7 +80,7 @@ Phases (any failure raises and the script exits non-zero without a result):
      Runner._encode / _decode call, summed: vae_encode_ms, vae_decode_ms);
   6. the 7B path: NaDiT-7B (36 layers, width 3072, 24 heads) and the VAE at
      full width, the same clip, once under sageattn_2 (K3q in every layer)
-     and once under flash_attn_2 (K5 in every layer);
+     and once under flash_attn_2 (K11 then K5 in every layer);
   7. the long-clip path: NaDiT-3B and the VAE at full width, a 15-frame
      960x540 clip upscaled to 1920x1080 through the 4-phase pipeline:
      batch_size 9 with temporal_overlap 3 (two batches, Hann blend), the
@@ -194,7 +199,7 @@ launch only in phases 3 and 10 (read_counts raises elsewhere).
 Every launch counter is set to 0 right before each driven run of phases 5,
 6 and 7 and read right after it; a kernel row's ``launches`` is the count
 of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4,
-K8: phase 5 with GroupNorm fusion; K3q, K5: their phase-6 run; the 1080p K3
+K8: phase 5 with GroupNorm fusion; K3q, K5, K11: their phase-6 run; the 1080p K3
 rows and the long-clip K4 and K8 rows: phase 7); phase 7's counts also stand under
 ``e2e.long_clip.launches``; a phase-8 row's is its rank's count in the
 phase-8 run of its path (K3s over K3 or over K3q, or K5, per rank); K9's
@@ -264,6 +269,7 @@ def kernel_counters():
     from seedvr2_tpu_torch.ops import mid_attention as k10
     from seedvr2_tpu_torch.ops import normalization as norm
     from seedvr2_tpu_torch.ops import quant
+    from seedvr2_tpu_torch.ops import window_prepare as k11
 
     return {
         "K1": (k1.conv3d_3x3x3, "launches"),
@@ -271,6 +277,7 @@ def kernel_counters():
         "K3": (k3.fused_window_attention, "launches"),
         "K3q": (k3.fused_window_attention, "launches_int8"),
         "K5": (k5.flash_attention, "launches"),
+        "K11": (k11.window_prepare, "launches"),
         "K4": (k1.conv3d_3x3x3, "launches_gn"),
         "K8": (k1.gn_silu_tables, "launches"),
         "K9": (norm.gn_apply, "launches"),
@@ -503,6 +510,58 @@ def _flash_attention_rows(dev, g, cfg, build):
         rows.append(_flash_row(f"{cfg.variant} {which} B{nW} S{S} H{H}", q, k, v, kv_valid, build,
                                "F.scaled_dot_product_attention on the [B, H, S, D] views with the key mask"))
         del q, k, v
+    return rows
+
+
+# K11's rows: (patched latent, plain 0 or shifted 1, which call, the driven run that gives the shape): phase 6's
+# 720p batch (its flash_attn_2 run's count), a video1080 batch's latent (1080x1920 padded to 1088x1920, /8 by the
+# VAE, /2 by the patch; 5 frames -> 2 latents) in both plans, and a 720x1280 image's at 2x (one 90 x 160 latent),
+# which no driven run of this script gives
+K11_SHAPES = [((2, 45, 80), 0, "phase 6 720p batch", "main"), ((2, 68, 120), 0, "video1080 batch", None),
+              ((2, 68, 120), 1, "video1080 batch", None), ((1, 90, 160), 0, "image2x 720x1280", None)]
+
+
+def _window_prepare_rows(dev, g):
+    """K11 at the 7B's plans (24 heads, 58 text tokens) against its plain
+    version, which is the op chain it replaced on the unfused route (its
+    time ``plain_ms``; ``factor`` = ms / plain_ms); bound by bytes (the qkv
+    and text read once, the index, norms and tables, K5's three operands
+    written once) and the share of it (``share``); ptxas's lines; the same
+    bits on a second launch."""
+    from seedvr2_tpu_torch.config import dit_7b
+    from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
+    from seedvr2_tpu_torch.ops import cuda_lib
+    from seedvr2_tpu_torch.ops import window_prepare as k11
+
+    cfg = dit_7b()
+    H, D, Lt = cfg.heads, cfg.head_dim, 58
+    ptxas = [line for _, line in cuda_lib.ptxas_lines(cuda_lib.build().log, "window_prepare_kernel")]
+    print(f"  K11 kernel: {ptxas}", flush=True)
+    rows = []
+    for thw, which, what, path in K11_SHAPES:
+        dp = device_plans(build_attn_plans(cfg, thw, Lt), D, dev)[which]
+        nW, mL = dp.valid.shape
+        y = torch.randn((1, dp.inverse.numel(), 3, H, D), generator=g, device=dev).bfloat16()
+        t = torch.randn((1, Lt, 3, H, D), generator=g, device=dev).bfloat16()
+        norms = 1 + 0.1 * torch.randn(4, D, generator=g, device=dev)
+        args = (y, t, dp.index, dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.rope_txt, norms, True,
+                cfg.norm_eps)
+        tables = (dp.vid_cos, dp.vid_sin) + ((dp.txt_cos, dp.txt_sin) if dp.rope_txt else ())
+        moved = nbytes(y, t, dp.index, norms, *tables) + 3 * nW * (mL + Lt) * H * D * 2
+        row = compare(
+            "K11", f"window_prepare 7b {what} {('plain', 'shifted')[which]} nW{nW} mL{mL} Lt{Lt} H{H}",
+            "seedvr2_tpu_torch/csrc/window_prepare.cuh",
+            "none (XLA's fused gather, rms_norm, apply_rotary and concatenation of "
+            "seedvr2_tpu/models/dit/nadit.py:360 _window_attention)",
+            lambda: k11.window_prepare(*args), lambda: k11.window_prepare_plain(*args), moved, {},
+            extra_row={"path": path, "ptxas": ptxas},
+        )
+        row["factor"], row["share"] = row["ms"] / row["plain_ms"], row["bound_ms"] / row["ms"]
+        print(f"  {row['name']}: {100 * row['share']:.1f}% of its bound, {row['factor']:.3f} of the op chain's time",
+              flush=True)
+        same_bits("K11", row["name"], lambda: k11.window_prepare(*args))
+        rows.append(row)
+        del y, t, args
     return rows
 
 
@@ -895,6 +954,7 @@ def kernel_phase(dev):
     rows += _window_attention_rows(dev, g, dit_3b(), False, wbuilds, thw=(3, 68, 120), res="1080p ", path="long_clip")
     rows += _window_attention_rows(dev, g, dit_7b(), True, wbuilds)
     rows += _flash_attention_rows(dev, g, dit_7b(), flash_build())
+    rows += _window_prepare_rows(dev, g)
     rows += _mid_attention_rows(dev, g)
     rows += _k7_rows(dev, g)
     return rows
@@ -948,6 +1008,8 @@ def reference_phase(dev, text, rope_type, mode, long_clip=False):
     label = f"small {rope_type} {mode}" + (" 4-phase tiled gn_fusion" if long_clip else "")
     if ran[want] != cfg.dit.num_layers * n_batches:
         raise RuntimeError(f"{label}: {want} ran {ran[want]} times, expected {cfg.dit.num_layers * n_batches}")
+    if ran["K11"] != (ran["K5"] if mode == "flash_attn_2" else 0):
+        raise RuntimeError(f"{label}: K11 ran {ran['K11']} times beside K5's {ran['K5']}")
     # every GroupNorm through K8: the resnets' (K1's or K4's count), norm_out and the mid attention's, which K9
     # applies (with K4, only those four)
     if long_clip and not (ran["K4"] > 0 and ran["K1"] == 0 and ran["K9"] > 0 and ran["K8"] == ran["K4"] + ran["K9"]):
@@ -1100,10 +1162,11 @@ def path_7b_phase(dev, text, frames):
     n = cfg.dit.num_layers
     out = {}
     launches, out["sageattn_2"] = drive(runner, frames, "7B sageattn_2")
-    expect("7B sageattn_2", launches, {"K3q": n, "K3": 0, "K5": 0, "K8": 52, "K9": 52, "K10": 2})  # 3B's VAE, unfused
+    # the 3B's VAE, unfused
+    expect("7B sageattn_2", launches, {"K3q": n, "K3": 0, "K5": 0, "K11": 0, "K8": 52, "K9": 52, "K10": 2})
     runner.dit.set_attention_mode("flash_attn_2")
     launches_f, out["flash_attn_2"] = drive(runner, frames, "7B flash_attn_2")
-    expect("7B flash_attn_2", launches_f, {"K5": n, "K3": 0, "K3q": 0, "K8": 52, "K9": 52, "K10": 2})
+    expect("7B flash_attn_2", launches_f, {"K5": n, "K11": n, "K3": 0, "K3q": 0, "K8": 52, "K9": 52, "K10": 2})
     return launches, launches_f, out
 
 
@@ -1319,7 +1382,7 @@ def _phase8_rank(rank, text, frames, device="cuda:0"):
     # flash_attn_2: the unfused window path, K5 on the rank's windows (seq) or heads (tensor)
     dit.set_attention_mode("flash_attn_2")
     ref720f = _phase8_step(single, lat720, 5)[0]
-    run("seq_720p_flash", seq_runner, lat720, ref720f, {"K5": n3, "K3s": 0, "K3": 0})
+    run("seq_720p_flash", seq_runner, lat720, ref720f, {"K5": n3, "K11": n3, "K3s": 0, "K3": 0})
     local = shard_dit(dit.set_attention_mode("fused"), meshes[(1, 1, 2)])
     del dit, single, seq_runner, ref1080, lat1080
     gc.collect()
@@ -1327,7 +1390,7 @@ def _phase8_rank(rank, text, frames, device="cuda:0"):
     tensor_runner = Runner(cfg, local, None, text, device=dev, mesh=meshes[(1, 1, 2)])
     run("tensor_720p", tensor_runner, lat720, ref720, {"K3s": n3, "K3": n3, "K3q": 0})
     local.set_attention_mode("flash_attn_2")
-    run("tensor_720p_flash", tensor_runner, lat720, ref720f, {"K5": n3, "K3s": 0, "K3": 0})
+    run("tensor_720p_flash", tensor_runner, lat720, ref720f, {"K5": n3, "K11": n3, "K3s": 0, "K3": 0})
     del local, tensor_runner, ref720f
     gc.collect()
     torch.cuda.empty_cache()
@@ -2701,7 +2764,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     launches_3b_int8 = e2e_int8["3B --quantize int8 (safetensors)"]["launches"]
-    launches.update(K4=launches_gn["K4"], K8=launches_gn["K8"], K3q=launches_q["K3q"], K5=launches_f["K5"], K6=k6)
+    launches.update(K4=launches_gn["K4"], K8=launches_gn["K8"], K3q=launches_q["K3q"], K5=launches_f["K5"],
+                    K11=launches_f["K11"], K6=k6)
     path_counts = {"long_clip": launches_long, "int8_7b": launches_int8, "int8_3b": launches_3b_int8}
     for row in rows:
         if "path" in row and row["path"] is None:

@@ -10,9 +10,10 @@ is video-only; 3B ropes text too (mmrope3d), 7B only video (window_pixel).
 
 The attention mode (ops/attention.py) picks the window attention of every
 layer: "fused" and "fused_int8" run K3 / K3q on head-major q, k, v with
-norm and RoPE inside the kernel; "pallas" and "xla" gather, normalise and
-rope outside, append the text to every window and call K5 or the plain
-attention.
+norm and RoPE inside the kernel; "pallas" and "xla" prepare K5's
+token-major operands outside it (window gather, norm, RoPE, the text
+appended to every window: K11 under "pallas" on the card, the plain ops
+otherwise) and call K5 or the plain attention.
 
 Under parallel/sp.py's ``sharded_dit`` the forward runs on one rank's part:
 its token slice (seq) and its heads and MLP columns (tensor, with weights
@@ -45,7 +46,8 @@ from ...ops.fused_window_attention import (
 )
 from ...ops.normalization import rms_norm
 from ...ops import quant
-from ...ops.rope import axial_freqs_lang, axial_freqs_pixel, pad_angles, rotate
+from ...ops.rope import axial_freqs_lang, axial_freqs_pixel, pad_angles
+from ...ops.window_prepare import window_prepare, window_prepare_plain
 from ...parallel.comm import all_gather_cat, all_reduce_sum, pad_to
 from ...parallel.sharding import check_tensor_split
 from ...parallel.sp import ShardingHints, current_hints
@@ -110,6 +112,7 @@ class DevicePlan(NamedTuple):
     txt_cos: torch.Tensor  # [txt_len, head_dim] fp32
     txt_sin: torch.Tensor
     rope_txt: bool
+    kv_valid: torch.Tensor  # [n_win, max_len + txt_len] bool: K5's keys, [valid | all text]
 
     @staticmethod
     def build(lp: LayerPlan, head_dim: int, txt_len: int, device) -> "DevicePlan":
@@ -119,16 +122,20 @@ class DevicePlan(NamedTuple):
         tang = lp.txt_angles if rope_txt else np.zeros((txt_len, head_dim), np.float32)
         v = torch.from_numpy(np.ascontiguousarray(vang)).to(device)
         t = torch.from_numpy(np.ascontiguousarray(tang)).to(device)
+        kv_valid = np.concatenate([p.valid, np.ones((p.n_win, txt_len), bool)], axis=1)
         return DevicePlan(
             torch.from_numpy(p.index.reshape(-1).astype(np.int64)).to(device),
             torch.from_numpy(p.inverse.astype(np.int64)).to(device),
             torch.from_numpy(p.valid).to(device),
             torch.cos(v), torch.sin(v), torch.cos(t), torch.sin(t), rope_txt,
+            torch.from_numpy(kv_valid).to(device),
         )
 
 
 def device_plans(plans: AttnPlans, head_dim: int, device) -> Tuple[DevicePlan, DevicePlan]:
-    return tuple(DevicePlan.build(lp, head_dim, plans.txt_len, device) for lp in (plans.plain, plans.shifted))
+    plain, shifted = (DevicePlan.build(lp, head_dim, plans.txt_len, device) for lp in (plans.plain, plans.shifted))
+    # the text angles do not depend on the windows: one copy of their tables for both plans
+    return plain, shifted._replace(txt_cos=plain.txt_cos, txt_sin=plain.txt_sin)
 
 
 # --------------------------------------------------------------------------- #
@@ -223,6 +230,12 @@ class Attention(nn.Module):
         self.out = _mm(lambda b: DiTLinear(inner, D, device, dtype, quant=int8(f"out/{b}")), shared, False)
         self.norm_q = _mm(lambda b: Leaf({"w": ((hd,), (ONES, 0.0))}, device, dtype), shared, False)
         self.norm_k = _mm(lambda b: Leaf({"w": ((hd,), (ONES, 0.0))}, device, dtype), shared, False)
+
+    def qk_norms(self) -> torch.Tensor:
+        """[4, head_dim] fp32: the q and k norm weights of the video, then
+        the text stream, as K3 and K11 take them."""
+        return torch.stack([branch(self.norm_q, "vid").w, branch(self.norm_k, "vid").w,
+                            branch(self.norm_q, "txt").w, branch(self.norm_k, "txt").w]).float()
 
 
 class Block(nn.Module):
@@ -346,10 +359,12 @@ class NaDiT(nn.Module):
     @staticmethod
     def _local_index(dp: DevicePlan, first: int, end: int, per: int) -> torch.Tensor:
         """Token indices of windows [first, end), then (per - (end - first))
-        all-invalid padding windows that read token 0."""
+        all-invalid padding windows that read token 0; a new tensor even
+        without padding (a slice of the plan's index starts at an offset
+        K11's 16-byte alignment check may refuse)."""
         mL = dp.valid.shape[1]
         idx = dp.index[first * mL : end * mL]
-        return idx if end - first == per else torch.cat([idx, idx.new_zeros((per - (end - first)) * mL)])
+        return torch.cat([idx, idx.new_zeros((per - (end - first)) * mL)])
 
     def _window_attention_fused(self, attn: Attention, vid, txt, dp: DevicePlan, h: Optional[ShardingHints] = None):
         """K3 / K3q on head-major q, k, v. Sharded (``h``): this rank's
@@ -365,15 +380,11 @@ class NaDiT(nn.Module):
         def head_major(y):  # [B, len, 3*H*hd] -> [B, 3, H, len, hd]
             return y.reshape(y.shape[0], y.shape[1], 3, H, hd).permute(0, 2, 3, 1, 4)
 
-        norms = torch.stack(
-            [branch(attn.norm_q, "vid").w, branch(attn.norm_k, "vid").w,
-             branch(attn.norm_q, "txt").w, branch(attn.norm_k, "txt").w]
-        ).float()
         nW, mL = dp.valid.shape
         txt_qkv = head_major(self._qkv_tokens(branch(attn.qkv, "txt"), txt)).contiguous()
         vqkv = self._qkv_tokens(branch(attn.qkv, "vid"), vid)
         quant = self.attention_backend == "fused_int8"
-        tables = (dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.valid, dp.rope_txt, norms, cfg.qk_norm,
+        tables = (dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.valid, dp.rope_txt, attn.qk_norms(), cfg.qk_norm,
                   cfg.norm_eps)
         if h is None:
             vid_win = head_major(vqkv).index_select(3, dp.index).reshape(B, 3, H, nW, mL, hd)
@@ -398,13 +409,14 @@ class NaDiT(nn.Module):
         return out_proj(branch(attn.out, "vid"), vid_tok), out_proj(branch(attn.out, "txt"), txt_tok)
 
     def _window_attention_unfused(self, attn: Attention, vid, txt, dp: DevicePlan, h: Optional[ShardingHints] = None):
-        """Token-major path: projection, window gather, rms-norm and RoPE
-        outside the attention; text appended to every window; keys valid =
-        [window validity | all text]; K5 ("pallas") or the plain attention
-        ("xla"); inverse gather and the text mean over windows. Sharded
-        (``h``): B * windows over seq and heads over tensor, as the JAX
-        package's constrain_attn_io shards them, with the gathers of the
-        fused path."""
+        """Token-major path: projection, then K5's operands prepared (window
+        gather, rms-norm and RoPE, text appended to every window): K11 under
+        "pallas" on the card (ops/window_prepare.py), the plain ops under
+        "xla" and on the CPU; keys valid = [window validity | all text]; K5
+        ("pallas") or the plain attention ("xla"); inverse gather and the
+        text mean over windows. Sharded (``h``): B * windows over seq and
+        heads over tensor, as the JAX package's constrain_attn_io shards
+        them, with the gathers of the fused path."""
         cfg = self.cfg
         B = vid.shape[0]
         Lt = txt.shape[1]
@@ -415,30 +427,18 @@ class NaDiT(nn.Module):
         cos, sin, valid = shard_window_tables(dp.vid_cos, dp.vid_sin, dp.valid, rank, size)
         y = self._qkv_tokens(branch(attn.qkv, "vid"), vid)
         if h is None:
-            index, inverse = dp.index, dp.inverse
+            index, inverse, kv_valid = dp.index, dp.inverse, dp.kv_valid
         else:
             t0, t1, chunk = h.token_range(dp.inverse.numel())
             y = self._gather_tokens(y, h, chunk)
             index, inverse = self._local_index(dp, first, end, per), dp.inverse[t0:t1]
-        vq, vk, vv = y.reshape(B, -1, 3, H, hd).index_select(1, index).reshape(B, per, mL, 3, H, hd).unbind(3)
-        tq, tk, tv = self._qkv_tokens(branch(attn.qkv, "txt"), txt).reshape(B, Lt, 3, H, hd).unbind(2)
-        if cfg.qk_norm:
-            vq = rms_norm(vq, branch(attn.norm_q, "vid").w, cfg.norm_eps)
-            vk = rms_norm(vk, branch(attn.norm_k, "vid").w, cfg.norm_eps)
-            tq = rms_norm(tq, branch(attn.norm_q, "txt").w, cfg.norm_eps)
-            tk = rms_norm(tk, branch(attn.norm_k, "txt").w, cfg.norm_eps)
-        cos, sin = cos[None, :, :, None], sin[None, :, :, None]  # [1, per, mL, 1, hd]
-        vq, vk = rotate(vq, cos, sin).to(vq.dtype), rotate(vk, cos, sin).to(vk.dtype)
-        if dp.rope_txt:
-            tcos, tsin = dp.txt_cos[None, :, None], dp.txt_sin[None, :, None]  # [1, Lt, 1, hd]
-            tq, tk = rotate(tq, tcos, tsin).to(tq.dtype), rotate(tk, tcos, tsin).to(tk.dtype)
-
-        def with_txt(vw, tw):  # [B, per, mL, H, hd] + [B, Lt, H, hd] -> [B*per, mL+Lt, H, hd]
-            return torch.cat([vw, tw[:, None].expand(B, per, Lt, H, hd)], dim=2).reshape(B * per, mL + Lt, H, hd)
-
-        kv_valid = torch.cat([valid, torch.ones((per, Lt), dtype=torch.bool, device=valid.device)], dim=1)
+            kv_valid = torch.cat([valid, torch.ones((per, Lt), dtype=torch.bool, device=valid.device)], dim=1)
+        tqkv = self._qkv_tokens(branch(attn.qkv, "txt"), txt).reshape(B, Lt, 3, H, hd)
+        prepare = window_prepare if self.attention_backend == "pallas" else window_prepare_plain
+        q, k, v = prepare(y.reshape(B, -1, 3, H, hd), tqkv, index, cos, sin, dp.txt_cos, dp.txt_sin, dp.rope_txt,
+                          attn.qk_norms(), cfg.qk_norm, cfg.norm_eps)
         kv_valid = kv_valid[None].expand(B, per, mL + Lt).reshape(B * per, mL + Lt)
-        out = attention(with_txt(vq, tq), with_txt(vk, tk), with_txt(vv, tv), kv_valid, backend=self.attention_backend)
+        out = attention(q, k, v, kv_valid, backend=self.attention_backend)
         out = out.reshape(B, per, mL + Lt, H * hd)
         if h is None:
             vid_out = out[:, :, :mL].reshape(B, nW * mL, H * hd).index_select(1, inverse)

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "seedvr2_window_qk_prepare": [_vp] * 18 + [_i] * 8 + [_f] + [_vp],
     "seedvr2_window_flash": [_vp] * 14 + [_i] * 6 + [_f] + [_vp],
     "seedvr2_window_flash_attributes": [_i] + [ctypes.POINTER(_i)] * 3,
+    "seedvr2_window_prepare": [_vp] * 9 + [_i] * 8 + [_f] + [_vp],
     "seedvr2_flash_attention": [_vp] * 6 + [_i] * 4 + [_f] + [_vp],
     "seedvr2_flash_attention_attributes": [ctypes.POINTER(_i)] * 3,
     "seedvr2_mid_attention": [_vp] * 4 + [_i] * 3 + [_f] + [_vp],

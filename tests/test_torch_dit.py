@@ -152,3 +152,46 @@ def test_7b_rope_covers_60_of_128_dims():
 def test_unknown_attention_mode_raises():
     with pytest.raises(ValueError, match="Unknown attention backend"):
         nadit.NaDiT(config.dit_tiny(), "meta", torch.float32, attention_mode="flash")
+
+
+@pytest.mark.parametrize("qk_norm", [True, False])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("rope_type", ["mmrope3d", "window_pixel", None])
+def test_pallas_operands_match_the_jax_unfused_path(rope_type, shifted, qk_norm, monkeypatch):
+    """The "pallas" route's preparation on the CPU (K11's plain version,
+    ops/window_prepare.py) against the JAX package's unfused window
+    attention: the q, k, v and key mask that each route hands its attention
+    call, captured there, for layer 0 (separate video and text weights), B =
+    2, windows ragged in both plans, with and without the qk norm; text
+    roped only under mmrope3d. Same fp32 weights and inputs on both sides."""
+    cfg = dataclasses.replace(dit_tiny(rope_type), qk_norm=qk_norm)
+    pcfg = dataclasses.replace(config.dit_tiny(rope_type), qk_norm=qk_norm)
+    params = _perturbed(jnadit.init_params(cfg, jax.random.PRNGKey(6)), 7)
+    thw, txt_len, B = (2, 6, 8), 3, 2
+    rs = np.random.RandomState(8)
+    vid = (rs.randn(B, int(np.prod(thw)), cfg.vid_dim) * 0.5).astype(np.float32)
+    txt = (rs.randn(B, txt_len, cfg.vid_dim) * 0.5).astype(np.float32)
+    seen = {}
+
+    def capture(side):
+        def attention(q, k, v, kv_valid=None, **_):
+            seen[side] = [np.asarray(x) for x in (q, k, v, kv_valid)]
+            return q
+
+        return attention
+
+    plans = jnadit.build_attn_plans(cfg, thw, txt_len)
+    monkeypatch.setattr(jnadit, "attention", capture("jax"))
+    jnadit._window_attention(jax.tree.map(jnp.asarray, params)["blocks"][0]["attn"], cfg, jnp.asarray(vid),
+                             jnp.asarray(txt), plans.shifted if shifted else plans.plain, True)
+    model = dit_from_jax(params, pcfg, "cpu", torch.float32).set_attention_mode("flash_attn_2")
+    dp = nadit.device_plans(nadit.build_attn_plans(pcfg, thw, txt_len), pcfg.head_dim, "cpu")[int(shifted)]
+    monkeypatch.setattr(nadit, "attention", capture("torch"))
+    with torch.inference_mode():
+        model._window_attention_unfused(model.blocks[0].attn, torch.from_numpy(vid), torch.from_numpy(txt), dp)
+    *ops, mask = seen["torch"]
+    *ref, ref_mask = seen["jax"]
+    np.testing.assert_array_equal(mask, ref_mask)
+    for got, want in zip(ops, ref):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

@@ -25,6 +25,7 @@ from seedvr2_tpu_torch.ops import fused_window_attention as k3
 from seedvr2_tpu_torch.ops import mid_attention as k10
 from seedvr2_tpu_torch.ops import normalization as norm
 from seedvr2_tpu_torch.ops import quant
+from seedvr2_tpu_torch.ops import window_prepare as k11
 
 pytestmark = pytest.mark.gpu
 
@@ -481,6 +482,110 @@ def test_flash_attention_kernel_resources(cuda):
     assert 48 * 1024 < a["smem_bytes"] <= 232448, a
 
 
+# K11 (csrc/window_prepare.cuh) at the plans it serves, 58 text tokens: the 7B's window_pixel plan at the
+# 720p latent, plain and shifted (ragged last windows; video roped on 60 of 128 dims, text not roped); the 3B's
+# mmrope3d plan, as a 3B runs under flash_attn_2 (text roped), with a bias in q, k, v (an offset a channel, as
+# a projection with qk_bias gives); the qk norm off; a seq rank's local index with padding windows (the 3B plain
+# plan's 18 windows on seq 4: rank 3 holds windows 15-17, then two padding windows that read token 0, their
+# tables angle 0) and one without (seq 2: rank 1's windows 9-17 start 9 x 405 int64 into the plan's index, an
+# offset not 16-byte aligned); B = 2 at 6 heads (a partial group of the kernel's 4 heads a block).
+K11_CASES = {
+    "7b_plain": dict(variant="7b", shifted=False),
+    "7b_shifted": dict(variant="7b", shifted=True),
+    "3b_mmrope3d_bias": dict(variant="3b", shifted=True, bias=True),
+    "no_qk_norm": dict(variant="7b", shifted=False, qk_norm=False),
+    "seq_rank_padding": dict(variant="3b", shifted=False, seq=(3, 4)),
+    "seq_rank_offset": dict(variant="3b", shifted=False, seq=(1, 2)),
+    "B2_H6": dict(variant="7b", shifted=True, B=2, H=6),
+}
+
+
+def _k11_inputs(cuda, variant, shifted, qk_norm=True, seq=None, B=1, H=None, bias=False, Lt=58):
+    """The arguments of window_prepare at a plan of the 3B or 7B at the 720p
+    latent (2, 45, 80)."""
+    from seedvr2_tpu_torch.models.dit.nadit import NaDiT, build_attn_plans, device_plans
+
+    cfg = dit_7b() if variant == "7b" else dit_3b()
+    H, D = H or cfg.heads, cfg.head_dim
+    dp = device_plans(build_attn_plans(cfg, (2, 45, 80), Lt), D, cuda)[int(shifted)]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    y = torch.randn(B, dp.inverse.numel(), 3, H, D, device=cuda, generator=g)
+    t = torch.randn(B, Lt, 3, H, D, device=cuda, generator=g)
+    if bias:
+        offset = torch.randn(3, H, D, device=cuda, generator=g)
+        y, t = y + offset, t + offset
+    norms = 1 + 0.1 * torch.randn(4, D, device=cuda, generator=g)
+    index, cos, sin = dp.index, dp.vid_cos, dp.vid_sin
+    if seq is not None:
+        rank, size = seq
+        first, end, per = k3.window_range(dp.valid.shape[0], size, rank)
+        index = NaDiT._local_index(dp, first, end, per)
+        cos, sin, _ = k3.shard_window_tables(dp.vid_cos, dp.vid_sin, dp.valid, rank, size)
+    return (y.bfloat16(), t.bfloat16(), index, cos, sin, dp.txt_cos, dp.txt_sin, dp.rope_txt, norms, qk_norm,
+            cfg.norm_eps)
+
+
+@pytest.mark.parametrize("case", list(K11_CASES))
+def test_window_prepare_kernel_matches_plain(cuda, case):
+    """K11 against its plain version (the unfused route's own ops, on the
+    card). q and k: the kernel sums each row's squares in its own order
+    (fp32, like any reduction on the card), so where the rms lands on the
+    other side of a rounding boundary a bf16 code moves: at most 1e-3 of
+    the elements may differ, each by at most one bf16 step of its row's
+    largest value; with the qk norm off nothing is summed and the bits are
+    equal. v: the same bits. Every window of a batch holds the same text
+    rows."""
+    args = _k11_inputs(cuda, **K11_CASES[case])
+    n0 = k11.window_prepare.launches
+    got = k11.window_prepare(*args)
+    torch.cuda.synchronize()
+    assert k11.window_prepare.launches == n0 + 1
+    ref = k11.window_prepare_plain(*args)
+    qk_norm = args[9]
+    for a, b in zip(got[:2], ref[:2]):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.bfloat16 and a.is_contiguous()
+        if not qk_norm:
+            assert torch.equal(a, b)
+        step = b.float().abs().amax(-1, keepdim=True) * 2.0**-7
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= step).all())
+        assert float((diff != 0).float().mean()) <= 1e-3
+    assert torch.equal(got[2], ref[2])
+    B, (per, mL) = args[0].shape[0], args[3].shape[:2]
+    for x in got:
+        txt = x.view(B, per, *x.shape[1:])[:, :, mL:]
+        assert torch.equal(txt, txt[:, :1].expand_as(txt))
+
+
+def test_window_prepare_two_launches_give_the_same_bits(cuda):
+    args = _k11_inputs(cuda, "7b", True)
+    first = k11.window_prepare(*args)
+    second = k11.window_prepare(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_window_prepare_kernel_does_not_spill(cuda):
+    lines = [line for _, line in cuda_lib.ptxas_lines(cuda_lib.build().log, "window_prepare_kernel")]
+    spills = [line for line in lines if "spill" in line]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills), lines
+
+
+def test_window_prepare_rejects_what_it_does_not_take(cuda):
+    """fp32 or strided qkv, head dim 64, an int32 index, an index of
+    another length, tables of another window count, fp32 text."""
+    y, t, index, cos, sin, tcos, tsin, rope_txt, norms, qk_norm, eps = args = _k11_inputs(cuda, "7b", False, H=2)
+    wide = torch.zeros(*y.shape[:-1], 256, device=cuda, dtype=torch.bfloat16)
+    for bad in ((y.float(), t, index, cos, sin), (wide[..., ::2], t, index, cos, sin),
+                (y[..., :64].contiguous(), t[..., :64].contiguous(), index, cos[..., :64].contiguous(),
+                 sin[..., :64].contiguous()),
+                (y, t, index.int(), cos, sin), (y, t, index[:-1], cos, sin), (y, t, index, cos[1:], sin[1:]),
+                (y, t.float(), index, cos, sin)):
+        with pytest.raises(ValueError):
+            k11.window_prepare(*bad, tcos, tsin, rope_txt, norms, qk_norm, eps)
+    assert k11.window_prepare(*args)[0].shape == (cos.shape[0], cos.shape[1] + t.shape[1], 2, 128)
+
+
 # K10 (csrc/mid_attention.cuh) at the released VAE's width: a video1080 batch's two latent frames of
 # 135 x 240 pixels, a 1440 x 2560 image's 180 x 320, a 720p batch's two of 90 x 160 and a 1080p decode
 # tile's two of 76 x 128 (1024 px tiles); at the small config's width a ragged n (64 query tiles and one
@@ -876,7 +981,7 @@ def test_int8_7b_forward_runs_every_block_linear_on_k7(cuda):
     image mix's smallest size, a 512 x 512 image upscaled 2x (latent 1 x 128
     x 128: 4,096 video rows), with the 58 text rows: 36 layers x 2 streams x
     (qkv, out, 2 MLP) = 288 K7 launches, the video rows on wgmma, the text
-    rows on split-K."""
+    rows on split-K; under flash_attn_2 one K11 and one K5 launch a layer."""
     from seedvr2_tpu_torch.io.weights import random_dit
     from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
 
@@ -887,10 +992,13 @@ def test_int8_7b_forward_runs_every_block_linear_on_k7(cuda):
     txt = torch.randn(1, 58, cfg.txt_in_dim, device=cuda, generator=g).bfloat16()
     plans = device_plans(build_attn_plans(cfg, (1, 64, 64), 58), cfg.head_dim, cuda)
     quant.reset_launches()
+    k11.window_prepare.launches = k5.flash_attention.launches = 0
     with torch.inference_mode():
         out = dit(vid, txt, torch.full((1,), 1000.0, device=cuda), plans)
     torch.cuda.synchronize()
     assert out.shape == (1, 1, 128, 128, cfg.vid_out_channels) and bool(out.float().isfinite().all())
+    # under flash_attn_2 every layer prepares K5's operands in one K11 launch
+    assert (k11.window_prepare.launches, k5.flash_attention.launches) == (cfg.num_layers, cfg.num_layers)
     k7 = quant.linear_apply
     assert (k7.launches, k7.launches_wgmma, k7.launches_splitk) == (288, 144, 144)
     D, hid = cfg.vid_dim, 4 * cfg.vid_dim
