@@ -6,60 +6,19 @@
 Phases (any failure raises and the script exits non-zero without a result):
   1. card: name, power limit, versions;
   2. build: compile csrc/ with nvcc for sm_90a (build time, -Xptxas -v);
-  3. kernels: K1, K2, K3 (3B), K3q, K5 and K11 (7B), K7 (3B, 7B), K10 (the VAE mid attention), K4 (K1 with
-     the GroupNorm + SiLU prologue, tables from GroupNorm weights, at K1's shapes), K8 (those
-     tables), K9 (the GroupNorm (+ SiLU) pass on them) and K6 (the tap-folded conv) against their plain PyTorch
-     versions at the shapes of the 720p paths, and K3 and K4 again at the
-     long clip's shapes (phase 7's DiT latent 3 x 68 x 120; the c128 and
-     c256 convs of one 608 x 1024 decode tile), bf16 inputs, bound
-     ||k - p||_2 / ||p||_2 <= 1e-2 (the kernels round their outputs to bf16,
-     ~4e-3); K3q must also reproduce its plain version's step away from
-     unquantised attention (step share within 0.1 of 1, see compare());
-     CUDA-event times of kernel, plain version and the nearest
-     single PyTorch call (library_ms, a yardstick the port never calls);
-     bound_ms from the shapes and the card's published peaks; K4 and K6
-     rows also carry K1's time at the same shape (``k1_ms``), their rival,
-     and K4 rows cuDNN's bf16 conv alone (``cudnn_conv_ms``); K6 runs at
-     K1's three 720p decode shapes (c512 3x180x320, c256 5x360x640, c128
-     5x720x1280); the rows of the conv pipeline's kernels (K1 and K6 share
-     one, K4 and K2 have theirs) carry ptxas's register and spill lines and
-     the runtime's registers, spill and dynamic shared memory for it, and
-     K1, K4 and K2 a second launch on the same inputs, which must give the
-     same bits; K3 and K3q rows time the wrapper's whole call (two kernels:
-     the q/k preparation, then the flash loop) and each kernel alone
-     (``prep_ms``, ``flash_ms``), carry both kernels' ptxas lines and the
-     flash loop's registers and shared memory, and must give the same bits
-     on a second call; K5 rows (here and phase 8's) carry its kernel's
-     ptxas lines, registers and shared memory, and must give the same bits
-     on a second call; K8 rows (at K4's five shapes, K4's own inputs) carry
-     the largest error of scale and of shift against fp64 tables, relative
-     to the largest value (``fp64_rel_err``, beside the plain version's own,
-     ``plain_fp64_rel_err``; at most 1e-6), the library call
-     torch.var_mean over the grouped bf16 view, and two launches must give
-     the same bits; a K4 row's ms leaves its tables out (the K8 row at the
-     same shape times them); K9 rows (K9_SHAPES: the VAE's GroupNorms
-     outside K4 at 720p and on the long clip's decode tile, with and
-     without the SiLU) run K9 on K8's tables: without the SiLU the plain
-     version's bits, with it no code more than one step away and at most
-     1e-3 of them moved; K8 + K9 against the plain route they replace
-     under conv_ab.gn_codes's rule (at most 1e-3 moved); the library call
-     is a chain (a channels-first copy, F.group_norm, F.silu), and
-     ``with_tables_ms`` / ``plain_route_ms`` time the VAE's whole call on
-     each route; K10 rows (K10_SHAPES: the mid attention of phase 5's
-     batch, of phase 7's decode tile, of a video1080 batch's two
-     135 x 240 latent frames and of a 1440 x 2560 image's, all at
-     C = 512, and C = 256 at a ragged n; launches only for the first two,
-     from the run that gives the shape) against the plain
-     version it replaces (the per-frame fp32 logits, softmax and bf16
-     copy), with SDPA on the same bf16 q, k, v as the library call, the
-     bound by operations and the share of it (``share``), K10's ptxas
-     lines, registers and shared memory at both widths, and the same bits
-     on a second launch; K11 rows (K11_SHAPES: the 7B's plans at phase 6's
-     720p batch, a video1080 batch's latent, plain and shifted, and a
-     720x1280 image's) against the plain version, which is the unfused
-     route's op chain it replaced (``factor``: ms / that chain's ms), the
-     bound by bytes and the share of it, K11's ptxas lines, and the same
-     bits on a second launch;
+  3. kernels: seedvr2_tpu_torch/conv_ab.py's rows on this tree, one
+     round (``conv_ab.run``): every kernel at the main paths' shapes,
+     called through the program's wrapper, against its plain version (rel
+     L2 <= 1e-2, finite, the same bits on a second call, conv_ab's own
+     launch of the C entry bit-equal to the wrapper's), with its ms, the
+     plain version's, the nearest library call's and its bound; a row's
+     ``launches`` is filled at the end from the driven run that gives its
+     shape (its ``path``: "720p" phase 5's counts, with K4 and K8 from its
+     GroupNorm-fusion run and K3q, K5 and K11 from phase 6's runs;
+     "long_clip" phase 7's; a K7 row its own shape's count in its model's
+     phase-10 batch; None, a shape no driven run gives, stays null); the
+     card tests, tests/test_torch_kernels_gpu.py, hold each kernel at its
+     edges;
   4. reference: small 128-head-dim configs through phases.generate on the
      card (bf16, kernels) and on the CPU (fp32, plain versions), same
      weights and frames: the 3B-style one under "fused", the 7B-style one
@@ -75,9 +34,6 @@ Phases (any failure raises and the script exits non-zero without a result):
      GroupNorm fusion on (K4 48 launches, K1 none, K8 52, K9 4); on
      both routes the encoder's and the decoder's mid attention on K10
      (2 launches);
-     each driven run of phases 5-7 also prints the device-timeline spans
-     of its VAE encode and decode calls (CUDA events around each
-     Runner._encode / _decode call, summed: vae_encode_ms, vae_decode_ms);
   6. the 7B path: NaDiT-7B (36 layers, width 3072, 24 heads) and the VAE at
      full width, the same clip, once under sageattn_2 (K3q in every layer)
      and once under flash_attn_2 (K11 then K5 in every layer);
@@ -94,11 +50,13 @@ Phases (any failure raises and the script exits non-zero without a result):
      seq=2, 3B 720p H20 and 7B 720p K3q H24 on tensor=2; each rank's range
      against the matching slice of the unsharded K3 / K3q launch (rel L2 <=
      1e-2) and the ranks' outputs assembled against the plain version (rel
-     L2 <= 1e-2; K3q's step share as in phase 3), with its time, its
-     plain version's and SDPA's on the same shard, and its bound; K5 at
-     each rank's shapes of the 3B 720p plain plan under flash_attn_2 on
-     seq=2 (9 windows a rank) and tensor=2 (10 heads a rank) against its
-     plain version, the same way. Then, in the two ranks: the 3B DiT step
+     L2 <= 1e-2; K3q's step share within 0.1 of 1: <k - r, p - r> / <p -
+     r, p - r> against the unquantised attention r), with its time, its
+     plain version's and SDPA's on the same shard, and its bound
+     (conv_ab.bound); K5 at each rank's shapes of the 3B 720p plain plan
+     under flash_attn_2 on seq=2 (9 windows a rank) and tensor=2 (10 heads
+     a rank) against its plain version (rel L2 <= 1e-2, two launches the
+     same bits), timed the same way. Then, in the two ranks: the 3B DiT step
      at the 720p latent under (1,2,1) and (1,1,2), under fused and under
      flash_attn_2 (the unfused window path, K5 per rank), and at the 1080p
      latent under (1,2,1), and the 7B step under sageattn_2 on (1,1,2)
@@ -138,12 +96,10 @@ Phases (any failure raises and the script exits non-zero without a result):
      qkv bit-equal to the file's weight quantized; the GGUF's write and
      read + dequantize seconds. K7 runs in two regimes, chosen by its row
      count (ops/quant.py:regime): wgmma for the video rows, split-K for the
-     text rows; the 7B batch must take both (K7_wgmma + K7_splitk = K7).
-     Phase 3 holds K7 against its plain version at the 3B and 7B linears'
-     shapes (video rows M 7200 and 24,480, text rows M 58), checks that two
-     launches on the same inputs give the same bits, and gives each row its
-     regime and its own shape's launches in its model's phase-10 batch
-     (read_counts' "K7_shapes"; the 24,480-row row none: no such run).
+     text rows; the 7B batch must take both (K7_wgmma + K7_splitk = K7),
+     and the 7B batch and each 3B CLI run K7 at each of their linears'
+     shapes at the video rows (M 7200) and the text rows (M 58)
+     (read_counts' "K7_shapes").
  11. the ComfyUI node layer (seedvr2_tpu_torch/interfaces.py) under the
      stub host of tests/comfy_stub.py (installed through a
      pytest.MonkeyPatch and undone at the end), 3B + VAE from phase 9's
@@ -172,8 +128,8 @@ Phases (any failure raises and the script exits non-zero without a result):
      1088 x 1024 px tiles ((0, 112), (864, 1920)): wall, peak, codes within
      2, K1 / K2 / K3 / K8 / K9 equal on both routes and non-zero; (c) 15 frames in
      three batches under torch.profiler: the device -> host copies' bytes
-     and ms, the ms of them under a compute-stream kernel, the device's
-     idle share, and the synchronizing calls of each route
+     and ms, the ms of them under a compute-stream kernel, and the
+     synchronizing calls of each route
      (torch.cuda.set_sync_debug_mode); (d) (a) with yuv420 planes, within
      1 code.
  13. the load path's cold start: load_runner through the weights cache
@@ -190,24 +146,21 @@ Phases (any failure raises and the script exits non-zero without a result):
      Phase 10 holds its two int8 DiTs (--quantize int8, the .gguf) the
      same way, cold against warm. Phase 9's first CLI run is the cold load
      of its files; phases 10 (the VAE) and 11 load them warm.
-Budgets (H100 80GB HBM3, 700 W; PERF.md): phases 1-8 ~180 s, phase 9
-~115-130 s (its first run converts), phase 10 ~190-240 s, phase 11 ~20-40 s
-(warm loads), phase 12 ~30-60 s, phase 13 ~105-140 s (the whole script
-~640-830 s; 702 s with every GroupNorm on K8 + K9); it must end within
-1200 s. K7 may
-launch only in phases 3 and 10 (read_counts raises elsewhere).
-Every launch counter is set to 0 right before each driven run of phases 5,
-6 and 7 and read right after it; a kernel row's ``launches`` is the count
-of the run that is its path at the row's shapes (K1, K2, K3: phase 5; K4,
-K8: phase 5 with GroupNorm fusion; K3q, K5, K11: their phase-6 run; the 1080p K3
-rows and the long-clip K4 and K8 rows: phase 7); phase 7's counts also stand under
-``e2e.long_clip.launches``; a phase-8 row's is its rank's count in the
-phase-8 run of its path (K3s over K3 or over K3q, or K5, per rank); K9's
-rows carry phase 5's count (the long-clip rows phase 7's). Every expect of
-phases 4-13 that runs the VAE counts K8 and K9 too. K6 is on no path (the
-JAX package reaches it only from its benchmark scripts): its row's count is
-its sum over every driven run, which must be 0.
-Then: the kernels JSON line, the card line, and the final JSON line.
+Budgets (H100 80GB HBM3, 700 W; PERF.md): the whole script ~630 s (627 s
+measured), of it phase 9 ~115-130 s (its first run converts), phase 10
+~190-240 s, phase 11 ~17-40 s (warm loads), phase 12 ~27-60 s and phase
+13 ~105-140 s; it must end within 1200 s. K7 may launch only in phases 3
+and 10 (read_counts raises elsewhere). Every launch counter is set to 0 right before each
+driven run of phases 5, 6 and 7 and read right after it; phase 7's counts
+also stand under ``e2e.long_clip.launches``; a phase-8 row's
+``launches`` is its rank's count in the phase-8 run of its path (K3s over
+K3 or over K3q, or K5, per rank). Every expect of phases 4-13 that runs
+the VAE counts K8 and K9 too. The VAE's stage times are the program's own
+``runner.vae_encode`` / ``runner.vae_decode`` ranges
+(``python -m seedvr2_tpu_torch.profile_batch``, ``portbench --trace 1``).
+Then: the JSON line (phase 3's rows and phase 8's rank rows under "kernels", the end-to-end
+results, the small configs, the build times), the card line, and the
+final JSON line.
 """
 
 import dataclasses
@@ -223,11 +176,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-REL_BOUND = 1e-2
-# NVIDIA H100 SXM published peaks (dense, at the 700 W limit)
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
-HBM_BYTES_PER_S = 3.35e12
-
 
 def card_line() -> str:
     out = subprocess.run(
@@ -235,30 +183,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(bytes_moved: int, ops: dict):
-    """Least time on the card: the larger of the bytes over the memory rate
-    and the operations over the peak rate of their type (ms, and which)."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items()) * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def kernel_counters():
@@ -282,7 +206,6 @@ def kernel_counters():
         "K8": (k1.gn_silu_tables, "launches"),
         "K9": (norm.gn_apply, "launches"),
         "K10": (k10.mid_attention, "launches"),
-        "K6": (k1.conv3d_3x3x3_im2col, "launches"),
         "K3s": (k3.fused_window_attention_sharded, "launches"),
         "K3s_int8": (k3.fused_window_attention_sharded, "launches_int8"),
         "K7": (quant.linear_apply, "launches"),
@@ -321,510 +244,8 @@ def read_counts():
     return counts
 
 
-def _tuple(x):
-    return tuple(t.float() for t in (x if isinstance(x, tuple) else (x,)))
-
-
 def _rel(got_t, ref_t):
     return max(float((g - r).norm() / r.norm()) for g, r in zip(got_t, ref_t))
-
-
-def compare(kid, name, source, replaces, kernel, plain, bytes_moved, ops, library=None, library_call=None, rival=None,
-            extra_row=None):
-    """Run kernel and plain version on the same inputs, check, time both,
-    and the library call where one exists. ``rival`` is a plain version of
-    a nearby function that the kernel must not be mistaken for (K3q: the
-    same attention without int8 q/k). The bf16 output rounding (~3e-3) and
-    the int8 step (~1e-2 relative at these inputs) are of one size, so a
-    rel L2 bound alone cannot tell them apart; the share of the step that
-    the kernel reproduces can: <k - r, p - r> / <p - r, p - r> is ~0.95
-    for a kernel that quantises q and k, ~0.5 for one that quantises only
-    one of them and ~0.05 for one that does not. The kernel's own output
-    rounding is uncorrelated with the step and averages out over ~1e7
-    elements; the plain versions' bf16 output rounding (~2e-3 of a ~1e-2
-    step) stays in the denominator and moves the ends 0.05 inwards."""
-    got_t, ref_t = _tuple(kernel()), _tuple(plain())
-    torch.cuda.synchronize()
-    rel = _rel(got_t, ref_t)
-    err = max(float((g - r).abs().max()) for g, r in zip(got_t, ref_t))
-    if not (rel <= REL_BOUND and all(bool(torch.isfinite(g).all()) for g in got_t)):
-        raise RuntimeError(f"{kid} {name}: kernel disagrees with its plain version (rel L2 {rel:.3e} > {REL_BOUND})")
-    extra, note = {}, ""
-    if rival is not None:
-        riv_t = _tuple(rival())
-        step = sum(float(((r - v) * (r - v)).sum()) for r, v in zip(ref_t, riv_t))
-        share = sum(float(((g - v) * (r - v)).sum()) for g, r, v in zip(got_t, ref_t, riv_t)) / step
-        extra = {"rel_l2_rival": _rel(got_t, riv_t), "rival_gap_rel_l2": _rel(ref_t, riv_t), "step_share": share}
-        note = (f"  rel L2 to the rival {extra['rel_l2_rival']:.3e} (rival vs plain {extra['rival_gap_rel_l2']:.3e})"
-                f"  step share {share:.4f}")
-        if not (abs(share - 1.0) <= 0.1 and rel < extra["rel_l2_rival"]):
-            raise RuntimeError(f"{kid} {name}: the kernel does not reproduce its plain version's step away from the "
-                               f"rival (share {share:.4f}, rel {rel:.3e} vs rival {extra['rel_l2_rival']:.3e})")
-        del riv_t
-    del got_t, ref_t
-    bound_ms, bound_by = bound(bytes_moved, ops)
-    row = {
-        "name": f"{kid} {name}", "kernel": kid, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": None, "max_abs_err": err, "rel_l2": rel, **extra, "ms": cuda_ms(kernel, 20),
-        "plain_ms": cuda_ms(plain, 3), "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None if library is None else cuda_ms(library, 20), "library_call": library_call,
-        **(extra_row or {}),
-    }
-    row["factor"] = None if library is None else row["ms"] / row["library_ms"]
-    lib = "" if library is None else f"  library {row['library_ms']:.3f} ms (factor {row['factor']:.2f})"
-    print(f"  {row['name']}: rel L2 {rel:.3e}  max|err| {err:.3e}{note}  kernel {row['ms']:.3f} ms"
-          f"  plain {row['plain_ms']:.3f} ms  bound {bound_ms:.4f} ms ({bound_by}){lib}", flush=True)
-    return row
-
-
-def window_builds() -> dict:
-    """K3 / K3q's two kernels as built: ptxas's register and spill lines of
-    the preparation and the flash loop, and the runtime's registers, spill
-    and dynamic shared memory of the flash loop (keyed by quant_qk)."""
-    from seedvr2_tpu_torch.ops import cuda_lib
-
-    log = cuda_lib.build().log
-    out = {}
-    for quant, flag in ((False, "0"), (True, "1")):
-        out[quant] = {**cuda_lib.attributes("seedvr2_window_flash_attributes", int(quant)),
-                      "ptxas": [f"{'flash' if 'flash_kernel' in name else 'prep'}: {line}"
-                                for name, line in cuda_lib.ptxas_lines(log)
-                                if ("flash_kernel" in name and f"WindowTilesILb{flag}E" in name)
-                                or f"qk_prepare_kernelILb{flag}E" in name]}
-        print(f"  {'K3q' if quant else 'K3'} kernels: {out[quant]}", flush=True)
-    return out
-
-
-def _window_attention_rows(dev, g, cfg, quant_qk, builds, thw=(2, 45, 80), res="", path="main"):
-    """K3 (3B) or K3q (7B) at a patched latent geometry, Lt = 58, the plain
-    and the shifted plan: the 720p paths' (2, 45, 80) by default; the long
-    clip's 1080p batch of 9 frames is (3, 68, 120) (1080x1920 padded to
-    1088x1920, /8 by the VAE, /2 by the patch; 9 frames -> 3 latents).
-    ``path`` names the run whose count the row carries. The row's ms is the
-    wrapper's whole call (the q/k preparation and the flash loop, two
-    launches); ``prep_ms`` and ``flash_ms`` are each kernel alone, printed
-    on lines of their own; two calls must give the same bits."""
-    import torch.nn.functional as F
-
-    from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
-    from seedvr2_tpu_torch.ops import cuda_lib
-    from seedvr2_tpu_torch.ops import fused_window_attention as k3
-
-    kid = "K3q" if quant_qk else "K3"
-    H, D, Lt = cfg.heads, cfg.head_dim, 58
-    lib = cuda_lib.library()
-    rows = []
-    for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, thw, Lt), D, dev)):
-        nW, S = dp.valid.shape
-        vqkv = torch.randn((1, 3, H, nW, S, D), generator=g, device=dev).bfloat16()
-        tqkv = torch.randn((1, 3, H, Lt, D), generator=g, device=dev).bfloat16()
-        norms = 1 + 0.1 * torch.randn(4, D, generator=g, device=dev)
-        args = (vqkv, tqkv, dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.valid, dp.rope_txt, norms, True, cfg.norm_eps)
-        # work this data needs: every query row, the valid video keys and all text keys of its window
-        keys = int(dp.valid.sum()) + nW * Lt
-        qk = 2 * H * (S + Lt) * keys * D
-        ops = {"int8": qk, "bf16": qk} if quant_qk else {"bf16": 2 * qk}
-        tables = (dp.vid_cos, dp.vid_sin) + ((dp.txt_cos, dp.txt_sin) if dp.rope_txt else ())
-        moved = nbytes(vqkv, tqkv, dp.valid, norms, *tables) + 2 * H * nW * (S + Lt) * D  # + bf16 outputs
-        library = call = None
-        if not quant_qk:
-            # nearest single call: SDPA on already normalised and roped q/k with the text appended, key mask
-            q, k, v = (torch.cat([vqkv[0, i].permute(1, 0, 2, 3), tqkv[0, i][None].expand(nW, H, Lt, D)], dim=2)
-                       for i in range(3))
-            mask = torch.cat([dp.valid, torch.ones(nW, Lt, dtype=torch.bool, device=dev)], dim=1)[:, None, None]
-
-            def library():
-                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-
-            call = "F.scaled_dot_product_attention on pre-normed, pre-roped q/k/v [nW, H, S+Lt, D] with the key mask"
-        prep = k3.qk_prepare(lib, *args, quant_qk)
-        parts = {"prep_ms": cuda_ms(lambda: k3.qk_prepare(lib, *args, quant_qk), 20),
-                 "flash_ms": cuda_ms(lambda: k3.window_flash(lib, vqkv, tqkv, prep, quant_qk), 20)}
-        del prep
-        rows.append(compare(
-            kid, f"{cfg.variant} {res}{which} H{H} nW{nW} S{S} Lt{Lt}", "seedvr2_tpu_torch/csrc/window_attention.cuh",
-            "seedvr2_tpu/ops/fused_window_attention.py:145" + (" (quant_qk=True, :100-117)" if quant_qk else ""),
-            lambda: k3.fused_window_attention(*args, quant_qk=quant_qk),
-            lambda: k3.fused_window_attention_plain(*args, quant_qk=quant_qk),
-            moved, ops, library, call,
-            rival=(lambda: k3.fused_window_attention_plain(*args, quant_qk=False)) if quant_qk else None,
-            extra_row={"path": path, **parts, "kernels": ("seedvr2_tpu_torch/csrc/window_qk_prepare.cuh, "
-                                                          "seedvr2_tpu_torch/csrc/attention_pipeline.cuh"),
-                       **builds[quant_qk]},
-        ))
-        print(f"    {kid} preparation alone {parts['prep_ms']:.3f} ms, flash loop alone {parts['flash_ms']:.3f} ms",
-              flush=True)
-        first = k3.fused_window_attention(*args, quant_qk=quant_qk)
-        if not all(torch.equal(a, b) for a, b in zip(first, k3.fused_window_attention(*args, quant_qk=quant_qk))):
-            raise RuntimeError(f"{rows[-1]['name']}: two launches on the same inputs differ")
-        del first
-    return rows
-
-
-def flash_build() -> dict:
-    """K5's kernel as built: ptxas's register and spill lines, and the
-    runtime's registers, spill and dynamic shared memory."""
-    from seedvr2_tpu_torch.ops import cuda_lib
-    from seedvr2_tpu_torch.ops import flash_attention as k5
-
-    out = {**k5.kernel_attributes(), "ptxas": [line for name, line in cuda_lib.ptxas_lines(cuda_lib.build().log)
-                                               if "flash_kernel" in name and "masked" in name]}
-    print(f"  K5 kernel: {out}", flush=True)
-    return out
-
-
-def _flash_row(name, q, k, v, kv_valid, build, library_call, extra_row=None):
-    """One K5 row: against its plain version, SDPA with the key mask as the
-    library call, the same bits on a second launch."""
-    import torch.nn.functional as F
-
-    from seedvr2_tpu_torch.ops import flash_attention as k5
-
-    H, D = q.shape[2], q.shape[3]
-    qk = 2 * H * q.shape[1] * int(kv_valid.sum()) * D  # every query row against the valid keys of its batch row
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    mask = kv_valid[:, None, None]
-    row = compare(
-        "K5", name, "seedvr2_tpu_torch/csrc/flash_attention.cuh", "seedvr2_tpu/ops/flash_attention.py:96",
-        lambda: k5.flash_attention(q, k, v, kv_valid), lambda: k5.flash_attention_plain(q, k, v, kv_valid),
-        nbytes(q, k, v, kv_valid) + nbytes(q), {"bf16": 2 * qk},  # + the bf16 output
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), library_call,
-        extra_row={"kernels": "seedvr2_tpu_torch/csrc/attention_pipeline.cuh", **build, **(extra_row or {})},
-    )
-    same_bits("K5", name, lambda: k5.flash_attention(q, k, v, kv_valid))
-    return row
-
-
-def _flash_attention_rows(dev, g, cfg, build):
-    """K5 at the 7B unfused window attention's shapes: B*nW windows of
-    S = mL + Lt rows, keys valid = [window validity | all text]."""
-    from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
-
-    H, D, Lt = cfg.heads, cfg.head_dim, 58
-    rows = []
-    for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, (2, 45, 80), Lt), D, dev)):
-        nW, mL = dp.valid.shape
-        S = mL + Lt
-        q, k, v = (torch.randn((nW, S, H, D), generator=g, device=dev).bfloat16() for _ in range(3))
-        kv_valid = torch.cat([dp.valid, torch.ones(nW, Lt, dtype=torch.bool, device=dev)], dim=1).contiguous()
-        rows.append(_flash_row(f"{cfg.variant} {which} B{nW} S{S} H{H}", q, k, v, kv_valid, build,
-                               "F.scaled_dot_product_attention on the [B, H, S, D] views with the key mask"))
-        del q, k, v
-    return rows
-
-
-# K11's rows: (patched latent, plain 0 or shifted 1, which call, the driven run that gives the shape): phase 6's
-# 720p batch (its flash_attn_2 run's count), a video1080 batch's latent (1080x1920 padded to 1088x1920, /8 by the
-# VAE, /2 by the patch; 5 frames -> 2 latents) in both plans, and a 720x1280 image's at 2x (one 90 x 160 latent),
-# which no driven run of this script gives
-K11_SHAPES = [((2, 45, 80), 0, "phase 6 720p batch", "main"), ((2, 68, 120), 0, "video1080 batch", None),
-              ((2, 68, 120), 1, "video1080 batch", None), ((1, 90, 160), 0, "image2x 720x1280", None)]
-
-
-def _window_prepare_rows(dev, g):
-    """K11 at the 7B's plans (24 heads, 58 text tokens) against its plain
-    version, which is the op chain it replaced on the unfused route (its
-    time ``plain_ms``; ``factor`` = ms / plain_ms); bound by bytes (the qkv
-    and text read once, the index, norms and tables, K5's three operands
-    written once) and the share of it (``share``); ptxas's lines; the same
-    bits on a second launch."""
-    from seedvr2_tpu_torch.config import dit_7b
-    from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
-    from seedvr2_tpu_torch.ops import cuda_lib
-    from seedvr2_tpu_torch.ops import window_prepare as k11
-
-    cfg = dit_7b()
-    H, D, Lt = cfg.heads, cfg.head_dim, 58
-    ptxas = [line for _, line in cuda_lib.ptxas_lines(cuda_lib.build().log, "window_prepare_kernel")]
-    print(f"  K11 kernel: {ptxas}", flush=True)
-    rows = []
-    for thw, which, what, path in K11_SHAPES:
-        dp = device_plans(build_attn_plans(cfg, thw, Lt), D, dev)[which]
-        nW, mL = dp.valid.shape
-        y = torch.randn((1, dp.inverse.numel(), 3, H, D), generator=g, device=dev).bfloat16()
-        t = torch.randn((1, Lt, 3, H, D), generator=g, device=dev).bfloat16()
-        norms = 1 + 0.1 * torch.randn(4, D, generator=g, device=dev)
-        args = (y, t, dp.index, dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.rope_txt, norms, True,
-                cfg.norm_eps)
-        tables = (dp.vid_cos, dp.vid_sin) + ((dp.txt_cos, dp.txt_sin) if dp.rope_txt else ())
-        moved = nbytes(y, t, dp.index, norms, *tables) + 3 * nW * (mL + Lt) * H * D * 2
-        row = compare(
-            "K11", f"window_prepare 7b {what} {('plain', 'shifted')[which]} nW{nW} mL{mL} Lt{Lt} H{H}",
-            "seedvr2_tpu_torch/csrc/window_prepare.cuh",
-            "none (XLA's fused gather, rms_norm, apply_rotary and concatenation of "
-            "seedvr2_tpu/models/dit/nadit.py:360 _window_attention)",
-            lambda: k11.window_prepare(*args), lambda: k11.window_prepare_plain(*args), moved, {},
-            extra_row={"path": path, "ptxas": ptxas},
-        )
-        row["factor"], row["share"] = row["ms"] / row["plain_ms"], row["bound_ms"] / row["ms"]
-        print(f"  {row['name']}: {100 * row['share']:.1f}% of its bound, {row['factor']:.3f} of the op chain's time",
-              flush=True)
-        same_bits("K11", row["name"], lambda: k11.window_prepare(*args))
-        rows.append(row)
-        del y, t, args
-    return rows
-
-
-# K10's rows: (frames, pixels a frame, C, which call, the driven run that gives the shape): phase 5's 720p batch
-# (two 90 x 160 latent frames), the first temporal slice of phase 7's decode tile (two 76 x 128), a video1080
-# batch's two latent frames (135 x 240), a 1440 x 2560 image's one (180 x 320), and the small config's width at a
-# ragged n (64 query tiles and one row); the last three no driven run of this script gives at that shape
-K10_SHAPES = [(2, 14400, 512, "phase 5 720p batch", "main"),
-              (2, 9728, 512, "long clip decode tile, first slice", "long_clip"),
-              (2, 32400, 512, "video1080 batch", None), (1, 57600, 512, "image2x 720x1280", None),
-              (1, 4097, 256, "small config, ragged n", None)]
-
-
-def mid_attention_build() -> dict:
-    """K10's kernel at both widths as built: ptxas's register and spill
-    lines, and the runtime's registers, spill and dynamic shared memory."""
-    from seedvr2_tpu_torch.ops import cuda_lib
-    from seedvr2_tpu_torch.ops import mid_attention as k10
-
-    out = {f"c{C}": k10.kernel_attributes(C) for C in k10.WIDTHS}
-    out["ptxas"] = [line for name, line in cuda_lib.ptxas_lines(cuda_lib.build().log, "mid_attention_kernel")]
-    print(f"  K10 kernel: {out}", flush=True)
-    return out
-
-
-def _mid_attention_rows(dev, g):
-    """K10 against its plain version, SDPA on the same bf16 q, k, v as the
-    library call, the same bits on a second launch."""
-    import torch.nn.functional as F
-
-    from seedvr2_tpu_torch.ops import mid_attention as k10
-
-    build = mid_attention_build()
-    rows = []
-    for frames, n, C, what, path in K10_SHAPES:
-        q, k, v = (torch.randn((frames, n, C), generator=g, device=dev).bfloat16() for _ in range(3))
-        qh, kh, vh = (t[:, None] for t in (q, k, v))
-        row = compare(
-            "K10", f"mid_attention {what} F{frames} n{n} c{C}", "seedvr2_tpu_torch/csrc/mid_attention.cuh",
-            "none (XLA's einsums of seedvr2_tpu/models/vae/model.py:168 _mid_attention)",
-            lambda: k10.mid_attention(q, k, v), lambda: k10.mid_attention_plain(q, k, v),
-            nbytes(q, k, v) + nbytes(q), {"bf16": 4 * frames * n * n * C},  # + the bf16 output
-            lambda: F.scaled_dot_product_attention(qh, kh, vh), "F.scaled_dot_product_attention on [F, 1, n, C] views",
-            extra_row={"path": path, **build},
-        )
-        row["share"] = row["bound_ms"] / row["ms"]
-        print(f"  {row['name']}: {100 * row['share']:.1f}% of its bound", flush=True)
-        same_bits("K10", row["name"], lambda: k10.mid_attention(q, k, v))
-        rows.append(row)
-        del q, k, v, qh, kh, vh
-    return rows
-
-
-def long_clip_conv_shapes():
-    """(C, T, H, W) of the c128 and c256 resnet convs of one tile of phase 7's
-    tiled decode: the 1080p frame padded to a multiple of 16 (1088 x 1920) is
-    a 136 x 240 latent, which the decode's grid (1024 px tiles, 128 px
-    overlap) cuts into 76 x 128 latent tiles, i.e. 608 x 1024 px (c128) and
-    304 x 512 (c256); the first temporal slice of a 9-frame batch decodes 2
-    latent frames into 5."""
-    from seedvr2_tpu_torch.config import PipelineConfig
-    from seedvr2_tpu_torch.models.vae import tiling
-    from seedvr2_tpu_torch.profile_batch import long_clip_config, long_clip_frames
-
-    cfg = long_clip_config(PipelineConfig())
-    sf = cfg.vae.spatial_downsample_factor
-    fh, fw = long_clip_frames().shape[1:3]
-    lat = [-(-n // 16) * 16 // sf for n in (cfg.resolution, cfg.resolution * fw // fh)]
-    tile = []
-    for n, size, ov in zip(lat, cfg.decode_tile_size, cfg.decode_tile_overlap):
-        ltmax = size // sf
-        lo = max(0, min(tiling.effective_pixel_overlap(ov, n, ltmax, sf) // sf, ltmax - 1))
-        tile.append(tiling._axis_grid(n, ltmax, lo)[0])
-    return [(128, 5, tile[0] * sf, tile[1] * sf), (256, 5, tile[0] * sf // 2, tile[1] * sf // 2)]
-
-
-def conv_builds() -> dict:
-    """The conv pipeline's kernels as built: ptxas's register and spill
-    lines, and the runtime's registers, spill and dynamic shared memory, for
-    K1 / K6 (one kernel), K4 and K2."""
-    from seedvr2_tpu_torch.ops import conv3d_kernel as k1
-    from seedvr2_tpu_torch.ops import cuda_lib
-    from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
-
-    log = cuda_lib.build().log
-    out = {}
-    for kid, attrs, mangled in (("K1", k1.kernel_attributes(), "Conv3dPolicyILb0E"),
-                                ("K4", k1.kernel_attributes(gn=True), "Conv3dPolicyILb1E"),
-                                ("K2", k2.kernel_attributes(), "FoldPolicy")):
-        out[kid] = {**attrs, "ptxas": [line for _, line in cuda_lib.ptxas_lines(log, mangled)]}
-        print(f"  {kid} kernel: {out[kid]}", flush=True)
-    out["K6"] = out["K1"]
-    return out
-
-
-def same_bits(kid, name, kernel):
-    """Two launches on the same inputs must give the same bits."""
-    if not all(torch.equal(a, b) for a, b in zip(_tuple(kernel()), _tuple(kernel()))):
-        raise RuntimeError(f"{kid} {name}: two launches on the same inputs differ")
-
-
-def _conv_rows(dev, g, c, T, H, W, k1_ms, builds, path="main"):
-    """K1 (on the main path only) and K4 rows at one resnet conv shape. K4's
-    library call is the three-call chain it fuses; ``cudnn_conv_ms`` is
-    cuDNN's bf16 F.conv3d at the same shape, its rival for the conv alone."""
-    import torch.nn.functional as F
-
-    from seedvr2_tpu_torch.ops import conv3d_kernel as k1
-
-    x = (torch.randn((1, T + 2, H, W, c), generator=g, device=dev)).bfloat16()
-    w = (torch.randn((3, 3, 3, c, c), generator=g, device=dev) * (27 * c) ** -0.5).bfloat16()
-    b = torch.randn(c, generator=g, device=dev)
-    w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
-    xc = x.permute(0, 4, 1, 2, 3)
-    ops = {"bf16": 2 * T * H * W * 27 * c * c}
-    shape = f"c{c} {T}x{H}x{W}"
-    rows = []
-
-    def cudnn():
-        return F.conv3d(xc, w_oidhw, b.bfloat16(), padding=(0, 1, 1))
-
-    if path == "main":
-        rows.append(compare(
-            "K1", f"conv3d_3x3x3 {shape}", "seedvr2_tpu_torch/csrc/conv3d.cuh",
-            "seedvr2_tpu/ops/conv3d_kernel.py:193",
-            lambda: k1.conv3d_3x3x3(x, w, b), lambda: k1.conv3d_3x3x3_plain(x, w, b),
-            nbytes(x, w, b) + T * H * W * c * 2, ops, cudnn, "F.conv3d in bf16 (cuDNN), NCDHW view",
-            extra_row=builds["K1"],
-        ))
-        same_bits("K1", shape, lambda: k1.conv3d_3x3x3(x, w, b))
-        k1_ms[shape] = (rows[-1]["ms"], rows[-1]["library_ms"])
-    gw = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
-    gb = 0.3 * torch.randn(c, generator=g, device=dev)
-    rows.append(_tables_row(x, gw, gb, shape, path))
-    scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
-
-    def chain():
-        h = x.permute(0, 1, 4, 2, 3).reshape(T + 2, c, H, W)  # per-frame GroupNorm on NCHW frames
-        h = F.silu(F.group_norm(h, 32, gw.bfloat16(), gb.bfloat16(), eps=1e-6))
-        return F.conv3d(h.reshape(1, T + 2, c, H, W).transpose(1, 2), w_oidhw, b.bfloat16(), padding=(0, 1, 1))
-
-    extra = {"path": path, **builds["K4"], "tables": f"not in ms: the K8 row at {shape} times them"}
-    if shape in k1_ms:
-        extra.update(k1_ms=k1_ms[shape][0], cudnn_conv_ms=k1_ms[shape][1])
-    else:
-        extra["cudnn_conv_ms"] = cuda_ms(cudnn, 20)
-    rows.append(compare(
-        "K4", f"conv3d_3x3x3 + GroupNorm/SiLU prologue {shape}" + (" (long clip)" if path == "long_clip" else ""),
-        "seedvr2_tpu_torch/csrc/conv3d.cuh", "seedvr2_tpu/ops/conv3d_kernel.py:193 (scale=, shift=: _kernel_gn :100)",
-        lambda: k1.conv3d_3x3x3(x, w, b, scale, shift), lambda: k1.conv3d_3x3x3_plain(x, w, b, scale, shift),
-        nbytes(x, w, b, scale, shift) + T * H * W * c * 2, ops, chain,
-        "chain: per-frame F.group_norm + F.silu + cuDNN bf16 F.conv3d (channels-first copies of x included)",
-        extra_row=extra,
-    ))
-    same_bits("K4", shape, lambda: k1.conv3d_3x3x3(x, w, b, scale, shift))
-    return rows
-
-
-def _tables_row(x, gw, gb, shape, path):
-    """K8 on K4's input: the tables against their plain version, each
-    against fp64 (max |err| / max |ref| of scale and of shift), the library
-    call torch.var_mean over the grouped view; two launches, the same bits."""
-    from seedvr2_tpu_torch.conv_ab import max_rel, tables_fp64
-    from seedvr2_tpu_torch.ops import conv3d_kernel as k1
-
-    ref = tables_fp64(x, gw, gb, 32)
-    errs = {name: [max_rel(a, r) for a, r in zip(fn(x, gw, gb, 32), ref)]
-            for name, fn in (("fp64_rel_err", k1.gn_silu_tables), ("plain_fp64_rel_err", k1.gn_silu_tables_plain))}
-    del ref
-    if max(errs["fp64_rel_err"]) > 1e-6:
-        raise RuntimeError(f"K8 {shape}: scale / shift {errs['fp64_rel_err']} from fp64, over 1e-6")
-    B, T, H, W, c = x.shape
-    xg = x.view(B, T, H * W, 32, c // 32)
-    row = compare(
-        "K8", f"gn_silu_tables x_ext c{c} {T}x{H}x{W} (K4 {shape})" + (" (long clip)" if path == "long_clip" else ""),
-        "seedvr2_tpu_torch/csrc/gn_stats.cuh",
-        "none: XLA's reductions of seedvr2_tpu/ops/conv3d_kernel.py:143 gn_silu_tables",
-        lambda: k1.gn_silu_tables(x, gw, gb, 32), lambda: k1.gn_silu_tables_plain(x, gw, gb, 32),
-        nbytes(x, gw, gb) + 2 * B * T * c * 4, {}, lambda: torch.var_mean(xg, dim=(2, 4), correction=0),
-        "torch.var_mean over the grouped bf16 view [B, T, H*W, 32, C/32], correction=0 (the statistics alone)",
-        extra_row={"path": path, **errs, "not_a_tpu_kernel": "XLA's reductions"},
-    )
-    print(f"    K8 scale / shift from fp64: kernel {errs['fp64_rel_err'][0]:.2e} / {errs['fp64_rel_err'][1]:.2e}, "
-          f"plain {errs['plain_fp64_rel_err'][0]:.2e} / {errs['plain_fp64_rel_err'][1]:.2e}; "
-          f"{row['bound_ms'] / row['ms']:.1%} of the bound", flush=True)
-    same_bits("K8", shape, lambda: k1.gn_silu_tables(x, gw, gb, 32))
-    return row
-
-
-# K9's rows: (x [1, T, H, W, C], SiLU, which GroupNorm, the run whose count the row carries). The 720p
-# resnets' extended inputs (decoder; the encoder's are the same shapes), the decoder's norm_out at full
-# resolution, the encoder's norm_out and the mid attention's GroupNorm at 1/8; the long clip's decode tile
-# (norm_out of its first slice, and a c256 resnet input of the default, unfused route there)
-K9_SHAPES = [((5, 180, 320, 512), True, "resnet c512 x_ext", "main"),
-             ((7, 360, 640, 256), True, "resnet c256 x_ext", "main"),
-             ((7, 720, 1280, 128), True, "resnet c128 x_ext", "main"),
-             ((5, 720, 1280, 128), True, "decoder norm_out", "main"),
-             ((2, 90, 160, 512), True, "encoder norm_out", "main"),
-             ((2, 90, 160, 512), False, "mid attention", "main"),
-             ((5, 608, 1024, 128), True, "decode tile norm_out", "long_clip"),
-             ((7, 304, 512, 256), True, "decode tile resnet c256 x_ext (unfused route)", "long_clip")]
-
-
-def _gn_apply_rows(dev, g):
-    """K9 on K8's tables of random bf16 x with the VAE's bf16 norm weights:
-    against its plain version (without the SiLU the same bits; with it no
-    code more than one step away, at most 1e-3 of them moved), the whole
-    wrapper (K8 then K9) against the plain route it replaces
-    (conv_ab.gn_codes: no far code, at most 1e-3 moved), two launches the
-    same bits. ``ms`` is K9 alone; ``with_tables_ms`` K8 + K9, the VAE's
-    call; ``plain_route_ms`` the plain route. The library call is the chain
-    of a channels-first copy, F.group_norm and F.silu (no single call
-    computes the pass)."""
-    import torch.nn.functional as F
-
-    from seedvr2_tpu_torch.conv_ab import bf16_steps, gn_codes
-    from seedvr2_tpu_torch.ops import conv3d_kernel as k1
-    from seedvr2_tpu_torch.ops import normalization as norm
-
-    rows = []
-    for (T, H, W, c), silu, what, path in K9_SHAPES:
-        x = torch.randn((1, T, H, W, c), generator=g, device=dev).bfloat16()
-        gw = (1 + 0.2 * torch.randn(c, generator=g, device=dev)).bfloat16()
-        gb = (0.3 * torch.randn(c, generator=g, device=dev)).bfloat16()
-        scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
-        name = f"{'gn_silu' if silu else 'group_norm'} c{c} {T}x{H}x{W} ({what})"
-        steps = bf16_steps(norm.gn_apply(x, scale, shift, silu), norm.gn_apply_plain(x, scale, shift, silu))
-        moved, max_steps = float((steps > 0).float().mean()), int(steps.max())
-        del steps
-        if max_steps > (1 if silu else 0) or moved > 1e-3:
-            raise RuntimeError(f"K9 {name}: {moved:.2e} of the codes moved from the plain version, up to "
-                               f"{max_steps} steps")
-        mag = (x.float() * scale[:, :, None, None, :]).abs() + shift[:, :, None, None, :].abs()
-        pair = [(norm.group_norm_frames(x, gw, gb, 32, s), norm.group_norm_frames_plain(x, gw, gb, 32, s))
-                for s in ((False, True) if silu else (False,))]
-        route = gn_codes(*pair[0], mag, *(pair[1] if silu else ()))
-        del pair, mag
-        if route["far"] or route["share"] > 1e-3:
-            raise RuntimeError(f"K9 {name}: K8 + K9 against the plain route {route}")
-
-        def chain():
-            y = F.group_norm(x.permute(0, 1, 4, 2, 3).reshape(T, c, H, W), 32, gw, gb, eps=1e-6)
-            return F.silu(y) if silu else y
-
-        extra = {"path": path, "silu": silu, "codes_moved": moved, "max_steps": max_steps, "route_codes": route,
-                 "with_tables_ms": cuda_ms(lambda: norm.group_norm_frames(x, gw, gb, 32, silu), 20),
-                 "plain_route_ms": cuda_ms(lambda: norm.group_norm_frames_plain(x, gw, gb, 32, silu), 3),
-                 "not_a_tpu_kernel": "XLA's fused elementwise ops"}
-        rows.append(compare(
-            "K9", name, "seedvr2_tpu_torch/csrc/gn_apply.cuh",
-            "none: XLA's fused elementwise ops of seedvr2_tpu/models/vae/causal_conv.py:124-136 (and model.py:141-149, "
-            ":173)", lambda: norm.gn_apply(x, scale, shift, silu), lambda: norm.gn_apply_plain(x, scale, shift, silu),
-            2 * nbytes(x) + nbytes(scale, shift), {}, chain,
-            "chain: a channels-first copy of x, per-frame F.group_norm" + (", F.silu" if silu else "") + ", bf16",
-            extra_row=extra,
-        ))
-        r = rows[-1]
-        print(f"    K9 codes moved from the plain version {moved:.2e} (up to {max_steps} step); K8 + K9 against the "
-              f"plain route {route['share']:.2e}; K8 + K9 {r['with_tables_ms']:.3f} ms, plain route "
-              f"{r['plain_route_ms']:.3f} ms; {r['bound_ms'] / r['ms']:.1%} of the bound", flush=True)
-        same_bits("K9", name, lambda: norm.gn_apply(x, scale, shift, silu))
-        del x, scale, shift
-    return rows
 
 
 def int8_linear_calls(dit) -> int:
@@ -842,122 +263,6 @@ def int8_linear_calls(dit) -> int:
         lin = [mlp.proj_in, mlp.proj_out] + ([mlp.proj_in_gate] if mlp.swiglu else [])
         n += (1 if blk.vid_only else 2) * sum(quant.is_quantized(m.spec) for m in lin)
     return n
-
-
-def _k7_rows(dev, g):
-    """K7 at the int8 DiT's linears: NaDiT-3B and 7B at the 720p video rows
-    (M = 2 x 45 x 80 = 7200 tokens) and the text rows (M = 58), and 3B qkv
-    at the 1080p long clip's video rows (M = 3 x 68 x 120 = 24,480); the
-    weights quantized from normal draws, bf16 inputs. The library call is
-    cuBLAS's bf16 x @ w on the weight dequantized beforehand (not timed);
-    the plain version is the whole chain (widen, product, scale, bias).
-    A row's launches are phase 10's count of its own shape in its model's
-    batch (``k7_shape``); no int8 run at 1080p is driven, so the
-    24,480-row row is timed alone and its launches stay null."""
-    from seedvr2_tpu_torch.config import dit_3b, dit_7b
-    from seedvr2_tpu_torch.conv_ab import int8_linear_shapes
-    from seedvr2_tpu_torch.ops import quant
-
-    rows = []
-    cases = [(cfg, M, shape) for cfg in (dit_3b(), dit_7b()) for M in (7200, 58) for shape in int8_linear_shapes(cfg)]
-    cases.append((dit_3b(), 24480, int8_linear_shapes(dit_3b())[0]))
-    for cfg, M, (name, K, N, has_bias) in cases:
-        q = quant.quantize_linear(torch.randn(K, N, generator=g, device=dev) * K**-0.5)
-        w_q, w_s = q["w_q"].t().contiguous(), q["w_s"]
-        b = torch.randn(N, generator=g, device=dev).bfloat16() if has_bias else None
-        x = torch.randn(M, K, generator=g, device=dev).bfloat16()
-        w_deq = quant.dequantize_weight(q, torch.bfloat16)
-        stream = "video" if M != 58 else "text"
-        row_name = f"{cfg.variant} {name} {stream} M{M} K{K} N{N}" + (" +bias" if has_bias else "")
-        rows.append(compare(
-            "K7", row_name, "seedvr2_tpu_torch/csrc/w8a16_linear.cuh", "seedvr2_tpu/models/dit/nadit.py:277",
-            lambda: quant.linear_apply(x, w_q, w_s, b), lambda: quant.linear_apply_plain(x, w_q, w_s, b),
-            nbytes(x, w_q, w_s, *((b,) if has_bias else ())) + M * N * 2, {"bf16": 2 * M * N * K},
-            lambda: x @ w_deq, "cuBLAS bf16 x @ w on the weight dequantized beforehand (its bias and dequantization "
-                               "not timed)",
-            extra_row={"path": f"int8_{cfg.variant}" if M != 24480 else None, "k7_shape": k7_shape(M, K, N),
-                       "regime": quant.regime(M),
-                       "not_a_tpu_kernel": "XLA's fused convert+dot"},
-        ))
-        again = quant.linear_apply(x, w_q, w_s, b)
-        if not torch.equal(again, quant.linear_apply(x, w_q, w_s, b)):
-            raise RuntimeError(f"K7 {row_name}: two launches on the same inputs differ")
-        r = rows[-1]
-        print(f"    {r['regime']}; {r['bound_ms'] / r['ms']:.1%} of the bound", flush=True)
-        del x, w_q, w_deq, again
-    return rows
-
-
-def kernel_phase(dev):
-    import torch.nn.functional as F
-
-    from seedvr2_tpu_torch.config import dit_3b, dit_7b
-    from seedvr2_tpu_torch.ops import conv3d_kernel as k1
-    from seedvr2_tpu_torch.ops import fold_upsample_kernel as k2
-
-    g = torch.Generator(device=dev).manual_seed(0)
-    rows = []
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
-
-    # K1: the resnet convs of the 720p decode (latent 2x90x160 -> 5x720x1280);
-    # K4: the same convs with the resnet's GroupNorm + SiLU folded into the
-    # load (tables from GroupNorm weights of the input), and again at the long
-    # clip's decode-tile shapes (phase 7's path, no K1 there); K6: the folded
-    # product at K1's shapes
-    k1_ms = {}
-    builds = conv_builds()
-    for c, T, H, W in ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280)):
-        rows += _conv_rows(dev, g, c, T, H, W, k1_ms, builds)
-    for c, T, H, W in long_clip_conv_shapes():
-        rows += _conv_rows(dev, g, c, T, H, W, k1_ms, builds, path="long_clip")
-    rows += _gn_apply_rows(dev, g)
-    for c, T, H, W in ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280)):
-        x = randn(1, T + 2, H, W, c)
-        w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
-        b = torch.randn(c, generator=g, device=dev)
-        w_oidhw = w.permute(4, 3, 0, 1, 2).contiguous()
-        xc = x.permute(0, 4, 1, 2, 3)
-        shape = f"c{c} {T}x{H}x{W}"
-        rows.append(compare(
-            "K6", f"conv3d_3x3x3_im2col {shape}", "seedvr2_tpu_torch/csrc/conv3d.cuh",
-            "seedvr2_tpu/ops/conv3d_kernel.py:323",
-            lambda: k1.conv3d_3x3x3_im2col(x, w, b), lambda: k1.conv3d_3x3x3_im2col_plain(x, w, b),
-            nbytes(x, w, b) + T * H * W * c * 2, {"bf16": 2 * T * H * W * 27 * c * c},
-            lambda: F.conv3d(xc, w_oidhw, b.bfloat16(), padding=(0, 1, 1)), "F.conv3d in bf16 (cuDNN), NCDHW view",
-            extra_row={"k1_ms": k1_ms[shape][0], **builds["K6"]},
-        ))
-        del x, xc
-    # K2: the decoder's three upsamples at 720p (the phase-pure call of each)
-    for c, kt, A, Tin, H, W in ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7, 360, 640)):
-        x = randn(1, Tin, H, W, c)
-        K = randn(kt, 2, 2, c, A * 4 * c, scale=(kt * 4 * c) ** -0.5)
-        btab = torch.randn(2, 2, A * 4 * c, generator=g, device=dev)
-        bc = torch.randn(c, generator=g, device=dev)
-        Tp = Tin - kt + 1
-        xc = x.permute(0, 4, 1, 2, 3)
-        K_oidhw = K.permute(4, 3, 0, 1, 2).contiguous()
-        rows.append(compare(
-            "K2", f"fold_upsample_conv c{c} kt{kt} A{A} {Tin}x{H}x{W}", "seedvr2_tpu_torch/csrc/fold_upsample.cuh",
-            "seedvr2_tpu/ops/fold_upsample_kernel.py:116",
-            lambda: k2.fold_upsample_conv(x, K, btab, bc, A), lambda: k2.fold_upsample_conv_plain(x, K, btab, bc, A),
-            nbytes(x, K, btab, bc) + Tp * A * 4 * H * W * c * 2, {"bf16": 2 * Tp * H * W * (kt * 4 * c) * (A * 4 * c)},
-            lambda: F.conv3d(xc, K_oidhw, padding=(0, 1, 1)),
-            "F.conv3d in bf16 (cuDNN) of the folded kt x 2 x 2 weight, no bias table, no depth-to-space",
-            extra_row=builds["K2"],
-        ))
-        same_bits("K2", rows[-1]["name"], lambda: k2.fold_upsample_conv(x, K, btab, bc, A))
-        del x, xc
-    wbuilds = window_builds()
-    rows += _window_attention_rows(dev, g, dit_3b(), False, wbuilds)
-    rows += _window_attention_rows(dev, g, dit_3b(), False, wbuilds, thw=(3, 68, 120), res="1080p ", path="long_clip")
-    rows += _window_attention_rows(dev, g, dit_7b(), True, wbuilds)
-    rows += _flash_attention_rows(dev, g, dit_7b(), flash_build())
-    rows += _window_prepare_rows(dev, g)
-    rows += _mid_attention_rows(dev, g)
-    rows += _k7_rows(dev, g)
-    return rows
 
 
 def small_config(rope_type="mmrope3d"):
@@ -1026,55 +331,21 @@ def reference_phase(dev, text, rope_type, mode, long_clip=False):
     return {"rope_type": rope_type, "mode": mode, "long_clip": long_clip, "mean_abs_diff": mean_err, "rel_l2": rel}
 
 
-class VaeSpans:
-    """CUDA events around every VAE encode and decode call of a runner (the
-    fused and the 4-phase routes both go through Runner._encode / _decode),
-    recorded on the stream, read after the run: the device-timeline span of
-    each call (idle gaps inside it included), summed by stage."""
-
-    STAGES = ("encode", "decode")
-
-    def __init__(self, runner):
-        self.runner, self.events = runner, {k: [] for k in self.STAGES}
-
-    def __enter__(self):
-        for stage in self.STAGES:
-            def timed(*a, _raw=getattr(self.runner, f"_{stage}"), _events=self.events[stage], **kw):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = _raw(*a, **kw)
-                end.record()
-                _events.append((start, end))
-                return out
-
-            setattr(self.runner, f"_{stage}", timed)
-        return self
-
-    def __exit__(self, *exc):
-        for stage in self.STAGES:
-            delattr(self.runner, f"_{stage}")  # the class's method again
-
-    def ms(self) -> dict:
-        return {f"vae_{k}_ms": sum(s.elapsed_time(e) for s, e in ev) for k, ev in self.events.items()}
-
-
 def drive(runner, frames, label, out_shape=(5, 720, 1280, 3), runs=2):
-    """One counted run (counters reset right before, read right after; its
-    VAE spans recorded), then with ``runs=2`` a second run for the steady
-    wall time."""
+    """One counted run (counters reset right before, read right after),
+    then with ``runs=2`` a second run for the steady wall time."""
     from seedvr2_tpu_torch.pipeline import phases
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with VaeSpans(runner) as spans:
-        t0 = time.perf_counter()
-        out = phases.generate(runner, frames)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = phases.generate(runner, frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    e2e = {"wall_s": wall, "peak_gib": peak, **spans.ms()}
+    e2e = {"wall_s": wall, "peak_gib": peak}
     note = ""
     if runs == 2:
         t0 = time.perf_counter()
@@ -1082,9 +353,8 @@ def drive(runner, frames, label, out_shape=(5, 720, 1280, 3), runs=2):
         torch.cuda.synchronize()
         e2e["second_run_wall_s"] = time.perf_counter() - t0
         note = f", second run {e2e['second_run_wall_s']:.3f} s"
-    print(f"  {label}: out {out.shape} {out.dtype}, first run {wall:.3f} s{note}, VAE encode "
-          f"{e2e['vae_encode_ms']:.1f} ms, decode {e2e['vae_decode_ms']:.1f} ms (device spans of the first run), "
-          f"peak {peak:.2f} GiB, launches {launches}", flush=True)
+    print(f"  {label}: out {out.shape} {out.dtype}, first run {wall:.3f} s{note}, peak {peak:.2f} GiB, "
+          f"launches {launches}", flush=True)
     if out.shape != out_shape or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise RuntimeError(f"{label}: bad output {out.shape}")
     if float(out.std()) == 0.0:
@@ -1098,6 +368,28 @@ def expect(label, launches, want):
     bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
     if bad:
         raise RuntimeError(f"{label}: launches (got, expected) {bad}")
+
+
+def kernel_phase(dev):
+    """Phase 3: conv_ab's rows on this tree alone, one round."""
+    from seedvr2_tpu_torch import conv_ab
+    from seedvr2_tpu_torch.ops import cuda_lib
+
+    return conv_ab.run(conv_ab.Bench({"this": cuda_lib.library()}, {}, 1, dev))
+
+
+def fill_launches(rows, counts: dict, int8: dict):
+    """Each phase-3 row's ``launches``: ``counts[path][kernel]``; a K7 row's,
+    its own shape's count in ``int8[model]``'s batch (at least one)."""
+    for row in rows:
+        if row["path"] is None:
+            continue  # a shape that no driven run gives: timed alone, launches null
+        if row["kernel"] == "K7":
+            row["launches"] = int8[row["model"]]["K7_shapes"].get(k7_shape(*row["mkn"]), 0)
+            if row["launches"] == 0:
+                raise RuntimeError(f"{row['name']}: phase 10's {row['model']} batch never ran K7 at this shape")
+        else:
+            row["launches"] = counts[row["path"]][row["kernel"]]
 
 
 def main_path_phase(dev, text, frames):
@@ -1192,6 +484,7 @@ def _k3s_rows(dev, g):
     import torch.nn.functional as F
 
     from seedvr2_tpu_torch import config
+    from seedvr2_tpu_torch.conv_ab import REL_BOUND, bound, cuda_ms, nbytes
     from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
     from seedvr2_tpu_torch.ops import fused_window_attention as k3
 
@@ -1290,9 +583,15 @@ def _k3s_rows(dev, g):
 def _k5_rank_rows(dev, g):
     """K5 at each rank's shapes under flash_attn_2, the 3B 720p plain plan:
     seq=2 (the rank's windows, padded to ceil(nW/2), every head) and
-    tensor=2 (every window, half the heads), against its plain version."""
+    tensor=2 (every window, half the heads), against its plain version (rel
+    L2 <= REL_BOUND), two launches the same bits, with SDPA on the same
+    shard and the bound."""
+    import torch.nn.functional as F
+
     from seedvr2_tpu_torch.config import dit_3b
+    from seedvr2_tpu_torch.conv_ab import REL_BOUND, bound, cuda_ms, nbytes
     from seedvr2_tpu_torch.models.dit.nadit import build_attn_plans, device_plans
+    from seedvr2_tpu_torch.ops import flash_attention as k5
     from seedvr2_tpu_torch.ops import fused_window_attention as k3
 
     cfg = dit_3b()
@@ -1300,7 +599,7 @@ def _k5_rank_rows(dev, g):
     dp = device_plans(build_attn_plans(cfg, (2, 45, 80), Lt), D, dev)[0]
     nW, mL = dp.valid.shape
     S = mL + Lt
-    rows, build = [], flash_build()
+    rows = []
     for seq, tensor, path in ((2, 1, "seq_720p_flash"), (1, 2, "tensor_720p_flash")):
         hl = H // tensor
         for r in range(seq * tensor):
@@ -1309,14 +608,33 @@ def _k5_rank_rows(dev, g):
             valid = k3.shard_window_tables(dp.vid_cos, dp.vid_sin, dp.valid, s_rank, seq)[2]
             kv_valid = torch.cat([valid, torch.ones(per, Lt, dtype=torch.bool, device=dev)], dim=1).contiguous()
             q, k, v = (torch.randn((per, S, hl, D), generator=g, device=dev).bfloat16() for _ in range(3))
-            rows.append(_flash_row(
-                f"3B 720p plain B{per} S{S} H{hl} seq {s_rank}/{seq} tensor {t_rank}/{tensor} (windows "
-                f"{first}-{end - 1}{' + pad' if per > end - first else ''}, heads {t_rank * hl}-"
-                f"{(t_rank + 1) * hl - 1})", q, k, v, kv_valid, build,
-                "F.scaled_dot_product_attention on the rank's [B, H, S, D] views with the key mask",
-                extra_row={"path": path, "rank": r, "quant_qk": False},
-            ))
-            del q, k, v
+            name = (f"K5 3B 720p plain B{per} S{S} H{hl} seq {s_rank}/{seq} tensor {t_rank}/{tensor} (windows "
+                    f"{first}-{end - 1}{' + pad' if per > end - first else ''}, heads {t_rank * hl}-"
+                    f"{(t_rank + 1) * hl - 1})")
+            o, ref = k5.flash_attention(q, k, v, kv_valid), k5.flash_attention_plain(q, k, v, kv_valid)
+            rel = _rel((o.float(),), (ref.float(),))
+            if not (rel <= REL_BOUND and bool(torch.isfinite(o).all())):
+                raise RuntimeError(f"{name}: kernel disagrees with its plain version (rel L2 {rel:.3e})")
+            if not torch.equal(o, k5.flash_attention(q, k, v, kv_valid)):
+                raise RuntimeError(f"{name}: two launches on the same inputs differ")
+            qt, kt, vt, mask = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_valid[:, None, None]
+            qk = 2 * hl * S * int(kv_valid.sum()) * D  # every query row against the valid keys of its batch row
+            bound_ms, bound_by = bound(nbytes(q, k, v, kv_valid, o), {"bf16": 2 * qk})
+            row = {
+                "name": name, "kernel": "K5", "route": "cuda", "source": "seedvr2_tpu_torch/csrc/flash_attention.cuh",
+                "replaces": "seedvr2_tpu/ops/flash_attention.py:96", "launches": None,
+                "max_abs_err": float((o.float() - ref.float()).abs().max()), "rel_l2": rel,
+                "ms": cuda_ms(lambda: k5.flash_attention(q, k, v, kv_valid), 20),
+                "plain_ms": cuda_ms(lambda: k5.flash_attention_plain(q, k, v, kv_valid), 3),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 20),
+                "library_call": "F.scaled_dot_product_attention on the rank's [B, H, S, D] views with the key mask",
+                "path": path, "rank": r, "quant_qk": False,
+            }
+            print(f"  {name}: rel L2 {rel:.3e}  kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  bound "
+                  f"{bound_ms:.4f} ms ({bound_by})  SDPA {row['library_ms']:.3f} ms", flush=True)
+            rows.append(row)
+            del q, k, v, o, ref
     return rows
 
 
@@ -1970,6 +1288,18 @@ def _dequantized_dit(dit):
         return dit_from_flat(flat, dit.cfg, dit.vid_in.w.device, torch.bfloat16)
 
 
+def expect_k7_shapes(label, launches, cfg):
+    """A 720p batch of an int8 DiT runs K7 at each of its linears' shapes,
+    at the video rows (M = 2 x 45 x 80 = 7200 tokens) and the text rows (M
+    = 58): read_counts' "K7_shapes"."""
+    from seedvr2_tpu_torch.conv_ab import int8_linear_shapes
+
+    missing = [k7_shape(M, K, N) for M in (7200, 58) for _, K, N, _ in int8_linear_shapes(cfg)
+               if not launches["K7_shapes"].get(k7_shape(M, K, N))]
+    if missing:
+        raise RuntimeError(f"{label}: no K7 launch at {missing}")
+
+
 def int8_phase(dev, text, frames, d, per_batch):
     """Phase 10: int8 weights at full width. (a) NaDiT-7B with
     quantize="int8" under sageattn_2 (weights drawn and quantized on the
@@ -2011,6 +1341,7 @@ def int8_phase(dev, text, frames, d, per_batch):
     if not (launches["K7_wgmma"] > 0 and launches["K7_splitk"] > 0
             and launches["K7_wgmma"] + launches["K7_splitk"] == per_step):
         raise RuntimeError(f"7B int8: K7's regimes {launches['K7_wgmma']} wgmma + {launches['K7_splitk']} split-K")
+    expect_k7_shapes("7B int8 sageattn_2", launches, cfg.dit)
     vc = cfg.vae
     lat = torch.randn((1, 2, 720 // vc.spatial_downsample_factor, 1280 // vc.spatial_downsample_factor,
                        vc.latent_channels), generator=torch.Generator(device=dev).manual_seed(103), device=dev)
@@ -2107,6 +1438,7 @@ def int8_phase(dev, text, frames, d, per_batch):
             peak = torch.cuda.max_memory_allocated() / 2**30
             want = int8_linear_calls(runner.dit)
             expect(f"CLI {label}", counts, {"K7": want, **{k: per_batch[k] for k in PER_BATCH}})
+            expect_k7_shapes(f"CLI {label}", counts, runner.dit.cfg)
             # the loaded int8 leaves: the file's weight converted and quantized whole (bit-equal)
             qkv = quantize_linear(np.ascontiguousarray(qkv_t[source].T).reshape(qkv_t[source].shape[1], 3, -1))
             leaf = runner.dit.blocks[0].attn.qkv["vid"]
@@ -2585,8 +1917,7 @@ def _routes(runner, frames, label, out_hw, want_plan, **generate_kw):
             raise RuntimeError(f"{label} {route}: batches by route {seen}")
         outs[route] = out
         res[route] = {"wall_s": walls, "peak_gib": peak,
-                      "launches": {k: launches[k] for k in ("K1", "K2", "K3", "K4", "K3q", "K5", "K6", "K7", "K8",
-                                                            "K9")}}
+                      "launches": {k: launches[k] for k in ("K1", "K2", "K3", "K4", "K3q", "K5", "K7", "K8", "K9")}}
     auto, off = outs["auto"], outs["off"]
     if tuple(auto.shape) != tuple(off.shape) or tuple(auto.shape[1:3]) != out_hw:
         raise RuntimeError(f"{label}: shapes {auto.shape} vs {off.shape}")
@@ -2650,8 +1981,7 @@ def stream_phase(dev, text, frames):
         print(f"  (c) {PHASE12_FLUSH_FRAMES} frames, 3 batches, {route}: {wall:.3f} s ({tr['wall_s']:.3f} s profiled); "
               f"{tr['d2h_count']} D2H copies, {tr['d2h_bytes'] / 1e6:.1f} MB, {tr['d2h_ms']:.3f} ms, "
               f"{tr['d2h_overlapping_compute_ms']:.3f} ms of it under a compute-stream kernel (streams "
-              f"{tr['d2h_streams']} vs compute {tr['compute_stream']}); device idle share {tr['idle_share']:.4f}",
-              flush=True)
+              f"{tr['d2h_streams']} vs compute {tr['compute_stream']})", flush=True)
     if out["c"]["auto"]["d2h_count"] < 3 * len(PHASE12_PLANS["720p"][1]):
         raise RuntimeError(f"(c) chunk route: {out['c']['auto']['d2h_count']} D2H copies for 3 batches")
     for route in ("auto", "off"):
@@ -2686,7 +2016,7 @@ def main():
     print(f"[2] build: {b.seconds:.1f} s -> {b.path} (nvcc per source {[round(t, 1) for t in b.compile_seconds]} s, "
           f"sum {sum(b.compile_seconds):.1f} s)\n{b.log}", flush=True)
 
-    print("[3] kernels vs plain versions", flush=True)
+    print("[3] kernels vs plain versions: conv_ab's rows, this tree, one round", flush=True)
     rows = kernel_phase(dev)
     torch.cuda.empty_cache()
 
@@ -2709,9 +2039,6 @@ def main():
           flush=True)
     launches_long, e2e_long = long_clip_phase(dev, text)
     print(f"  K2 launches in the long clip: {launches_long['K2']}", flush=True)
-    k6 = sum(n["K6"] for n in (launches, launches_gn, launches_q, launches_f, launches_long))
-    if k6 != 0:
-        raise RuntimeError(f"K6 is on no path but launched {k6} times")
     torch.cuda.empty_cache()
 
     print("[8] multi-rank: two ranks on the one card (gloo), K3s and K5 per rank, sharded DiT steps, "
@@ -2763,24 +2090,13 @@ def main():
         print(f"  phase 13: {e2e_load['wall_s']:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    launches_3b_int8 = e2e_int8["3B --quantize int8 (safetensors)"]["launches"]
-    launches.update(K4=launches_gn["K4"], K8=launches_gn["K8"], K3q=launches_q["K3q"], K5=launches_f["K5"],
-                    K11=launches_f["K11"], K6=k6)
-    path_counts = {"long_clip": launches_long, "int8_7b": launches_int8, "int8_3b": launches_3b_int8}
-    for row in rows:
-        if "path" in row and row["path"] is None:
-            continue  # a shape that no driven run gives: timed alone, launches null
-        counts = path_counts.get(row.get("path"), launches)
-        if row["kernel"] == "K7":  # its own shape's count in its model's int8 batch
-            row["launches"] = counts["K7_shapes"].get(row["k7_shape"], 0)
-            if row["launches"] == 0:
-                raise RuntimeError(f"{row['name']}: phase 10's {row['path']} batch never ran K7 at this shape")
-        else:
-            row["launches"] = counts[row["kernel"]]
-    rows += rank_rows
     e2e.update({f"7b_{k}": v for k, v in e2e_7b.items()}, long_clip=dict(e2e_long, launches=launches_long),
                multi_rank=e2e_multi, cli=e2e_cli, int8=e2e_int8, node=e2e_node, stream=e2e_stream, load=e2e_load)
-    print(json.dumps({"kernels": rows, "e2e": e2e, "small": small, "build_s": b.seconds,
+    main_counts = dict(launches, K4=launches_gn["K4"], K8=launches_gn["K8"], K3q=launches_q["K3q"],
+                       K5=launches_f["K5"], K11=launches_f["K11"])
+    fill_launches(rows, {"720p": main_counts, "long_clip": launches_long},
+                  {"7b": launches_int8, "3b": e2e_int8["3B --quantize int8 (safetensors)"]["launches"]})
+    print(json.dumps({"kernels": rows + rank_rows, "e2e": e2e, "small": small, "build_s": b.seconds,
                       "build_nvcc_s": b.compile_seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,62 +1,69 @@
-"""A/B of the hand-written kernels on the card: the convolutions K1, K4, K6
-and K2, the W8A16 linear K7, the window attention K3 / K3q, the masked
-attention K5 and the GroupNorm statistics K8 of this tree against the same
-kernels built from other source trees, and the library call (cuDNN; for K7
-cuBLAS's bf16 product on the weight dequantized beforehand; for K3 SDPA on
-q/k already normalised and roped; for K5 SDPA with the key mask; for K8
-``torch.var_mean`` over the grouped bf16 view), at the shapes of the main
-paths (K3, K3q, K5, K6, K7 and K8: those of chip_smoke.py's phase 3), in
-turns within one process.
+"""The port's kernel bench: every hand-written kernel at the shapes of the
+main paths, on the card, against its plain version and the nearest library
+call, and (``--against``) against the same kernel built from other source
+trees.
 
-    python -m seedvr2_tpu_torch.conv_ab --against DIR [--against DIR ...] [--rounds 4] [--kernels K6]
+    python -m seedvr2_tpu_torch.conv_ab [--kernels K1,K4,...] [--against DIR ...] [--ablate] [--rounds 4]
 
-Each DIR is a ``csrc/`` directory, for example the parent commit's,
-unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
-Its ``conv3d.cu``, ``conv3d_im2col.cu`` (trees before K1 and K6 shared a
-kernel), ``fold_upsample.cu`` and (where it has them) ``w8a16_linear.cu``,
-``window_attention.cu``, ``window_qk_prepare.cu``, ``flash_attention.cu``
-and ``gn_stats.cu`` are compiled with this tree's ``nvcc`` flags into a
+The kernels (``--kernels``, all by default): K1 and K4 (the VAE's resnet
+conv, without and with its GroupNorm + SiLU prologue; they run together),
+K8 (K4's tables), K9 (the GroupNorm pass on them), K2, K3 and K3q (the
+wrapper's whole call; then the preparation and the flash loop alone), K5,
+K11, K10 and K7. A row is one kernel at one shape. This tree's kernel
+runs through the program's wrapper (ops/), which counts its launch: its
+rel L2 against the plain version must be at most REL_BOUND and finite, a
+second call must give the same bits, and the bench's own launch of the C
+entry (what it times) the wrapper's bits, or the bench raises (K8 also
+holds its tables within 1e-6 of fp64, K9 its bf16 codes to the plain
+version's and its route to the plain route's, as
+tests/test_torch_kernels_gpu.py does). It prints each build's rel L2
+against the plain version. Then ``--rounds`` rounds of ms per
+call (CUDA events over 10 calls after a warm-up) of the library call and
+of each build, in an order that reverses every other round (a card near its
+power limit runs slower after a heavy call, so a fixed order would favour
+one side), and last a line "=": this tree's rel L2, its ms and the library
+call's (medians of the rounds), the plain version's ms (3 calls) and the
+bound, max(bytes / HBM_BYTES_PER_S, operations / PEAK_OPS of their type),
+with the kernel's share of it. ``run`` returns the rows as dicts
+(chip_smoke.py's phase 3 runs them on this tree, one round, and adds each
+row's launch count from its driven runs: ``path`` names the main path that
+gives the row's shape, "720p" the 5-frame 640x360 -> 1280x720 batch,
+"long_clip" the 15-frame 1080p clip, None no driven run).
+
+Each DIR is another tree's ``csrc/`` (the parent commit's, for example,
+unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
+Its ``*.cu`` files are compiled with this tree's ``nvcc`` flags into a
 library of their own and called through the same C entry points
-(``ops/cuda_lib.py:_SIGNATURES``; K3 of a tree before the prepared design
-through its single entry, ``OLD_WINDOW_ATTENTION``), so DIR must keep
-them. A tree without ``gn_stats.cu`` computed K4's tables with the plain
-version, which is timed in its place ("plain tables"). ``--kernels`` picks a
-subset (K1 and K4 run together). K3 and K3q of this design are timed as
-the wrapper's whole call and, on their own, the preparation and the flash
-loop. ``--ablate`` adds, for every tree whose kernel has the design
-they were written for and for each picked kernel, copies of it with one
-part taken out (ABLATIONS). The conv pipeline (K1, K4, K6 and K2, in
-trees that have ``conv_pipeline.cuh``): the products (what the loads, and
-K4's pass, take alone) and the TMA loads (the products, the pass and the
-epilogue alone, on whatever shared memory holds). K7 (wgmma on register-widened int8 for the video rows, split-K for
-the text rows): the widening (the int8 bytes used as they are), the
-products (wgmma and mma.sync replaced by a no-op that keeps their
-operands live: loads, widening and epilogue alone), the video regime's
-TMA loads, and the split-K reduce (the partial products alone). Their
-outputs are garbage, their times say which part sets the pace. (Taking out
-the epilogue is no such measure: ptxas then drops the products whose
-accumulators nothing reads.) K3 / K3q's flash loop (attention_pipeline.cuh):
-the products (the wgmma of Q K^T and P V replaced by operand fences: loads,
-softmax and epilogue alone), the TMA and bulk loads (products, softmax
-and epilogue on whatever shared memory holds), the skipping of key tiles
-that hold no token (every tile loaded and multiplied), the one-MUFU exp2
-(``exp2f`` in its place) and the exponentials (the argument used as it
-is); an ablated flash loop runs on this tree's prepared scratch, so its
-time is the flash loop's alone. K5 on the same loop (trees whose
-``flash_attention.cuh`` is a policy of ``attention_pipeline.cuh``): the
-products, the TMA loads (the key codes are still written), and the
-skipping of key tiles whose 64 keys are all masked. K7 runs at every row of chip_smoke.py's phase
-3 (3B and 7B, video M 7200 and 24,480, text M 58) and at the video rows
-of the benchmark's image mix (7B, M 4096, 6912 and 14,400: IMAGE_ROWS),
-each tree through its own entry points: this one through
-ops/quant.py:launch (its regime of M), an older tree through its single
-entry.
-Prints ptxas's register and spill report of every build, then per shape
-each build's rel L2 against the plain version and, for ``--rounds`` rounds,
-ms per call (CUDA events over 10 calls after a warm-up) of the library
-call (for K2: on the folded weight) and of each build, in an order that
-reverses every other round (a card near its power limit runs slower after
-a heavy call, so a fixed order would favour one side). Needs a CUDA card.
+(``ops/cuda_lib.py:_SIGNATURES``); a row leaves out a build that lacks
+its kernel's entry (an older tree, or one that split or renamed it), and
+prints that it did. ``--ablate``
+adds, for every tree whose kernel has the design they were written for and
+for each picked kernel, copies of it with one part taken out (ABLATIONS).
+The conv pipeline (K1, K4, K2): the products (what the loads, and K4's
+pass, take alone) and the TMA loads (the products, the pass and the
+epilogue alone, on whatever shared memory holds). K7 (wgmma on
+register-widened int8 for the video rows, split-K for the text rows): the
+widening (the int8 bytes used as they are), the products (wgmma and
+mma.sync replaced by a no-op that keeps their operands live: loads,
+widening and epilogue alone), the video regime's TMA loads, and the
+split-K reduce (the partial products alone). Their outputs are garbage,
+their times say which part sets the pace. (Taking out the epilogue is no
+such measure: ptxas then drops the products whose accumulators nothing
+reads.) K3 / K3q's flash loop (attention_pipeline.cuh): the products (the
+wgmma of Q K^T and P V replaced by operand fences: loads, softmax and
+epilogue alone), the TMA and bulk loads (products, softmax and epilogue on
+whatever shared memory holds), the skipping of key tiles that hold no
+token (every tile loaded and multiplied), the one-MUFU exp2 (``exp2f`` in
+its place) and the exponentials (the argument used as it is); an ablated
+flash loop runs on this tree's prepared scratch, so its time is the flash
+loop's alone. K5 on the same loop: the products, the TMA loads (the key
+codes are still written), and the skipping of key tiles whose 64 keys are
+all masked. K7 runs at the 3B and 7B linears' video (M 7200, and 24,480
+for the 3B qkv of the 1080p long clip) and text rows (M 58), and at the
+video rows of the benchmark's image mix (7B, M 4096, 6912 and 14,400:
+IMAGE_ROWS), each tree through ops/quant.py:launch (the regime of M).
+Prints the card and ptxas's register and spill report of every build
+first. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ import argparse
 import ctypes
 import re
 import shutil
+import statistics
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -79,21 +87,53 @@ from .ops import cuda_lib
 from .ops import flash_attention as k5
 from .ops import fold_upsample_kernel as k2
 from .ops import fused_window_attention as k3
+from .ops import mid_attention as k10
+from .ops import normalization as norm
 from .ops import quant
+from .ops import window_prepare as k11
 
-CONV_SHAPES = ((512, 3, 180, 320), (256, 5, 360, 640), (128, 5, 720, 1280), (128, 5, 608, 1024), (256, 5, 304, 512))
-K6_SHAPES = CONV_SHAPES[:3]
-SOURCES = ("conv3d.cu", "conv3d_im2col.cu", "fold_upsample.cu", "w8a16_linear.cu", "window_attention.cu",
-           "window_qk_prepare.cu", "flash_attention.cu", "gn_stats.cu")  # those a tree has
-# K3 / K3q of a tree before the prepared design: one entry (csrc/window_attention.cu of that tree)
-OLD_WINDOW_ATTENTION = ("seedvr2_window_attention", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
-                        + [ctypes.c_void_p])
-# (model, latent frames x height x width, quant_qk) of K3 / K3q's rows: chip_smoke.py phase 3's
-WINDOW_SHAPES = (("3b", (2, 45, 80), False), ("3b", (3, 68, 120), False), ("7b", (2, 45, 80), True))
-FOLD_SHAPES = ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7, 360, 640))  # C, kt, A, frames, H, W
+KERNELS = ("K1", "K4", "K8", "K9", "K2", "K3", "K3q", "K5", "K11", "K10", "K7")
+REL_BOUND = 1e-2  # ||kernel - plain||_2 / ||plain||_2: the kernels round their outputs to bf16 (~4e-3)
+# NVIDIA H100 SXM published peaks (dense, at the 700 W limit)
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
+
+# The last item of a shape is its row's path (see the docstring).
+# (C, T, H, W) of K1, K4 and K8: the resnet convs of the 720p decode (latent 2x90x160 -> 5x720x1280), then the
+# c128 and c256 convs of one 608 x 1024 tile of the long clip's tiled 1080p decode (the 1080p frame padded to
+# 1088 x 1920 is a 136 x 240 latent, cut by 1024 px tiles with 128 px overlap into 76 x 128 latent tiles)
+CONV_SHAPES = (((512, 3, 180, 320), "720p"), ((256, 5, 360, 640), "720p"), ((128, 5, 720, 1280), "720p"),
+               ((128, 5, 608, 1024), "long_clip"), ((256, 5, 304, 512), "long_clip"))
+# (C, kt, A, frames, H, W) of K2: the 720p decode's three upsamples (path "720p")
+FOLD_SHAPES = ((512, 2, 2, 2, 90, 160), (512, 2, 2, 3, 180, 320), (256, 3, 1, 7, 360, 640))
+# (model, patched latent frames x height x width, quant_qk, path) of K3 / K3q: the 720p batch, and the long clip's
+# 1080p batch of 9 frames (1080x1920 padded to 1088x1920, /8 by the VAE, /2 by the patch; 9 frames -> 3 latents)
+WINDOW_SHAPES = (("3b", (2, 45, 80), False, "720p"), ("3b", (3, 68, 120), False, "long_clip"),
+                 ("7b", (2, 45, 80), True, "720p"))
+# K9's (x [1, T, H, W, C], SiLU, which GroupNorm, path): the 720p resnets' extended inputs (decoder; the encoder's are
+# the same shapes), the decoder's norm_out at full resolution, the encoder's norm_out and the mid attention's
+# GroupNorm at 1/8; the long clip's decode tile (norm_out of its first slice, and a c256 resnet input)
+K9_SHAPES = (((5, 180, 320, 512), True, "resnet c512 x_ext", "720p"),
+             ((7, 360, 640, 256), True, "resnet c256 x_ext", "720p"),
+             ((7, 720, 1280, 128), True, "resnet c128 x_ext", "720p"),
+             ((5, 720, 1280, 128), True, "decoder norm_out", "720p"),
+             ((2, 90, 160, 512), True, "encoder norm_out", "720p"), ((2, 90, 160, 512), False, "mid attention", "720p"),
+             ((5, 608, 1024, 128), True, "decode tile norm_out", "long_clip"),
+             ((7, 304, 512, 256), True, "decode tile c256 x_ext", "long_clip"))
+# K10's (frames, pixels a frame, C, which call, path): a 720p batch's two 90 x 160 latent frames, the first temporal
+# slice of the long clip's decode tile (two 76 x 128), a video1080 batch's two 135 x 240, a 720x1280 image's
+# one 180 x 320 at 2x, and the small config's width at a ragged n (64 query tiles and one row)
+K10_SHAPES = ((2, 14400, 512, "720p batch", "720p"), (2, 9728, 512, "long clip decode tile, first slice", "long_clip"),
+              (2, 32400, 512, "video1080 batch", None), (1, 57600, 512, "image2x 720x1280", None),
+              (1, 4097, 256, "small config, ragged n", None))
+# K11's (patched latent, plain 0 or shifted 1, which call, path) at the 7B's plans: the 720p batch, a video1080 batch's
+# latent (5 frames -> 2 latents) in both plans, and a 720x1280 image's at 2x (one 90 x 160 latent)
+K11_SHAPES = (((2, 45, 80), 0, "720p batch", "720p"), ((2, 68, 120), 0, "video1080 batch", None),
+              ((2, 68, 120), 1, "video1080 batch", None), ((1, 90, 160), 0, "image2x 720x1280", None))
+IMAGE_ROWS = (4096, 6912, 14400)  # DiT video rows of a 512x512, 576x768 / 768x576 and 720x1280 image upscaled 2x
 
 # family -> (its kernels, header, a string of the design the ablations were written for)
-ABLATED = {"conv": (("K1", "K4", "K6", "K2"), "conv_pipeline.cuh", "sm90::wgmma"),
+ABLATED = {"conv": (("K1", "K4", "K2"), "conv_pipeline.cuh", "sm90::wgmma"),
            "K7": (("K7",), "w8a16_linear.cuh", "k16_rs_bf16("),
            "attn": (("K3", "K3q"), "attention_pipeline.cuh", "wgmma_m64n64k16_bf16_kmajor"),
            "flash": (("K5",), "flash_attention.cuh", '#include "attention_pipeline.cuh"')}
@@ -134,13 +174,10 @@ ABLATIONS = {
 }
 
 
-IMAGE_ROWS = (4096, 6912, 14400)  # DiT video rows of a 512x512, 576x768 / 768x576 and 720x1280 image upscaled 2x
-
-
 def int8_linear_shapes(cfg: DiTConfig) -> list:
     """(name, K, N, bias) of the four kinds of int8 block linear of a DiT
     config, unsplit: qkv, attention out, MLP in (and gate), MLP out (K7's
-    rows here and in chip_smoke.py's phase 3)."""
+    rows)."""
     D, inner, hidden, mlp_bias = cfg.vid_dim, cfg.inner_dim, mlp_hidden(cfg), cfg.mlp_type != "swiglu"
     return [("qkv", D, 3 * inner, cfg.qk_bias), ("out", inner, D, True),
             ("proj_in" + ("/proj_in_gate" if not mlp_bias else ""), D, hidden, mlp_bias),
@@ -149,8 +186,8 @@ def int8_linear_shapes(cfg: DiTConfig) -> list:
 
 def flash_shapes(dev) -> list:
     """(name, B, S, H, kv_valid) of K5's rows: the 7B unfused window
-    attention at 720p (chip_smoke.py phase 3), B = nW windows of S = mL + Lt
-    rows, keys valid = [window validity | all text]."""
+    attention at 720p, B = nW windows of S = mL + Lt rows, keys valid =
+    [window validity | all text]."""
     cfg, Lt = dit_7b(), 58
     out = []
     for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, (2, 45, 80), Lt), cfg.head_dim, dev)):
@@ -215,6 +252,30 @@ def gn_codes(pre: torch.Tensor, pre_ref: torch.Tensor, mag: torch.Tensor, out=No
             "far": far}
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: int, ops: dict):
+    """Least time on the card: the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type (ms, and which)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items()) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def ablated(csrc: Path, out: Path, kernels) -> dict:
     """{name: (family, csrc copy)} with each of ABLATIONS of a family with a
     kernel in ``kernels`` applied, where its header in csrc has the design
@@ -237,73 +298,414 @@ def ablated(csrc: Path, out: Path, kernels) -> dict:
 
 
 def build_other(csrc: Path, out: Path):
-    """(library, ptxas report) of csrc's SOURCES."""
+    """(library, ptxas report) of csrc's ``*.cu``."""
     out.mkdir(parents=True, exist_ok=True)
     so = out / "libconv_ab.so"
     cmd = [cuda_lib._nvcc(), *cuda_lib.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared",
-           "-o", str(so), *(str(csrc / f) for f in SOURCES if (csrc / f).exists())]
+           "-o", str(so), *(str(f) for f in sorted(csrc.glob("*.cu")))]
     p = subprocess.run(cmd, capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"nvcc failed for {csrc}:\n{p.stdout}{p.stderr}")
-    lib = ctypes.CDLL(str(so))
-    for fn, args in (*cuda_lib._SIGNATURES.items(), OLD_WINDOW_ATTENTION):
+    return bind(ctypes.CDLL(str(so))), ptxas_report(p.stdout + p.stderr)
+
+
+def bind(lib):
+    """Types the C entries of ``_SIGNATURES`` that ``lib`` exports; a tree
+    may lack some, and the rows of their kernels leave it out."""
+    for fn, args in cuda_lib._SIGNATURES.items():
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
-    return lib, ptxas_report(p.stdout + p.stderr)
+    return lib
 
 
 def ptxas_report(log: str) -> str:
-    """ptxas's spill and register lines of the conv kernels, K7 and K3 / K3q, each after its kernel's name."""
-    return "".join(f"\n  {name}: {line}" for name, line in cuda_lib.ptxas_lines(log)
-                   if any(k in name for k in ("conv", "fold", "w8a16", "flash_kernel", "qk_prepare", "WindowPolicy",
-                                              "attention_kernel", "gn_stats")))
+    """ptxas's spill and register lines of every kernel, each after its kernel's name."""
+    return "".join(f"\n  {name}: {line}" for name, line in cuda_lib.ptxas_lines(log))
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
 
 
-def timed_rounds(calls: dict, rounds: int) -> None:
-    """One line of ms per call for each round, the order reversed every other round."""
-    for r in range(rounds):
-        names = list(calls) if r % 2 == 0 else list(calls)[::-1]
-        t = {n: cuda_ms(calls[n]) for n in names}
-        print("   " + " | ".join(f"{n} {t[n]:.3f}" for n in calls), flush=True)
+def _rel(got, ref) -> float:
+    """The largest rel L2 over a kernel's outputs."""
+    return max(float((a.float() - b.float()).norm() / b.float().norm()) for a, b in zip(_tuple(got), _tuple(ref)))
 
 
-def rel_l2(a, b) -> float:
-    return float((a.float() - b.float()).norm() / b.float().norm())
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+class Bench:
+    """The builds (``libs``: "this", each DIR, each ablated copy), the
+    rows' shared settings, and the rows so far (``rows``)."""
+
+    def __init__(self, libs: dict, ablation_of: dict, rounds: int, dev, kernels=KERNELS):
+        self.libs, self.ablation_of, self.rounds, self.dev, self.kernels = libs, ablation_of, rounds, dev, kernels
+        self.g = torch.Generator(device=dev).manual_seed(0)
+        self.rows = []
+
+    def family(self, family=None, entries=()) -> dict:
+        """The trees, and the copies ablated in ``family`` (None: the trees
+        alone), that export every C entry of ``entries``."""
+        return {n: L for n, L in self.libs.items()
+                if self.ablation_of.get(n, family) == family and all(hasattr(L, e) for e in entries)}
+
+    def randn(self, *shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=self.g, device=self.dev) * scale).to(dtype)
+
+    def row(self, label, kernel, launch, entries, ref, plain, moved, ops, library=None, family=None, extra=None,
+            path=None, **info) -> dict:
+        """One kernel at one shape; its kernel id is the label's first word.
+        ``kernel()`` runs this tree's kernel through the program's wrapper;
+        ``launch(lib)`` runs it once from a build through its C ``entries``
+        and returns its output(s); ``ref`` is the plain version's output,
+        ``plain`` a call of it; ``library`` (name, call); the builds of
+        ``family`` are timed, and ``extra``, more calls. ``path`` and
+        ``info`` go into the row as they are."""
+        first = tuple(t.clone() for t in _tuple(kernel()))
+        builds = self.family(None, entries)
+        errs = {"this": _rel(first, ref), **{n: _rel(launch(L), ref) for n, L in builds.items() if n != "this"}}
+        lacking = [n for n in self.family() if n not in builds]
+        print(f"{label}: rel L2 vs plain " + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + (f" (left out, no {'/'.join(entries)}: {', '.join(lacking)})" if lacking else ""), flush=True)
+        if not (errs["this"] <= REL_BOUND and all(bool(torch.isfinite(t).all()) for t in first)):
+            raise RuntimeError(f"{label}: kernel disagrees with its plain version (rel L2 {errs['this']:.3e})")
+        if not all(torch.equal(a, b) for a, b in zip(first, _tuple(kernel()))):
+            raise RuntimeError(f"{label}: two launches on the same inputs differ")
+        if not all(torch.equal(a, b) for a, b in zip(first, _tuple(launch(self.libs["this"])))):
+            raise RuntimeError(f"{label}: the bench's launch of {'/'.join(entries)} differs from the wrapper's")
+        del first
+        calls = {library[0]: library[1]} if library else {}
+        calls.update({n: (lambda L=L: launch(L)) for n, L in self.family(family, entries).items()})
+        calls.update(extra or {})
+        ms = {n: [] for n in calls}
+        for r in range(self.rounds):
+            for n in list(calls) if r % 2 == 0 else list(calls)[::-1]:
+                ms[n].append(cuda_ms(calls[n]))
+            print("   " + " | ".join(f"{n} {ms[n][-1]:.3f}" for n in calls), flush=True)
+        plain_ms, (bound_ms, by) = cuda_ms(plain, 3), bound(moved, ops)
+        this = statistics.median(ms["this"])
+        lib_ms = statistics.median(ms[library[0]]) if library else None
+        lib = f", {library[0]} {lib_ms:.3f} ms" if library else ""
+        print(f"  = {label}: rel L2 {errs['this']:.2e}, {this:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound "
+              f"{bound_ms:.4f} ms ({by}), {bound_ms / this:.1%} of it", flush=True)
+        row = {"name": label, "kernel": label.split()[0], "path": path, **info, "launches": None,
+               "rel_l2": errs["this"], "ms": this, "plain_ms": plain_ms, "library": library and library[0],
+               "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by, "share": bound_ms / this}
+        self.rows.append(row)
+        return row
+
+
+def conv_rows(b: Bench):
+    """K1 and K4 at CONV_SHAPES; K4's tables from K8 (its own row times
+    them), its library call the chain it fuses."""
+    for (c, T, H, W), path in CONV_SHAPES:
+        x, w = b.randn(1, T + 2, H, W, c), b.randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
+        bias = b.randn(c, dtype=torch.float32)
+        gw, gb = 1 + b.randn(c, scale=0.2, dtype=torch.float32), b.randn(c, scale=0.3, dtype=torch.float32)
+        sc, sf = k1.gn_silu_tables(x, gw, gb, 32)
+        y = torch.empty((1, T, H, W, c), dtype=torch.bfloat16, device=b.dev)
+        xc, wo = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+        moved, ops = nbytes(x, w, bias) + nbytes(y), {"bf16": 2 * T * H * W * 27 * c * c}
+
+        def run(lib, gn):
+            cuda_lib.check(lib.seedvr2_conv3d_3x3x3(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                                     sc.data_ptr() if gn else None, sf.data_ptr() if gn else None,
+                                                     y.data_ptr(), 1, T, H, W, c, c, _stream()), "conv3d_3x3x3")
+            return y
+
+        def chain():
+            h = x.permute(0, 1, 4, 2, 3).reshape(T + 2, c, H, W)  # per-frame GroupNorm on NCHW frames
+            h = F.silu(F.group_norm(h, 32, gw.bfloat16(), gb.bfloat16(), eps=1e-6))
+            return F.conv3d(h.reshape(1, T + 2, c, H, W).transpose(1, 2), wo, bias.bfloat16(), padding=(0, 1, 1))
+
+        shape, entry = f"c{c} {T}x{H}x{W}", ("seedvr2_conv3d_3x3x3",)
+        b.row(f"K1 {shape}", lambda: k1.conv3d_3x3x3(x, w, bias), lambda L: run(L, False), entry,
+              k1.conv3d_3x3x3_plain(x, w, bias), lambda: k1.conv3d_3x3x3_plain(x, w, bias), moved, ops,
+              ("cudnn", lambda: F.conv3d(xc, wo, bias.bfloat16(), padding=(0, 1, 1))), "conv", path=path)
+        b.row(f"K4 {shape} (tables not timed)", lambda: k1.conv3d_3x3x3(x, w, bias, sc, sf), lambda L: run(L, True),
+              entry, k1.conv3d_3x3x3_plain(x, w, bias, sc, sf), lambda: k1.conv3d_3x3x3_plain(x, w, bias, sc, sf),
+              moved + nbytes(sc, sf), ops, ("gn+silu+cudnn", chain), "conv", path=path)
+        del x, w, sc, sf, y, xc, wo
+
+
+def tables_rows(b: Bench):
+    """K8 on K4's inputs: against the plain tables, each within 1e-6 of
+    fp64 (max |err| / max |ref| of scale and of shift); the library call
+    torch.var_mean over the grouped bf16 view (the statistics alone)."""
+    entry = ("seedvr2_gn_stats",)
+    for (c, T, H, W), path in CONV_SHAPES:
+        x = b.randn(1, T + 2, H, W, c)
+        gw, gb = 1 + b.randn(c, scale=0.2, dtype=torch.float32), b.randn(c, scale=0.3, dtype=torch.float32)
+        ref = tables_fp64(x, gw, gb, 32)
+        got = {"plain": k1.gn_silu_tables_plain(x, gw, gb, 32)}
+        got["this"] = k1.gn_silu_tables(x, gw, gb, 32)
+        got.update({n: k1.gn_stats_launch(L, x, gw, gb, 32) for n, L in b.family(None, entry).items() if n != "this"})
+        errs = {n: [max_rel(a, r) for a, r in zip(t, ref)] for n, t in got.items()}
+        print(f"K8 c{c} {T + 2}x{H}x{W}: max rel err of scale / shift vs fp64 "
+              + " ".join(f"{n} {e[0]:.2e} / {e[1]:.2e}" for n, e in errs.items()), flush=True)
+        if max(errs["this"]) > 1e-6:
+            raise RuntimeError(f"K8 c{c} {T + 2}x{H}x{W}: scale / shift {errs['this']} from fp64, over 1e-6")
+        xg = x.view(1, T + 2, H * W, 32, c // 32)
+        b.row(f"K8 c{c} {T + 2}x{H}x{W}", lambda: k1.gn_silu_tables(x, gw, gb, 32),
+              lambda L: k1.gn_stats_launch(L, x, gw, gb, 32), entry, got["plain"],
+              lambda: k1.gn_silu_tables_plain(x, gw, gb, 32), nbytes(x, gw, gb) + nbytes(*got["plain"]), {},
+              ("var_mean", lambda: torch.var_mean(xg, dim=(2, 4), correction=0)), path=path)
+        del x, xg, ref, got
+
+
+def gn_apply_rows(b: Bench):
+    """K9 on K8's tables of random bf16 x with the VAE's bf16 norm weights:
+    against its plain version without the SiLU the same bits, with it no
+    code more than one step away and at most 1e-3 of them moved; the VAE's
+    call (K8 then K9) against the plain route it replaces (gn_codes: no far
+    code, at most 1e-3 moved). The library call is a chain: a
+    channels-first copy, F.group_norm, F.silu."""
+    for (T, H, W, c), silu, what, path in K9_SHAPES:
+        x = b.randn(1, T, H, W, c)
+        gw, gb = 1 + b.randn(c, scale=0.2), b.randn(c, scale=0.3)
+        scale, shift = k1.gn_silu_tables(x, gw, gb, 32)
+        y = torch.empty_like(x)
+        ppb, steps = norm.gn_apply_geometry(c)
+        label = f"K9 {'gn_silu' if silu else 'group_norm'} c{c} {T}x{H}x{W} ({what})"
+
+        def run(lib):
+            cuda_lib.check(lib.seedvr2_gn_apply(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(), T,
+                                                H * W, c, ppb, steps, int(silu), _stream()), "gn_apply")
+            return y
+
+        ref = norm.gn_apply_plain(x, scale, shift, silu)
+        moved_codes = bf16_steps(norm.gn_apply(x, scale, shift, silu), ref)
+        share, most = float((moved_codes > 0).float().mean()), int(moved_codes.max())
+        mag = (x.float() * scale[:, :, None, None, :]).abs() + shift[:, :, None, None, :].abs()
+        pair = [(norm.group_norm_frames(x, gw, gb, 32, s), norm.group_norm_frames_plain(x, gw, gb, 32, s))
+                for s in ((False, True) if silu else (False,))]
+        route = gn_codes(*pair[0], mag, *(pair[1] if silu else ()))
+        del moved_codes, mag, pair
+        print(f"{label}: {share:.2e} of the codes moved from the plain version (up to {most} steps); K8 + K9 "
+              f"against the plain route {route}", flush=True)
+        if most > (1 if silu else 0) or share > 1e-3 or route["far"] or route["share"] > 1e-3:
+            raise RuntimeError(f"{label}: codes moved from the plain version or the plain route")
+
+        def chain():
+            h = F.group_norm(x.permute(0, 1, 4, 2, 3).reshape(T, c, H, W), 32, gw, gb, eps=1e-6)
+            return F.silu(h) if silu else h
+
+        b.row(label, lambda: norm.gn_apply(x, scale, shift, silu), run, ("seedvr2_gn_apply",), ref,
+              lambda: norm.gn_apply_plain(x, scale, shift, silu), 2 * nbytes(x) + nbytes(scale, shift), {},
+              ("gn" + ("+silu" if silu else ""), chain), path=path)
+        del x, scale, shift, y, ref
+
+
+def fold_rows(b: Bench):
+    """K2 at the decoder's three upsamples at 720p; the library call is
+    cuDNN on the folded weight (no bias table, no depth-to-space)."""
+    for c, kt, A, frames, H, W in FOLD_SHAPES:
+        x, K = b.randn(1, frames, H, W, c), b.randn(kt, 2, 2, c, A * 4 * c, scale=(kt * 4 * c) ** -0.5)
+        bt, bc = b.randn(2, 2, A * 4 * c, dtype=torch.float32), b.randn(c, dtype=torch.float32)
+        Tp = frames - kt + 1
+        y = torch.empty((1, Tp * A, 2 * H, 2 * W, c), dtype=torch.bfloat16, device=b.dev)
+        xc, Ko = x.permute(0, 4, 1, 2, 3), K.permute(4, 3, 0, 1, 2).contiguous()
+
+        def run(lib):
+            cuda_lib.check(lib.seedvr2_fold_upsample(x.data_ptr(), K.data_ptr(), bt.data_ptr(), bc.data_ptr(),
+                                                      y.data_ptr(), 1, Tp, kt, A, H, W, c, _stream()), "fold_upsample")
+            return y
+
+        b.row(f"K2 c{c} kt{kt} A{A} {frames}x{H}x{W}", lambda: k2.fold_upsample_conv(x, K, bt, bc, A), run,
+              ("seedvr2_fold_upsample",), k2.fold_upsample_conv_plain(x, K, bt, bc, A),
+              lambda: k2.fold_upsample_conv_plain(x, K, bt, bc, A), nbytes(x, K, bt, bc) + nbytes(y),
+              {"bf16": 2 * Tp * H * W * (kt * 4 * c) * (A * 4 * c)},
+              ("cudnn", lambda: F.conv3d(xc, Ko, padding=(0, 1, 1))), "conv", path="720p")
+        del x, K, y, xc, Ko
+
+
+def window_rows(b: Bench):
+    """K3 (3B) and K3q (7B) at WINDOW_SHAPES, Lt = 58, the plain and the
+    shifted plan: the wrapper's whole call (the q/k preparation and the
+    flash loop), then each kernel of this tree alone and the ablated flash
+    loops on its prepared scratch. K3's library call: SDPA on already
+    normalised and roped q/k with the text appended and the key mask; no
+    torch call does K3q's int8 q/k attention."""
+    here = b.libs["this"]
+    entries = ("seedvr2_window_qk_prepare", "seedvr2_window_flash")
+    for variant, thw, quant_qk, path in WINDOW_SHAPES:
+        kid = "K3q" if quant_qk else "K3"
+        if kid not in b.kernels:
+            continue
+        cfg = dit_3b() if variant == "3b" else dit_7b()
+        H, D, Lt = cfg.heads, cfg.head_dim, 58
+        for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, thw, Lt), D, b.dev)):
+            nW, S = dp.valid.shape
+            vqkv, tqkv = b.randn(1, 3, H, nW, S, D), b.randn(1, 3, H, Lt, D)
+            norms = 1 + b.randn(4, D, scale=0.1, dtype=torch.float32)
+            wargs = (vqkv, tqkv, dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.valid, dp.rope_txt, norms, True,
+                     cfg.norm_eps)
+            prep = k3.qk_prepare(here, *wargs, quant_qk)
+            keys = int(dp.valid.sum()) + nW * Lt  # every query row against the valid video and all text keys
+            qk = 2 * H * (S + Lt) * keys * D
+            tables = (dp.vid_cos, dp.vid_sin) + ((dp.txt_cos, dp.txt_sin) if dp.rope_txt else ())
+            library = None
+            if not quant_qk:
+                q, k, v = (torch.cat([vqkv[0, i].permute(1, 0, 2, 3), tqkv[0, i][None].expand(nW, H, Lt, D)], dim=2)
+                           for i in range(3))
+                mask = torch.cat([dp.valid, torch.ones(nW, Lt, dtype=torch.bool, device=b.dev)], dim=1)[:, None, None]
+                library = ("sdpa", lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            extra = {"this prep": lambda: k3.qk_prepare(here, *wargs, quant_qk),
+                     "this flash": lambda: k3.window_flash(here, vqkv, tqkv, prep, quant_qk)}
+            extra.update({f"{n} flash": (lambda L=L: k3.window_flash(L, vqkv, tqkv, prep, quant_qk))
+                          for n, L in b.family("attn", entries).items() if n in b.ablation_of})
+            b.row(f"{kid} {variant} {thw} {which} H{H} nW{nW} S{S} Lt{Lt}",
+                  lambda: k3.fused_window_attention(*wargs, quant_qk=quant_qk),
+                  lambda L: k3.window_flash(L, vqkv, tqkv, k3.qk_prepare(L, *wargs, quant_qk), quant_qk), entries,
+                  k3.fused_window_attention_plain(*wargs, quant_qk=quant_qk),
+                  lambda: k3.fused_window_attention_plain(*wargs, quant_qk=quant_qk),
+                  nbytes(vqkv, tqkv, dp.valid, norms, *tables) + 2 * H * nW * (S + Lt) * D,  # + the bf16 outputs
+                  {"int8": qk, "bf16": qk} if quant_qk else {"bf16": 2 * qk}, library, extra=extra, path=path)
+            del vqkv, tqkv, prep, extra, library
+
+
+def flash_rows(b: Bench):
+    """K5 at the 7B unfused window attention's shapes (flash_shapes); the
+    library call SDPA with the key mask."""
+    for name, B, S, H, kv_valid in flash_shapes(b.dev):
+        D = k5.HEAD_DIM
+        q, k, v = (b.randn(B, S, H, D) for _ in range(3))
+        o = torch.empty_like(q)
+
+        def run(lib):
+            cuda_lib.check(lib.seedvr2_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
+                                                       None, o.data_ptr(), B, S, H, k5.padded_len(S) - S, 1.0 / D**0.5,
+                                                       _stream()), "flash_attention")
+            return o
+
+        qt, kt, vt, mask = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_valid[:, None, None]
+        qk = 2 * H * S * int(kv_valid.sum()) * D  # every query row against the valid keys of its batch row
+        b.row(f"K5 {name} B{B} S{S} H{H}", lambda: k5.flash_attention(q, k, v, kv_valid), run,
+              ("seedvr2_flash_attention",), k5.flash_attention_plain(q, k, v, kv_valid),
+              lambda: k5.flash_attention_plain(q, k, v, kv_valid), nbytes(q, k, v, kv_valid, o), {"bf16": 2 * qk},
+              ("sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)), "flash", path="720p")
+        del q, k, v, o
+
+
+def window_prepare_rows(b: Bench):
+    """K11 at the 7B's plans (24 heads, 58 text tokens) against its plain
+    version, the op chain it replaced on the unfused route; no library
+    call. Bound by bytes: the qkv and text read once, the index, norms and
+    tables, K5's three operands written once."""
+    cfg = dit_7b()
+    H, D, Lt = cfg.heads, cfg.head_dim, 58
+    for thw, which, what, path in K11_SHAPES:
+        dp = device_plans(build_attn_plans(cfg, thw, Lt), D, b.dev)[which]
+        nW, mL = dp.valid.shape
+        Lv = dp.inverse.numel()
+        y, t = b.randn(1, Lv, 3, H, D), b.randn(1, Lt, 3, H, D)
+        norms = 1 + b.randn(4, D, scale=0.1, dtype=torch.float32)
+        args = (y, t, dp.index, dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.rope_txt, norms, True, cfg.norm_eps)
+        out = torch.empty((3, nW, mL + Lt, H, D), dtype=torch.bfloat16, device=b.dev)
+        tables = (dp.vid_cos, dp.vid_sin) + ((dp.txt_cos, dp.txt_sin) if dp.rope_txt else ())
+
+        def run(lib):
+            cuda_lib.check(lib.seedvr2_window_prepare(
+                y.data_ptr(), t.data_ptr(), dp.index.data_ptr(), dp.vid_cos.data_ptr(), dp.vid_sin.data_ptr(),
+                dp.txt_cos.data_ptr(), dp.txt_sin.data_ptr(), norms.data_ptr(), out.data_ptr(), 1, Lv, H, nW, mL, Lt,
+                int(dp.rope_txt), 1, cfg.norm_eps, _stream()), "window_prepare")
+            return out.unbind(0)
+
+        b.row(f"K11 7b {what} {('plain', 'shifted')[which]} nW{nW} mL{mL} Lt{Lt} H{H}",
+              lambda: k11.window_prepare(*args), run, ("seedvr2_window_prepare",), k11.window_prepare_plain(*args),
+              lambda: k11.window_prepare_plain(*args), nbytes(y, t, dp.index, norms, *tables, out), {}, path=path)
+        del y, t, args, out
+
+
+def mid_attention_rows(b: Bench):
+    """K10 at K10_SHAPES against its plain version (the per-frame fp32
+    logits, softmax and bf16 copy); the library call SDPA on the same bf16
+    q, k, v."""
+    for frames, n, C, what, path in K10_SHAPES:
+        q, k, v = (b.randn(frames, n, C) for _ in range(3))
+        o = torch.empty_like(q)
+        qh, kh, vh = (x[:, None] for x in (q, k, v))
+
+        def run(lib):
+            cuda_lib.check(lib.seedvr2_mid_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), frames, n,
+                                                     C, 1.0 / C**0.5, _stream()), "mid_attention")
+            return o
+
+        b.row(f"K10 {what} F{frames} n{n} c{C}", lambda: k10.mid_attention(q, k, v), run, ("seedvr2_mid_attention",),
+              k10.mid_attention_plain(q, k, v), lambda: k10.mid_attention_plain(q, k, v), nbytes(q, k, v, o),
+              {"bf16": 4 * frames * n * n * C}, ("sdpa", lambda: F.scaled_dot_product_attention(qh, kh, vh)), path=path)
+        del q, k, v, o, qh, kh, vh
+
+
+def k7_rows(b: Bench):
+    """K7 at the int8 DiT's linears (weights quantized from normal draws,
+    bf16 inputs, the linear's bias where it has one): the 3B's and 7B's
+    video (M 7200) and text (M 58) rows, the 3B qkv at the long clip's
+    video rows (M 24,480) and the 7B at IMAGE_ROWS. The library call is
+    cuBLAS's bf16 x @ w on the weight dequantized beforehand; the plain
+    version is the whole chain (widen, product, scale, bias)."""
+    rows = [(cfg.variant, M, shape) for cfg in (dit_3b(), dit_7b()) for M in (7200, 58)
+            for shape in int8_linear_shapes(cfg)]
+    rows.append(("3b", 24480, int8_linear_shapes(dit_3b())[0]))
+    rows += [("7b", M, shape) for M in IMAGE_ROWS for shape in int8_linear_shapes(dit_7b())]
+    entries = ("seedvr2_w8a16_linear", "seedvr2_w8a16_linear_splitk", "seedvr2_w8a16_splitk_splits")
+    for variant, M, (name, K, N, has_bias) in rows:
+        q = quant.quantize_linear(torch.randn(K, N, generator=b.g, device=b.dev) * K**-0.5)
+        w_q, w_s, w_deq = q["w_q"].t().contiguous(), q["w_s"], quant.dequantize_weight(q)
+        bias = b.randn(N) if has_bias else None
+        x, y = b.randn(M, K), torch.empty((M, N), dtype=torch.bfloat16, device=b.dev)
+
+        def run(lib):
+            quant.launch(lib, x, w_q, w_s, bias, y)
+            return y
+
+        b.row(f"K7 {variant} {name} M{M} K{K} N{N}{' +bias' if has_bias else ''} ({quant.regime(M)})",
+              lambda: quant.linear_apply(x, w_q, w_s, bias), run, entries, quant.linear_apply_plain(x, w_q, w_s, bias),
+              lambda: quant.linear_apply_plain(x, w_q, w_s, bias),
+              nbytes(x, w_q, w_s, y, *((bias,) if has_bias else ())), {"bf16": 2 * M * N * K},
+              ("cublas", lambda: x @ w_deq), "K7", path="720p" if M in (7200, 58) else None, model=variant,
+              mkn=(M, K, N))
+        del q, w_q, w_s, w_deq, x, y
+
+
+# kernel -> the rows that run it (K1 and K4 share theirs)
+ROWS = {"K1": conv_rows, "K4": conv_rows, "K8": tables_rows, "K9": gn_apply_rows, "K2": fold_rows,
+        "K3": window_rows, "K3q": window_rows, "K5": flash_rows, "K11": window_prepare_rows,
+        "K10": mid_attention_rows, "K7": k7_rows}
+
+
+def run(b: Bench) -> list:
+    """The rows of the kernels ``b`` picks, in KERNELS' order (``b.rows``)."""
+    for rows in dict.fromkeys(ROWS[k] for k in KERNELS if k in b.kernels):
+        rows(b)
+        torch.cuda.empty_cache()
+    return b.rows
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--against", action="append", default=[], help="a csrc/ directory to build and time beside this tree")
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--kernels", default="K1,K4,K6,K2,K7,K3,K3q,K5,K8",
-                    help="comma-separated subset of K1,K4,K6,K2,K7,K3,K3q,K5,K8")
+    ap.add_argument("--kernels", default=",".join(KERNELS), help=f"comma-separated subset of {','.join(KERNELS)}")
     ap.add_argument("--ablate", action="store_true",
                     help="also time the conv kernels, K7, K3 / K3q's flash loop and K5 with one part taken out")
     args = ap.parse_args()
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(KERNELS):
+        ap.error(f"--kernels: {sorted(set(kernels) - set(KERNELS))} not in {','.join(KERNELS)}")
     if not torch.cuda.is_available():
         raise SystemExit("conv_ab: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions compute in true fp32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), torch.__version__, flush=True)
-    here = cuda_lib.library()
+    libs = {"this": cuda_lib.library()}
     print("this tree:", ptxas_report(cuda_lib.build().log), flush=True)
-    libs = {"this": here}
     work = cuda_lib.BUILD_ROOT.parent / "conv_ab"
-    kernels = set(args.kernels.split(","))
     others = {d: Path(d) for d in args.against}
     ablation_of = {}  # an ablated build's name -> its family
     if args.ablate:
@@ -315,183 +717,7 @@ def main():
         for d, (lib, report) in zip(others, pool.map(build_other, others.values(), outs)):
             libs[d] = lib
             print(f"{d}:", report, flush=True)
-    trees = {n: L for n, L in libs.items() if n not in ablation_of}
-    conv_libs = {n: L for n, L in libs.items() if ablation_of.get(n, "conv") == "conv"}  # timed, ablated too
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
-
-    for c, T, H, W in CONV_SHAPES:
-        k14 = bool(kernels & {"K1", "K4"})
-        k6 = "K6" in kernels and (c, T, H, W) in K6_SHAPES
-        if not (k14 or k6):
-            continue
-        x, w = randn(1, T + 2, H, W, c), randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
-        b = torch.randn(c, generator=g, device=dev)
-        gw, gb = 1 + 0.2 * torch.randn(c, generator=g, device=dev), 0.3 * torch.randn(c, generator=g, device=dev)
-        sc, sf = k1.gn_silu_tables(x, gw, gb, 32) if k14 else (None, None)
-        y = torch.empty((1, T, H, W, c), dtype=torch.bfloat16, device=dev)
-        ref1 = k1.conv3d_3x3x3_plain(x, w, b)
-        xc, wo = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
-
-        def run(lib, gn):
-            cuda_lib.check(lib.seedvr2_conv3d_3x3x3(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                                     sc.data_ptr() if gn else None, sf.data_ptr() if gn else None,
-                                                     y.data_ptr(), 1, T, H, W, c, c, stream()), "conv3d_3x3x3")
-            return y
-
-        def run6(lib):
-            cuda_lib.check(lib.seedvr2_conv3d_im2col(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                                      1, T, H, W, c, c, stream()), "conv3d_im2col")
-            return y
-
-        calls = {"cudnn": lambda: F.conv3d(xc, wo, b.bfloat16(), padding=(0, 1, 1))}
-        if k14:
-            ref4 = k1.conv3d_3x3x3_plain(x, w, b, sc, sf)
-            errs = " ".join(f"{n} K1 {rel_l2(run(L, False), ref1):.2e} K4 {rel_l2(run(L, True), ref4):.2e}"
-                            for n, L in trees.items())
-            print(f"K1/K4 c{c} {T}x{H}x{W}: rel L2 {errs}", flush=True)
-            for n, L in conv_libs.items():
-                calls[f"{n} K1"], calls[f"{n} K4"] = (lambda L=L: run(L, False)), (lambda L=L: run(L, True))
-            del ref4
-        if k6:
-            errs = " ".join(f"{n} {rel_l2(run6(L), ref1):.2e}" for n, L in trees.items())
-            print(f"K6 c{c} {T}x{H}x{W}: rel L2 {errs}", flush=True)
-            calls.update({f"{n} K6": (lambda L=L: run6(L)) for n, L in conv_libs.items()})
-        timed_rounds(calls, args.rounds)
-        del x, w, sc, sf, y, ref1, xc, wo
-
-    for c, kt, A, frames, H, W in FOLD_SHAPES if "K2" in kernels else ():
-        x, K = randn(1, frames, H, W, c), randn(kt, 2, 2, c, A * 4 * c, scale=(kt * 4 * c) ** -0.5)
-        bt, bc = torch.randn(2, 2, A * 4 * c, generator=g, device=dev), torch.randn(c, generator=g, device=dev)
-        Tp = frames - kt + 1
-        y = torch.empty((1, Tp * A, 2 * H, 2 * W, c), dtype=torch.bfloat16, device=dev)
-        ref = k2.fold_upsample_conv_plain(x, K, bt, bc, A)
-        xc, Ko = x.permute(0, 4, 1, 2, 3), K.permute(4, 3, 0, 1, 2).contiguous()
-
-        def run2(lib):
-            cuda_lib.check(lib.seedvr2_fold_upsample(x.data_ptr(), K.data_ptr(), bt.data_ptr(), bc.data_ptr(),
-                                                      y.data_ptr(), 1, Tp, kt, A, H, W, c, stream()), "fold_upsample")
-            return y
-
-        errs = " ".join(f"{n} {rel_l2(run2(L), ref):.2e}" for n, L in trees.items())
-        print(f"K2 c{c} kt{kt} A{A} {frames}x{H}x{W}: rel L2 {errs}", flush=True)
-        calls = {"cudnn": lambda: F.conv3d(xc, Ko, padding=(0, 1, 1))}
-        calls.update({n: (lambda L=L: run2(L)) for n, L in conv_libs.items()})
-        timed_rounds(calls, args.rounds)
-        del x, K, y, ref, xc, Ko
-
-    libs7 = {n: L for n, L in libs.items() if ablation_of.get(n, "K7") == "K7" and hasattr(L, "seedvr2_w8a16_linear")}
-    k7_rows = [(cfg.variant, name, M, K, N) for cfg in (dit_3b(), dit_7b()) for M in (7200, 58)
-               for name, K, N, _ in int8_linear_shapes(cfg)]
-    k7_rows.append(("3b", "qkv", 24480, *int8_linear_shapes(dit_3b())[0][1:3]))
-    k7_rows += [("7b", name, M, K, N) for M in IMAGE_ROWS for name, K, N, _ in int8_linear_shapes(dit_7b())]
-    for variant, name, M, K, N in k7_rows if "K7" in kernels else ():
-        q = quant.quantize_linear(torch.randn(K, N, generator=g, device=dev) * K**-0.5)
-        w_q, w_s, w_deq = q["w_q"].t().contiguous(), q["w_s"], quant.dequantize_weight(q)
-        x, y = randn(M, K), torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-        ref = quant.linear_apply_plain(x, w_q, w_s)
-
-        def run7(lib):
-            if hasattr(lib, "seedvr2_w8a16_linear_splitk"):
-                quant.launch(lib, x, w_q, w_s, None, y)
-            else:
-                cuda_lib.check(lib.seedvr2_w8a16_linear(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), None,
-                                                         y.data_ptr(), M, N, K, stream()), "w8a16_linear")
-            return y
-
-        errs = " ".join(f"{n} {rel_l2(run7(L), ref):.2e}" for n, L in libs7.items())
-        print(f"K7 {variant} {name} M{M} K{K} N{N} ({quant.regime(M)}, {2 * M * N * K / 1e9:.1f} GFLOP): rel L2 {errs}",
-              flush=True)
-        calls = {"cublas": lambda: x @ w_deq}
-        calls.update({f"{n} K7": (lambda L=L: run7(L)) for n, L in libs7.items()})
-        timed_rounds(calls, args.rounds)
-        del q, w_q, w_s, w_deq, x, y, ref
-
-    attn_libs = {n: L for n, L in libs.items() if ablation_of.get(n) == "attn"}
-    for variant, thw, quant_qk in WINDOW_SHAPES:
-        kid = "K3q" if quant_qk else "K3"
-        if kid not in kernels:
-            continue
-        cfg = dit_3b() if variant == "3b" else dit_7b()
-        H, D, Lt = cfg.heads, cfg.head_dim, 58
-        for which, dp in zip(("plain", "shifted"), device_plans(build_attn_plans(cfg, thw, Lt), D, dev)):
-            nW, S = dp.valid.shape
-            vqkv, tqkv = randn(1, 3, H, nW, S, D), randn(1, 3, H, Lt, D)
-            norms = 1 + 0.1 * torch.randn(4, D, generator=g, device=dev)
-            wargs = (vqkv, tqkv, dp.vid_cos, dp.vid_sin, dp.txt_cos, dp.txt_sin, dp.valid, dp.rope_txt, norms, True,
-                     cfg.norm_eps)
-            ref = k3.fused_window_attention_plain(*wargs, quant_qk=quant_qk)
-            prep = k3.qk_prepare(here, *wargs, quant_qk)
-
-            def run3(lib):
-                if hasattr(lib, "seedvr2_window_flash"):
-                    return k3.window_flash(lib, vqkv, tqkv, k3.qk_prepare(lib, *wargs, quant_qk), quant_qk)
-                ovid = torch.empty((1, H, nW, S, D), dtype=torch.bfloat16, device=dev)
-                otxt = torch.empty((1, H, nW, Lt, D), dtype=torch.bfloat16, device=dev)
-                cuda_lib.check(lib.seedvr2_window_attention(
-                    vqkv.data_ptr(), tqkv.data_ptr(), *(t.data_ptr() for t in wargs[2:7]), norms.data_ptr(),
-                    ovid.data_ptr(), otxt.data_ptr(), 1, H, nW, S, Lt, int(dp.rope_txt), 1, int(quant_qk),
-                    cfg.norm_eps, D**-0.5, stream()), "window_attention")
-                return ovid, otxt
-
-            errs = " ".join(f"{n} {max(rel_l2(a, b) for a, b in zip(run3(L), ref)):.2e}" for n, L in trees.items())
-            print(f"{kid} {variant} {thw} {which} H{H} nW{nW} S{S} Lt{Lt}: rel L2 {errs}", flush=True)
-            calls = {}
-            if not quant_qk:
-                q, k, v = (torch.cat([vqkv[0, i].permute(1, 0, 2, 3), tqkv[0, i][None].expand(nW, H, Lt, D)], dim=2)
-                           for i in range(3))
-                mask = torch.cat([dp.valid, torch.ones(nW, Lt, dtype=torch.bool, device=dev)], dim=1)[:, None, None]
-                calls["sdpa"] = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-            calls.update({f"{n} {kid}": (lambda L=L: run3(L)) for n, L in trees.items()})
-            calls["this prep"] = lambda: k3.qk_prepare(here, *wargs, quant_qk)
-            calls["this flash"] = lambda: k3.window_flash(here, vqkv, tqkv, prep, quant_qk)
-            calls.update({f"{n} flash": (lambda L=L: k3.window_flash(L, vqkv, tqkv, prep, quant_qk))
-                          for n, L in attn_libs.items()})
-            timed_rounds(calls, args.rounds)
-            del vqkv, tqkv, ref, prep, calls
-
-    flash_libs = {n: L for n, L in libs.items() if ablation_of.get(n, "flash") == "flash"}
-    for name, B, S, H, kv_valid in flash_shapes(dev) if "K5" in kernels else ():
-        D = k5.HEAD_DIM
-        q, k, v = (randn(B, S, H, D) for _ in range(3))
-        o = torch.empty_like(q)
-        ref = k5.flash_attention_plain(q, k, v, kv_valid)
-
-        def run5(lib):
-            cuda_lib.check(lib.seedvr2_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
-                                                       None, o.data_ptr(), B, S, H, k5.padded_len(S) - S, D**-0.5,
-                                                       stream()), "flash_attention")
-            return o
-
-        errs = " ".join(f"{n} {rel_l2(run5(L), ref):.2e}" for n, L in trees.items())
-        live = int(kv_valid.view(B, -1).any(1).sum())
-        print(f"K5 {name} B{B} S{S} H{H} ({int(kv_valid.sum())} valid keys, {live} rows with one): rel L2 {errs}",
-              flush=True)
-        qt, kt, vt, mask = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_valid[:, None, None]
-        calls = {"sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)}
-        calls.update({f"{n} K5": (lambda L=L: run5(L)) for n, L in flash_libs.items()})
-        timed_rounds(calls, args.rounds)
-        del q, k, v, o, ref, calls
-
-    for c, T, H, W in CONV_SHAPES if "K8" in kernels else ():
-        x = randn(1, T + 2, H, W, c)
-        gw, gb = 1 + 0.2 * torch.randn(c, generator=g, device=dev), 0.3 * torch.randn(c, generator=g, device=dev)
-        ref = tables_fp64(x, gw, gb, 32)
-        got = {"plain tables": k1.gn_silu_tables_plain(x, gw, gb, 32)}
-        k8_libs = {n: L for n, L in trees.items() if hasattr(L, "seedvr2_gn_stats")}
-        got.update({f"{n} K8": k1.gn_stats_launch(L, x, gw, gb, 32) for n, L in k8_libs.items()})
-        errs = " ".join(f"{n} {max_rel(a[0], ref[0]):.2e} / {max_rel(a[1], ref[1]):.2e}" for n, a in got.items())
-        print(f"K8 c{c} {T + 2}x{H}x{W} ({x.numel() * 2 / 1e6:.0f} MB): max rel err of scale / shift vs fp64 {errs}",
-              flush=True)
-        xg = x.view(1, T + 2, H * W, 32, c // 32)
-        calls = {"var_mean": lambda: torch.var_mean(xg, dim=(2, 4), correction=0),
-                 "plain tables": lambda: k1.gn_silu_tables_plain(x, gw, gb, 32)}
-        calls.update({f"{n} K8": (lambda L=L: k1.gn_stats_launch(L, x, gw, gb, 32)) for n, L in k8_libs.items()})
-        timed_rounds(calls, args.rounds)
-        del x, xg, ref, got, calls
+    run(Bench(libs, ablation_of, args.rounds, dev, kernels))
 
 
 if __name__ == "__main__":

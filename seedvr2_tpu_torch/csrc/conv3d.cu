@@ -1,4 +1,4 @@
-// Plain C entry points of K1 / K4 and K6 (conv3d.cuh on conv_pipeline.cuh)
+// Plain C entry points of K1 / K4 (conv3d.cuh on conv_pipeline.cuh)
 // and the error-string helper of the kernel library. Every .cu file of
 // csrc/ is one translation unit, compiled on its own (in parallel) and
 // linked into one shared library that ops/cuda_lib.py loads with ctypes.
@@ -44,21 +44,15 @@ extern "C" {
 const char* seedvr2_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // x [B, T+2, H, W, cin], w [27, cin, cout] bf16; scale == shift == nullptr:
-// K1; both given ([B, T+2, cin] fp32): K4. cin % 64 == 0, cout % 128 == 0.
+// K1 (and K6, which views w flat as [27*cin, cout]: the same bytes); both
+// given ([B, T+2, cin] fp32): K4. cin % 64 == 0, cout % 128 == 0.
 int seedvr2_conv3d_3x3x3(const void* x, const void* w, const void* bias, const void* scale, const void* shift,
                          void* y, int B, int T, int H, int W, int cin, int cout, void* stream) {
   return scale != nullptr ? conv3d<true>(x, w, bias, scale, shift, y, B, T, H, W, cin, cout, stream)
                           : conv3d<false>(x, w, bias, nullptr, nullptr, y, B, T, H, W, cin, cout, stream);
 }
 
-// K6: x [B, T+2, H, W, cin], wf [27*cin, cout] bf16 (K1's weight viewed
-// flat); the same kernel as K1's.
-int seedvr2_conv3d_im2col(const void* x, const void* wf, const void* bias, void* y, int B, int T, int H, int W,
-                          int cin, int cout, void* stream) {
-  return conv3d<false>(x, wf, bias, nullptr, nullptr, y, B, T, H, W, cin, cout, stream);
-}
-
-// What the runtime holds for the kernel of K1 / K6 (gn == 0) or K4 (gn !=
+// What the runtime holds for the kernel of K1 and K6 (gn == 0) or K4 (gn !=
 // 0): registers a thread, local memory (spills) a thread, and the dynamic
 // shared memory it launches with.
 int seedvr2_conv3d_attributes(int gn, int* regs, int* local_bytes, int* smem_bytes) {

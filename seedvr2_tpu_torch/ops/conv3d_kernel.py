@@ -10,15 +10,14 @@ Counterpart of seedvr2_tpu/ops/conv3d_kernel.py:
   kernel (the JAX package leaves them to XLA's reductions), a hand-written
   one because their plain version cost more than K4 (csrc/gn_stats.cuh);
 - ``conv3d_3x3x3_im2col(x_ext, w, b)`` is K6, the conv as one product over
-  the folded [M, 27*Cin] axis: the kernel K1 runs too.
-All three are csrc/conv3d.cuh's policy on the TMA + wgmma pipeline of
+  the folded [M, 27*Cin] axis: K1 itself, launched through K1's entry.
+K1, K4 and K6 are csrc/conv3d.cuh's policy on the TMA + wgmma pipeline of
 csrc/conv_pipeline.cuh (K2, ops/fold_upsample_kernel.py, is the same
 kernel with another policy). On a CUDA tensor each launches its
 hand-written kernel; on a CPU tensor it runs the plain version below.
 There is no other route: a CUDA tensor the kernel does not take raises.
-Each has its own C entry and launch counter: ``conv3d_3x3x3.launches``
-(K1), ``conv3d_3x3x3.launches_gn`` (K4), ``conv3d_3x3x3_im2col.launches``
-(K6), ``gn_silu_tables.launches`` (K8).
+Launch counters: ``conv3d_3x3x3.launches`` (K1, and K6's calls),
+``conv3d_3x3x3.launches_gn`` (K4), ``gn_silu_tables.launches`` (K8).
 """
 
 from __future__ import annotations
@@ -143,7 +142,7 @@ def conv3d_3x3x3_plain(
     return y.permute(0, 2, 3, 4, 1).to(x_ext.dtype).contiguous()
 
 
-def _check_conv_args(name, x_ext, w, b):
+def _check_conv_args(x_ext, w, b):
     """The kernel's contract: bf16 x_ext and w, fp32 b, on one device;
     Cin % 64 == 0 (its stage depth) and Cout % 128 == 0 (its tile width;
     every conv the routing rule sends here is 128-512 wide). x_ext and w
@@ -153,12 +152,13 @@ def _check_conv_args(name, x_ext, w, b):
     B, Text, H, W, cin = x_ext.shape
     cout = w.shape[-1]
     T = Text - 2
-    cuda_lib.require(T >= 1, f"{name}: need T+2 >= 3 frames, got {Text}")
-    cuda_lib.require(cin % 64 == 0 and cout % 128 == 0, f"{name}: channels {cin}->{cout} not supported")
+    cuda_lib.require(T >= 1, f"conv3d_3x3x3: need T+2 >= 3 frames, got {Text}")
+    cuda_lib.require(cin % 64 == 0 and cout % 128 == 0, f"conv3d_3x3x3: channels {cin}->{cout} not supported")
     cuda_lib.require_cuda_tensor(x_ext, "x_ext", torch.bfloat16)
     cuda_lib.require_cuda_tensor(w, "w", torch.bfloat16, (3, 3, 3, cin, cout))
     cuda_lib.require_cuda_tensor(b, "b", torch.float32, (cout,))
-    cuda_lib.require(w.device == x_ext.device and b.device == x_ext.device, f"{name}: tensors on different devices")
+    cuda_lib.require(w.device == x_ext.device and b.device == x_ext.device,
+                     "conv3d_3x3x3: tensors on different devices")
     return B, T, H, W, cin, cout
 
 
@@ -181,7 +181,7 @@ def conv3d_3x3x3(
         raise ValueError("conv3d_3x3x3: give both scale and shift, or neither")
     if x_ext.device.type == "cpu":
         return conv3d_3x3x3_plain(x_ext, w, b, scale, shift)
-    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3", x_ext, w, b)
+    B, T, H, W, cin, cout = _check_conv_args(x_ext, w, b)
     gn = scale is not None
     if gn:
         for t, n in ((scale, "scale"), (shift, "shift")):
@@ -215,26 +215,12 @@ def conv3d_3x3x3_im2col_plain(x_ext: torch.Tensor, w: torch.Tensor, b: Optional[
 
 def conv3d_3x3x3_im2col(x_ext: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K6: the same contract as conv3d_3x3x3 (no tables), computed as one
-    product over the folded K axis; the kernel takes ``w`` viewed flat as
-    [27*Cin, Cout] (_check_conv_args). It is K1's kernel, through its own
-    C entry and counter."""
+    product over the folded K axis. It is K1: the kernel reads ``w`` as
+    [27*Cin, Cout] row-major, the same bytes as [3, 3, 3, Cin, Cout], so
+    the call launches K1's entry and counts as a K1 launch."""
     if x_ext.device.type == "cpu":
         return conv3d_3x3x3_im2col_plain(x_ext, w, b)
-    B, T, H, W, cin, cout = _check_conv_args("conv3d_3x3x3_im2col", x_ext, w, b)
-    wf = w.view(27 * cin, cout)
-    y = torch.empty((B, T, H, W, cout), dtype=torch.bfloat16, device=x_ext.device)
-    lib = cuda_lib.library()
-    with torch.cuda.device(x_ext.device):
-        code = lib.seedvr2_conv3d_im2col(
-            x_ext.data_ptr(), wf.data_ptr(), b.data_ptr(), y.data_ptr(), B, T, H, W, cin, cout,
-            cuda_lib.stream_ptr(x_ext),
-        )
-    cuda_lib.check(code, "conv3d_3x3x3_im2col")
-    conv3d_3x3x3_im2col.launches += 1
-    return y
-
-
-conv3d_3x3x3_im2col.launches = 0
+    return conv3d_3x3x3(x_ext, w, b)
 
 
 def kernel_attributes(gn: bool = False) -> dict:

@@ -46,7 +46,6 @@ _i = ctypes.c_int
 _f = ctypes.c_float
 _SIGNATURES = {
     "seedvr2_conv3d_3x3x3": [_vp] * 6 + [_i] * 6 + [_vp],
-    "seedvr2_conv3d_im2col": [_vp] * 4 + [_i] * 6 + [_vp],
     "seedvr2_conv3d_attributes": [_i] + [ctypes.POINTER(_i)] * 3,
     "seedvr2_fold_upsample": [_vp] * 5 + [_i] * 7 + [_vp],
     "seedvr2_fold_upsample_attributes": [ctypes.POINTER(_i)] * 3,

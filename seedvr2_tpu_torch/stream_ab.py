@@ -1,7 +1,8 @@
 """The fused route's output stream on the card: where the device -> host
-copies run, how much of them a kernel hides, the device's idle share and
-the calls that make the host wait, for one ``phases.generate`` run; and an
-A/B of this tree against other source trees on one clip.
+copies run, how much of them a kernel hides and the calls that make the
+host wait, for one ``phases.generate`` run; and an A/B of this tree against
+other source trees on one clip. The device's idle share is the benchmark's
+reading (portbench's ``idle_share``).
 
     python -m seedvr2_tpu_torch.stream_ab --against DIR [--against DIR ...] [--rounds 2]
 
@@ -34,19 +35,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIP = (15, 360, 640, 3)
 
 
-def union_us(intervals) -> float:
-    """Total length of the union of (start, end) intervals."""
-    total, end = 0.0, None
-    for s, e in sorted(intervals):
-        if end is None or s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def overlap_us(spans, covered) -> float:
     """Length of ``spans`` that lies inside the union of ``covered``."""
     merged = []
@@ -67,10 +55,9 @@ def overlap_us(spans, covered) -> float:
 
 def trace_copies(runner, frames) -> dict:
     """One phases.generate (packed) under torch.profiler (CPU + CUDA): the
-    device -> host copies' count, bytes and ms, the ms of them that overlap
-    a kernel on the compute stream (the stream that runs most kernels), and
-    the device's idle share, 1 - (union of every kernel, copy and memset on
-    the device) / (the run's wall)."""
+    device -> host copies' count, bytes and ms, and the ms of them that
+    overlap a kernel on the compute stream (the stream that runs most
+    kernels)."""
     import torch
 
     from seedvr2_tpu_torch.pipeline import phases
@@ -87,13 +74,12 @@ def trace_copies(runner, frames) -> dict:
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
-    kernels, copies, busy, streams = [], [], [], {}
+    kernels, copies, streams = [], [], {}
     for e in events:
         cat, dur = e.get("cat", ""), e.get("dur")
-        if dur is None or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+        if dur is None or cat not in ("kernel", "gpu_memcpy"):
             continue
         span = (float(e["ts"]), float(e["ts"]) + float(dur))
-        busy.append(span)
         stream = e.get("args", {}).get("stream")
         if cat == "kernel":
             kernels.append((stream, span))
@@ -107,8 +93,7 @@ def trace_copies(runner, frames) -> dict:
     return {"wall_s": wall, "d2h_count": len(copies), "d2h_bytes": sum(b for _, _, b in copies),
             "d2h_ms": sum(e - s for s, e in spans) / 1e3,
             "d2h_overlapping_compute_ms": overlap_us(spans, [s for st, s in kernels if st == compute]) / 1e3,
-            "d2h_streams": sorted({str(st) for st, _, _ in copies}), "compute_stream": str(compute),
-            "device_busy_s": union_us(busy) / 1e6, "idle_share": 1.0 - union_us(busy) / 1e6 / wall}
+            "d2h_streams": sorted({str(st) for st, _, _ in copies}), "compute_stream": str(compute)}
 
 
 def sync_census(runner, frames) -> dict:
@@ -222,9 +207,8 @@ def main(argv=None):
     summary = {}
     for row in rows:
         key = f"{os.path.relpath(row['tree'], ROOT) if row['tree'] != ROOT else 'this tree'} {row['route']}"
-        entry = summary.setdefault(key, {"walls_s": [], "idle_share": [], "d2h_ms": [], "codes_sha1": set()})
+        entry = summary.setdefault(key, {"walls_s": [], "d2h_ms": [], "codes_sha1": set()})
         entry["walls_s"] += row["walls_s"]
-        entry["idle_share"].append(row["idle_share"])
         entry["d2h_ms"].append(row["d2h_ms"])
         entry["codes_sha1"].add(row["codes_sha1"])
     for entry in summary.values():

@@ -121,9 +121,9 @@ def test_k6_plain_matches_pallas_im2col(shape):
     B, T, H, W, cin, cout = shape
     x, w, b = _rand((B, T + 2, H, W, cin), 20, 0.5), _rand((3, 3, 3, cin, cout), 21, 0.05), _rand((cout,), 22, 0.1)
     ref = np.asarray(jck.conv3d_3x3x3_im2col(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True))
-    n0 = conv3d_kernel.conv3d_3x3x3_im2col.launches
+    n0 = conv3d_kernel.conv3d_3x3x3.launches
     got = conv3d_kernel.conv3d_3x3x3_im2col(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
-    assert conv3d_kernel.conv3d_3x3x3_im2col.launches == n0
+    assert conv3d_kernel.conv3d_3x3x3.launches == n0  # a CPU tensor runs the plain version: no K1 launch
     assert got.shape == ref.shape
     np.testing.assert_allclose(got.numpy(), ref, **IM2COL_TOL)
 

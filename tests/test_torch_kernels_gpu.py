@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card, at small shapes (a mirror of chip_smoke.py's kernel phase).
+card, at their edges (seedvr2_tpu_torch/conv_ab.py times them and checks
+them again at the main paths' shapes).
 
 Marked ``gpu``: without a CUDA device every test skips, decided inside the
 ``cuda`` fixture so that all pytest-xdist workers collect the same tests.
@@ -60,10 +61,10 @@ def _check_conv(cuda, B, T, cin, cout, H, W):
     x = torch.randn(B, T + 2, H, W, cin, device=cuda, generator=g).bfloat16()
     w = (torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5).bfloat16()
     b = torch.randn(cout, device=cuda, generator=g)
-    n0 = (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3_im2col.launches)
+    n0 = (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn)
     y = k1.conv3d_3x3x3(x, w, b)
     torch.cuda.synchronize()
-    assert (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3_im2col.launches) == (n0[0] + 1, n0[1])
+    assert (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn) == (n0[0] + 1, n0[1])
     ref = k1.conv3d_3x3x3_plain(x, w, b)
     assert bool(torch.isfinite(y).all())
     assert _rel(y, ref) <= REL_BOUND
@@ -128,10 +129,10 @@ def _check_im2col(cuda, B, T, cin, cout, H, W):
     x = torch.randn(B, T + 2, H, W, cin, device=cuda, generator=g).bfloat16()
     w = (torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5).bfloat16()
     b = torch.randn(cout, device=cuda, generator=g)
-    n0 = (k1.conv3d_3x3x3_im2col.launches, k1.conv3d_3x3x3.launches)
+    n0 = (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn)
     y = k1.conv3d_3x3x3_im2col(x, w, b)
     torch.cuda.synchronize()
-    assert (k1.conv3d_3x3x3_im2col.launches, k1.conv3d_3x3x3.launches) == (n0[0] + 1, n0[1])
+    assert (k1.conv3d_3x3x3.launches, k1.conv3d_3x3x3.launches_gn) == (n0[0] + 1, n0[1])  # K6 is a K1 launch
     ref = k1.conv3d_3x3x3_im2col_plain(x, w, b)
     assert bool(torch.isfinite(y).all())
     assert _rel(y, ref) <= REL_BOUND

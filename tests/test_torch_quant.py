@@ -110,9 +110,10 @@ def test_k7_text_rows_are_the_kernel_headers():
 
 @pytest.mark.parametrize("variant", ["3b", "7b"])
 def test_k7_row_shapes_are_the_int8_linears(variant):
-    """conv_ab.int8_linear_shapes (K7's rows there and in chip_smoke.py's
-    phase 3) gives exactly the (K, N) of the block linears that
-    quantize="int8" stores as int8, N flattened as K7 reads it."""
+    """conv_ab.int8_linear_shapes (K7's rows there, and the shapes
+    chip_smoke.py's phase 10 expects K7 at) gives exactly the (K, N) of the
+    block linears that quantize="int8" stores as int8, N flattened as K7
+    reads it."""
     cfg = config.dit_3b() if variant == "3b" else config.dit_7b()
     dense = nadit.NaDiT(cfg, "meta", torch.bfloat16)
     got = set()
